@@ -1,0 +1,137 @@
+"""Whole-image rendering: the render half of the JAX trainer (port of
+``NeRSembleTrainer.render_chunk``, ``render_image`` and ``_render_hit_mask``,
+nersemble_tpu/engine/trainer.py:331-398, 645-780).
+
+``Renderer`` holds the model, its parameters and the occupancy state. A
+frame's rays are packed (rays that provably miss every occupied cell are
+composited as background without evaluating anything), cut into chunks,
+rendered with ``render_rays(train=False)`` and scattered back. The xz-quad
+gather operand is built once per parameter state and reused across chunks
+and frames.
+"""
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from nersemble_tpu_torch.models.nersemble import NeRSembleModel
+from nersemble_tpu_torch.ops.sampling import occupied_world_aabb, ray_aabb_intersect
+from nersemble_tpu_torch.utils.params import ParamTree
+from nersemble_tpu_torch.utils.windows import sched_values
+
+RAY_KEYS = ("origins", "directions", "timesteps")
+
+
+class Renderer:
+    """Model + parameters + occupancy grid state (+ optional frustum mask)."""
+
+    def __init__(self, model: NeRSembleModel, params: ParamTree,
+                 grid_occs: torch.Tensor,
+                 grid_mask: Optional[torch.Tensor] = None):
+        self.model = model
+        self.params = params
+        self.grid_occs = grid_occs
+        self.grid_mask = grid_mask
+        self.device = grid_occs.device
+        self._fparams = None   # (params, table version, prepared field)
+        self._packing = None   # (grid_occs, grid_mask, lo, hi, any_occ)
+
+    def fparams(self) -> Dict:
+        """The prepared field (quad table) for the current parameters,
+        rebuilt when the parameter object or its table changes."""
+        table = self.params.field.table
+        key = (self.params, table._version)
+        if self._fparams is None or self._fparams[:2] != key:
+            self._fparams = (*key, self.model.prepare_field(self.params))
+        return self._fparams[2]
+
+    def render_chunk(self, batch: Dict, sched: Dict,
+                     budget: Optional[int] = None) -> Dict:
+        """One chunk -> packed [R, 8] (rgb 3 | depth 1 | acc 1 | deformation
+        3) plus the valid-sample and budget-drop counts."""
+        binaries = self.model.binaries(self.grid_occs, self.grid_mask)
+        out = self.model.render_rays(self.params, batch, binaries, sched,
+                                     train=False, budget=budget,
+                                     fparams=self.fparams())
+        cols = [out["rgb"], out["depth"], out["accumulation"],
+                out.get("deformation", torch.zeros_like(out["rgb"]))]
+        return {"_packed": torch.cat(cols, dim=1),
+                "_n_valid": out["num_samples_per_ray"].sum(),
+                "_n_budget_dropped": out["num_budget_dropped"]}
+
+    def render_hit_mask(self, origins: torch.Tensor,
+                        directions: torch.Tensor) -> torch.Tensor:
+        """bool [n]: which rays can hit an occupied cell (slab test against
+        the expanded occupied-cell AABB, cached per grid state)."""
+        cache = self._packing
+        if (cache is None or cache[0] is not self.grid_occs
+                or cache[1] is not self.grid_mask):
+            lo, hi, any_occ = occupied_world_aabb(
+                self.model.binaries(self.grid_occs, self.grid_mask),
+                self.model.aabb_min, self.model.aabb_max)
+            cache = self._packing = (self.grid_occs, self.grid_mask, lo, hi,
+                                     any_occ)
+        _, _, lo, hi, any_occ = cache
+        if not any_occ:
+            return torch.zeros(origins.shape[0], dtype=torch.bool,
+                               device=origins.device)
+        cfg = self.model.config
+        t_near, t_far = ray_aabb_intersect(origins, directions, lo, hi)
+        return torch.clamp(t_near, min=cfg.near_plane) \
+            <= torch.clamp(t_far, max=cfg.far_plane)
+
+    @torch.no_grad()
+    def render_image(self, image_rays: Dict, step: int,
+                     chunk: int = 1024,
+                     budget: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """Render a frame: ``image_rays`` holds ``height``, ``width`` and
+        per-pixel ``origins``, ``directions``, ``timesteps`` (numpy or
+        tensors). ``budget``: None (R * S * fraction per chunk) or a fixed
+        int; the JAX package's ``"auto"`` probe is not ported yet.
+        Returns [H, W, C] numpy arrays."""
+        if budget is not None and not isinstance(budget, int):
+            raise NotImplementedError(f"budget={budget!r} is not ported yet")
+        cfg = self.model.config
+        H, W = image_rays["height"], image_rays["width"]
+        n = H * W
+        rays = {key: torch.as_tensor(image_rays[key], device=self.device)
+                for key in RAY_KEYS}
+        pack_idx = None
+        if cfg.sampling.eval_ray_packing and not cfg.disable_occupancy_grid:
+            hit = self.render_hit_mask(rays["origins"], rays["directions"])
+            pack_idx = torch.nonzero(hit)[:, 0]
+            rays = {key: arr[pack_idx] for key, arr in rays.items()}
+        n_render = n if pack_idx is None else int(pack_idx.numel())
+        sched = sched_values(cfg, step)
+
+        parts = []
+        for lo in range(0, n_render, chunk):
+            hi = min(lo + chunk, n_render)
+            batch = {}
+            for key, arr in rays.items():
+                arr = arr[lo:hi]
+                if hi - lo < chunk:
+                    # pad with the last ray: the per-chunk budget is a
+                    # function of the chunk size, as in the JAX renderer
+                    arr = torch.cat([arr, arr[-1:].expand(chunk - (hi - lo),
+                                                          *arr.shape[1:])])
+                batch[key] = arr
+            out = self.render_chunk(batch, sched, budget)
+            parts.append(out["_packed"][:hi - lo])
+
+        packed = torch.zeros(n, 8, dtype=torch.float32, device=self.device)
+        if pack_idx is None:
+            if parts:
+                packed = torch.cat(parts)
+        else:
+            # skipped rays: zero weights -> rgb = background, the rest 0
+            packed[:, 0:3] = self.model.background
+            if parts:
+                packed[pack_idx] = torch.cat(parts)
+        packed = packed.cpu().numpy()
+        image = {"rgb": packed[:, 0:3], "depth": packed[:, 3:4],
+                 "accumulation": packed[:, 4:5]}
+        if cfg.use_deformation_field:
+            image["deformation"] = packed[:, 5:8]
+        return {key: val.reshape(H, W, -1) for key, val in image.items()}

@@ -1,0 +1,359 @@
+"""The NeRSemble dynamic radiance-field model, render path (port of
+nersemble_tpu/models/nersemble.py, ``render_rays(train=False)``).
+
+Occupancy-grid ray marching -> per-timestep latent lookup -> SE(3) warp
+into canonical space -> hash-ensemble field -> alpha compositing. The model
+object holds the static configuration; parameters are a ``ParamTree``
+(``init_params`` or ``engine.checkpoints.params_from_numpy``) passed in,
+like the JAX package's functional style.
+
+World/normalized composition quirk kept from the reference: the warp is
+computed on AABB-normalized positions and its offset is added to the WORLD
+position.
+"""
+
+import copy
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from nersemble_tpu_torch.config import ModelConfig
+from nersemble_tpu_torch.models.deformation import (
+    deformation_offsets,
+    init_deformation_field,
+)
+from nersemble_tpu_torch.models.field import (
+    build_levels,
+    field_density,
+    field_rgb,
+    init_field,
+    prepare_field,
+)
+from nersemble_tpu_torch.ops.occupancy import occupancy_binaries
+from nersemble_tpu_torch.ops.rendering import (
+    exclusive_cumsum,
+    render_accumulation,
+    render_depth_expected,
+    render_expected_value,
+    render_rgb,
+    render_weights,
+)
+from nersemble_tpu_torch.ops.sampling import (
+    compact_samples,
+    compact_samples_monotone,
+    dilate_binaries,
+    march_rays,
+    scatter_rows_back,
+)
+from nersemble_tpu_torch.utils.params import ParamTree, normal
+
+_BACKGROUNDS = {"white": (1.0, 1.0, 1.0), "black": (0.0, 0.0, 0.0)}
+
+
+class NeRSembleModel:
+    """Static configuration and the render computation over a ParamTree."""
+
+    def __init__(self, config: ModelConfig, device="cpu"):
+        # own copy: auto-sizing the candidate count below edits it
+        self.config = config = copy.deepcopy(config)
+        self.device = torch.device(device)
+        self.levels = build_levels(config)
+        box = np.asarray(config.scene_box, np.float32)
+        self.aabb_min = torch.from_numpy(box[0]).to(self.device)
+        self.aabb_max = torch.from_numpy(box[1]).to(self.device)
+        self.background = torch.tensor(_BACKGROUNDS[config.background_color],
+                                       dtype=torch.float32, device=self.device)
+        self.compute_dtype = getattr(torch, config.compute_dtype)
+        if config.use_hash_ensemble and \
+                config.latent_dim_time != config.hash_ensemble.n_hash_encodings:
+            raise ValueError("latent_dim_time must equal n_hash_encodings")
+        if config.cone_angle > 0:
+            raise NotImplementedError("cone-angle marching is not ported yet")
+        if config.early_stop_eps > 0:
+            raise NotImplementedError("early_stop_eps > 0 is not ported yet")
+        # the candidate comb must span the (coarsest-level) scene box
+        diag = float(np.linalg.norm(box[1] - box[0])) \
+            * (2.0 ** (config.grid_levels - 1))
+        needed = int(np.ceil(diag / config.render_step_size))
+        if config.sampling.max_candidates_per_ray == -1:
+            config.sampling.max_candidates_per_ray = (needed + 127) // 128 * 128
+
+    # -- parameters ----------------------------------------------------------
+
+    def init_params(self, generator: torch.Generator, device=None) -> ParamTree:
+        """Random parameters drawn from ``generator`` (on its device), moved
+        to ``device`` (default: the model's)."""
+        cfg = self.config
+        tree = {"field": init_field(generator, cfg, self.levels)}
+        if cfg.use_deformation_field:
+            tree["deformation"] = init_deformation_field(
+                generator, cfg.deformation_field)
+        if cfg.use_deformation_field or cfg.use_hash_ensemble:
+            tree["time_embedding"] = normal(
+                (cfg.n_timesteps, cfg.latent_dim_time),
+                0.01 / math.sqrt(cfg.latent_dim_time), generator)
+            if cfg.use_separate_deformation_time_embedding \
+                    and cfg.use_deformation_field:
+                d_dim = cfg.deformation_field.warp_code_dim
+                tree["time_embedding_deformation"] = normal(
+                    (cfg.n_timesteps, d_dim), 0.01 / math.sqrt(d_dim), generator)
+        return ParamTree(tree).to(device or self.device)
+
+    def binaries(self, grid_occs: torch.Tensor,
+                 frustum_grid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.config
+        g, levels = cfg.grid_resolution, cfg.grid_levels
+        shape = (g, g, g) if levels == 1 else (levels, g, g, g)
+        if cfg.disable_occupancy_grid:
+            b = torch.ones(shape, dtype=torch.bool, device=grid_occs.device)
+            if frustum_grid is not None:
+                # the frustum grid lies on the base level's box
+                if levels == 1:
+                    b = b & frustum_grid
+                else:
+                    b[0] = frustum_grid
+            return b
+        return occupancy_binaries(grid_occs, cfg.occ_thre,
+                                  frustum_grid).reshape(shape)
+
+    def prepare_field(self, params: ParamTree) -> Dict:
+        return prepare_field(params.field, self.config, self.levels)
+
+    # -- per-sample evaluation -----------------------------------------------
+
+    def _time_codes(self, params, timesteps):
+        tc = tc_def = None
+        if "time_embedding" in params:
+            tc = params.time_embedding[timesteps]
+            tc_def = params.time_embedding_deformation[timesteps] \
+                if "time_embedding_deformation" in params else tc
+        return tc, tc_def
+
+    def _chunked_samples(self, body, inputs: tuple, n: int):
+        """``body(*inputs)`` over the leading sample axis in equal,
+        256-aligned pieces of at most ``max_n_samples_per_batch`` rows,
+        bounding the [piece, 2L, 4W] gather buffers."""
+        chunk = self.config.max_n_samples_per_batch
+        if chunk == -1 or n <= chunk:
+            return body(*inputs)
+        k = -(-n // chunk)
+        chunk = -(-(-(-n // k)) // 256) * 256
+        outs = [body(*(a[lo:lo + chunk] for a in inputs))
+                for lo in range(0, n, chunk)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(parts) for parts in zip(*outs))
+        return torch.cat(outs)
+
+    def _warp_positions(self, params, positions, tc_def, sched):
+        """World positions + the deformation offset (and the offset)."""
+        cfg = self.config
+        if not cfg.use_deformation_field:
+            return positions, None
+        norm = (positions - self.aabb_min) / (self.aabb_max - self.aabb_min)
+        offsets = deformation_offsets(
+            params.deformation, norm, tc_def, cfg.deformation_field,
+            window_param=sched.get("window_deform"),
+            compute_dtype=self.compute_dtype)
+        return positions + offsets, offsets
+
+    def _density(self, params, fparams, pos, ts, sched):
+        tc, tc_def = self._time_codes(params, ts)
+        pos, _ = self._warp_positions(params, pos, tc_def, sched)
+        density, _ = field_density(fparams, pos, tc, self.config, self.levels,
+                                   self.aabb_min, self.aabb_max,
+                                   window_hash=sched.get("window_hash"),
+                                   compute_dtype=self.compute_dtype)
+        return density
+
+    def _density_rgb(self, params, fparams, pos, ts, dirs, sched):
+        tc, tc_def = self._time_codes(params, ts)
+        pos, offsets = self._warp_positions(params, pos, tc_def, sched)
+        density, geo = field_density(fparams, pos, tc, self.config, self.levels,
+                                     self.aabb_min, self.aabb_max,
+                                     window_hash=sched.get("window_hash"),
+                                     compute_dtype=self.compute_dtype)
+        rgb = field_rgb(fparams, dirs, geo, self.config, self.compute_dtype)
+        if offsets is None:
+            offsets = torch.zeros_like(pos)
+        return density, rgb, offsets
+
+    def _probe_termination(self, params, fparams, samples, ray_pack,
+                           budget: int, sched: Dict) -> torch.Tensor:
+        """Sigma-probed early termination, the fixed-shape analogue of
+        nerfacc's eval transmittance stop: probe density at every ps-th
+        slot (its own budget = budget / ps), accumulate coarse
+        transmittance, and keep samples only up to one coarse group past
+        the point where T falls below the threshold. Returns keep [R, S]."""
+        scfg = self.config.sampling
+        ps = scfg.eval_termination_probe_stride
+        R, S = samples.mask.shape
+        Sc = S // ps
+        sub_mask = samples.mask[:, :Sc * ps:ps]
+        sub_t = ((samples.t_starts + samples.t_ends) * 0.5)[:, :Sc * ps:ps]
+        deltas = (samples.t_ends - samples.t_starts) * samples.mask
+        delta_c = deltas[:, :Sc * ps].reshape(R, Sc, ps).sum(-1)
+        bc = min(-(-max(budget // ps, 128) // 128) * 128, R * Sc)
+        # a strided view of the prefix mask is still per-ray monotone
+        sel_c, kept_c = compact_samples_monotone(sub_mask, bc)
+        tmid_c = sub_t.t().reshape(-1)[sel_c]
+        picked_c = ray_pack[sel_c % R]
+        pos_p = picked_c[:, 0:3] + picked_c[:, 3:6] * tmid_c[:, None]
+        sigma_p = self._chunked_samples(
+            lambda p, t: self._density(params, fparams, p, t, sched),
+            (pos_p, picked_c[:, 6].to(torch.int64)), bc)
+        sig_back = scatter_rows_back(sigma_p[:, None], sel_c, R * Sc)[:, 0]
+        sigma_c = sig_back.reshape(Sc, R).t() * kept_c
+        trans_c = torch.exp(-exclusive_cumsum(sigma_c * delta_c, dim=-1))
+        alive = trans_c >= scfg.eval_early_stop_trans
+        alive = alive | torch.cat([torch.ones_like(alive[:, :1]),
+                                   alive[:, :-1]], dim=1)
+        keep = alive.repeat_interleave(ps, dim=1)
+        if S > Sc * ps:
+            keep = torch.cat([keep, alive[:, -1:].expand(R, S - Sc * ps)], dim=1)
+        return keep
+
+    def _evaluate_samples(self, params, fparams, samples, ray_pack,
+                          budget: int, mask_monotone: bool, sched: Dict):
+        """Field evaluation of the [R, S] samples: the ``budget`` picked by
+        global slot-major compaction when it is below R * S (results
+        scattered back to their slots), else every slot. Returns (samples
+        with the kept mask, sigmas [R, S], rgbs [R, S, 3], normalized
+        offsets [R, S, 3], budget-dropped count)."""
+        R, S = samples.mask.shape
+
+        def body(pos, ts, dirs):
+            return self._density_rgb(params, fparams, pos, ts, dirs, sched)
+
+        if budget >= R * S:
+            positions = samples.positions(ray_pack[:, 0:3], ray_pack[:, 3:6])
+            flat_ts = ray_pack[:, 6].to(torch.int64)[:, None].expand(R, S)
+            flat_dirs = ray_pack[:, None, 3:6].expand(R, S, 3)
+            density, rgbs, offsets = self._chunked_samples(
+                body, (positions.reshape(R * S, 3), flat_ts.reshape(R * S),
+                       flat_dirs.reshape(R * S, 3)), R * S)
+            return (samples, density.reshape(R, S), rgbs.reshape(R, S, 3),
+                    offsets.reshape(R, S, 3), 0)
+
+        if mask_monotone:  # sort-free staircase compaction
+            sel, kept = compact_samples_monotone(samples.mask, budget)
+        else:
+            sel, kept = compact_samples(samples.mask, budget)
+        n_dropped = samples.mask.sum() - kept.sum()
+        samples = samples._replace(mask=kept)
+        tmid = ((samples.t_starts + samples.t_ends) * 0.5).t().reshape(-1)[sel]
+        picked = ray_pack[sel % R]
+        pos = picked[:, 0:3] + picked[:, 3:6] * tmid[:, None]
+        density, rgbs, offsets = self._chunked_samples(
+            body, (pos, picked[:, 6].to(torch.int64), picked[:, 3:6]), budget)
+        back = scatter_rows_back(torch.cat([density[:, None], rgbs, offsets], 1),
+                                 sel, R * S).reshape(S, R, 7).transpose(0, 1)
+        return (samples, back[..., 0] * kept, back[..., 1:4], back[..., 4:7],
+                n_dropped)
+
+    # -- rendering -----------------------------------------------------------
+
+    @torch.no_grad()
+    def render_rays(self, params: ParamTree, rays: Dict, binaries, sched: Dict,
+                    train: bool = False, budget: Optional[int] = None,
+                    fparams: Optional[Dict] = None) -> Dict:
+        """Render a ray batch at eval: origins [R,3], directions [R,3],
+        optional integer timesteps [R]. ``budget`` overrides the compaction
+        sample budget (None: R * S * global_budget_fraction). ``fparams``: a
+        prebuilt ``prepare_field`` result, reused across an image's chunks.
+        """
+        if train:
+            raise NotImplementedError("render_rays(train=True) is not ported yet")
+        cfg, scfg = self.config, self.config.sampling
+        origins, directions = rays["origins"], rays["directions"]
+        R = origins.shape[0]
+        S = scfg.max_samples_per_ray
+        if scfg.eval_max_samples_per_ray > 0:
+            S = min(S, scfg.eval_max_samples_per_ray)
+        n_cand = scfg.max_candidates_per_ray
+
+        # eval strided march on the dilated grid: one probe vouches for
+        # `stride` candidates while (stride/2) * step <= one cell
+        march_binaries, occupancy_stride = binaries, 1
+        if (scfg.eval_coarse_prefilter and binaries is not None
+                and not cfg.disable_occupancy_grid):
+            stride = 1
+            if scfg.eval_probe_stride > 1:
+                box = np.asarray(cfg.scene_box, np.float32)
+                cell = float(np.min(box[1] - box[0])) / cfg.grid_resolution
+                stride = min(scfg.eval_probe_stride,
+                             max(int(2.0 * cell / cfg.render_step_size), 1))
+            if stride > 1:
+                occupancy_stride = stride
+                march_binaries = dilate_binaries(binaries)
+            elif scfg.eval_fine_candidates < n_cand:
+                raise NotImplementedError(
+                    "the two-phase coarse prefilter is not ported yet")
+
+        with record_function("render:march"):
+            samples, info = march_rays(
+                origins, directions, self.aabb_min, self.aabb_max,
+                cfg.render_step_size, n_cand, S, binaries=march_binaries,
+                near_plane=cfg.near_plane, far_plane=cfg.far_plane,
+                occupancy_stride=occupancy_stride)
+
+        timesteps = rays.get("timesteps")
+        if timesteps is None:
+            timesteps = torch.zeros(R, dtype=torch.int64, device=origins.device)
+        if fparams is None:
+            fparams = self.prepare_field(params)
+
+        if budget is None:
+            frac = scfg.global_budget_fraction
+            budget = -(-int(R * S * frac) // 128) * 128 \
+                if 0 < frac < 1.0 else R * S
+        budget = min(budget, R * S)
+
+        # per-ray inputs gathered by one row gather; the timestep rides as a
+        # float VALUE (exact below 2^24), never as reinterpreted bits
+        ray_pack = torch.cat([origins, directions,
+                              timesteps.to(torch.float32)[:, None]], dim=1)
+
+        n_samples_out = info["n_samples_per_ray"]
+        mask_monotone = True  # march_rays fills a valid slot PREFIX per ray
+        ps = scfg.eval_termination_probe_stride
+        if (scfg.eval_early_stop_trans > 0 and budget < R * S and ps > 1
+                and S >= 2 * ps):
+            with record_function("render:sigma_probe"):
+                keep = self._probe_termination(params, fparams, samples,
+                                               ray_pack, budget, sched)
+            samples = samples._replace(mask=samples.mask & keep)
+            n_samples_out = samples.mask.sum(-1)
+            mask_monotone = False
+
+        with record_function("render:field"):
+            samples, sigmas, rgbs, offsets_norm, n_budget_dropped = \
+                self._evaluate_samples(params, fparams, samples, ray_pack,
+                                       budget, mask_monotone, sched)
+
+        # alpha_thre pruning (nerfacc's sigma_fn filter): low-opacity samples
+        # neither attenuate nor render
+        if cfg.alpha_thre > 0:
+            delta = samples.t_ends - samples.t_starts
+            keep = 1.0 - torch.exp(-sigmas * delta) >= cfg.alpha_thre
+            samples = samples._replace(mask=samples.mask & keep)
+            sigmas = sigmas * keep
+
+        weights, _ = render_weights(sigmas, samples.t_starts, samples.t_ends,
+                                    samples.mask)
+        outputs = {
+            "rgb": render_rgb(weights, rgbs, self.background),
+            "accumulation": render_accumulation(weights),
+            "depth": render_depth_expected(weights, samples.t_starts,
+                                           samples.t_ends),
+            "weights": weights,
+            "samples": samples,
+            "num_samples_per_ray": n_samples_out,
+            "num_dropped_per_ray": info["n_dropped_per_ray"],
+            "num_budget_dropped": n_budget_dropped,
+        }
+        if cfg.use_deformation_field:
+            outputs["deformation"] = render_expected_value(weights, offsets_norm)
+        return outputs

@@ -1,0 +1,101 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+``nvcc`` compiles every source into one shared library with a plain C
+interface for ``sm_90a`` (Hopper), at first use, into ``build/`` beside the
+package (listed in ``.gitignore``); the library is loaded with ``ctypes``.
+The file name carries a hash of the sources and flags, so an edited source
+is rebuilt and a stale library is never loaded. No PyTorch headers are
+compiled, which keeps the build to seconds.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+SOURCES = ("fused_mlp_fwd.cu", "quad_build.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_VOID_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_LL_P = ctypes.POINTER(ctypes.c_longlong)
+_SIGNATURES = {
+    # x, out, wt, bias, meta, n_rows, stream
+    "fused_mlp_fwd": (_VOID_P, _VOID_P, _VOID_P, _VOID_P, _LL_P, _LL, _VOID_P),
+    # table, out, n_rows, row_bytes, meta, stream
+    "quad_build": (_VOID_P, _VOID_P, _LL, _LL, _LL_P, _VOID_P),
+}
+
+_library = None  # the loaded CDLL, once per process
+
+
+def find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        digest.update((CSRC_DIR / name).read_bytes())
+    return BUILD_DIR / f"libnersemble_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact build exists; returns the
+    library path. The compiler's resource report (``-Xptxas -v``) is kept in
+    ``build/build.log``."""
+    target = library_path()
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    partial = target.with_suffix(f".{os.getpid()}.partial")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(partial),
+           *(str(CSRC_DIR / name) for name in SOURCES)]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = (f"$ {' '.join(cmd)}\n# {time.perf_counter() - start:.1f} s, "
+           f"exit {proc.returncode}\n{proc.stdout}{proc.stderr}")
+    (BUILD_DIR / "build.log").write_text(log)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    os.replace(partial, target)
+    return target
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' library, built at first use."""
+    global _library
+    if _library is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _library = lib
+    return _library
+
+
+def int64_array(values) -> ctypes.Array:
+    """A host int64 array for a kernel's layout argument."""
+    return (ctypes.c_longlong * len(values))(*(int(v) for v in values))
+
+
+def check(status: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error (``cudaGetLastError``)."""
+    if status != 0:
+        raise RuntimeError(f"{kernel}: CUDA error {status} (cudaError_t)")

@@ -1,0 +1,255 @@
+"""Occupancy-grid ray marching with fixed shapes, eval subset (port of
+nersemble_tpu/ops/sampling.py).
+
+Rays are intersected with the scene box, marched in ``n_candidates``
+uniform steps, candidates in unoccupied cells are dropped, and the first
+``S`` valid candidates per ray are kept in [R, S] slots (mask marks valid
+slots). Global compaction then picks the samples the field evaluates.
+Cone-angle marching (growing steps) and its two-phase coarse prefilter come
+with the slice that needs them.
+"""
+
+from typing import NamedTuple, Optional
+
+import torch
+
+
+class RaySamples(NamedTuple):
+    """Fixed-shape per-ray samples: all [R, S] (mask marks valid slots)."""
+
+    t_starts: torch.Tensor
+    t_ends: torch.Tensor
+    mask: torch.Tensor
+
+    def positions(self, origins, directions):
+        """World-space midpoints [R, S, 3]."""
+        mids = (self.t_starts + self.t_ends) * 0.5
+        return origins[:, None, :] + directions[:, None, :] * mids[..., None]
+
+
+def scatter_rows_back(x: torch.Tensor, sel: torch.Tensor,
+                      n_total: int) -> torch.Tensor:
+    """Rows ``x [budget, C]`` placed at rows ``sel`` of a zero [n_total, C]
+    buffer (``sel`` is duplicate-free)."""
+    out = torch.zeros(n_total, x.shape[1], dtype=x.dtype, device=x.device)
+    out[sel] = x
+    return out
+
+
+def compact_samples(mask: torch.Tensor, budget: int):
+    """Pick ``budget`` valid (ray, slot) pairs, slot-major, with a stable
+    sort on ~valid. Returns (sel [budget] flat slot-major indices,
+    kept [R, S])."""
+    R, S = mask.shape
+    mask_t = mask.t().reshape(-1)
+    order = torch.argsort((~mask_t).to(torch.uint8), stable=True)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=mask.device)
+    sel = order[:budget]
+    kept = mask_t & (inv < budget)
+    return sel, kept.reshape(S, R).t()
+
+
+def compact_samples_monotone(mask: torch.Tensor, budget: int):
+    """``compact_samples`` for per-ray-monotone masks (a valid slot prefix
+    per ray): rank arithmetic over the "staircase" of rays sorted by fill
+    count replaces the sort over R*S keys. Padding ranks past the valid
+    count map to invalid positions, so ``sel`` stays duplicate-free.
+    Returns (sel [budget], kept [R, S])."""
+    R, S = mask.shape
+    dev = mask.device
+    n = mask.sum(dim=1, dtype=torch.int64)
+    order = torch.argsort(-n, stable=True)
+    inv_order = torch.empty_like(order)
+    inv_order[order] = torch.arange(R, device=dev)
+    n_sorted = n[order]
+    slots = torch.arange(S, device=dev)
+    c = (n_sorted[None, :] > slots[:, None]).sum(dim=1)  # [S] valid rays/slot
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    C = torch.cat([zero, torch.cumsum(c, 0)])  # [S+1]
+    total = C[S]
+    j = torch.arange(budget, device=dev)
+
+    def staircase_positions(C_, rank):
+        # slot of each rank and its position within the slot (C_ ascending)
+        s = torch.clamp(torch.searchsorted(C_[1:], rank, right=True), max=S - 1)
+        n_le = torch.searchsorted(C_[:-1], rank, right=True)
+        base = torch.where(n_le > 0, C_[:-1][torch.clamp(n_le - 1, min=0)],
+                           torch.zeros_like(rank))
+        return s, rank - base
+
+    sv, pv = staircase_positions(C, j)
+    Ci = torch.cat([zero, torch.cumsum(R - c, 0)])
+    si, qi = staircase_positions(Ci, j - total)
+    pi = c[si] + qi
+    s = torch.where(j < total, sv, si)
+    p = torch.clamp(torch.where(j < total, pv, pi), 0, R - 1)
+    sel = s * R + order[p]
+    kept = mask & (C[None, :S] + inv_order[:, None] < budget)
+    return sel, kept
+
+
+def ray_aabb_intersect(origins, directions, aabb_min, aabb_max):
+    """Slab test: [R, 3] rays x AABB -> (t_near [R], t_far [R]); misses give
+    t_near > t_far."""
+    tiny = torch.where(directions >= 0, 1e-12, -1e-12)
+    inv = 1.0 / torch.where(directions.abs() < 1e-12, tiny, directions)
+    t0 = (aabb_min[None, :] - origins) * inv
+    t1 = (aabb_max[None, :] - origins) * inv
+    t_near = torch.minimum(t0, t1).amax(dim=-1)
+    t_far = torch.maximum(t0, t1).amin(dim=-1)
+    return t_near, t_far
+
+
+def level_aabb(aabb_min, aabb_max, level: int):
+    """Box of occupancy cascade ``level``: the base box scaled by 2^level."""
+    center = (aabb_min + aabb_max) * 0.5
+    half = (aabb_max - aabb_min) * (0.5 * (2.0 ** level))
+    return center - half, center + half
+
+
+def occupancy_lookup(binaries, positions, aabb_min, aabb_max):
+    """Binary grid ([G,G,G] or cascade [L,G,G,G]) at [..., 3] world
+    positions; the finest level containing a position decides."""
+    if binaries.dim() == 3:
+        binaries = binaries[None]
+    occ = torch.zeros(positions.shape[:-1], dtype=torch.bool,
+                      device=positions.device)
+    g = binaries.shape[1:]
+    for lvl in reversed(range(binaries.shape[0])):
+        lo, hi = level_aabb(aabb_min, aabb_max, lvl)
+        norm = (positions - lo) / (hi - lo)
+        in_bounds = torch.ones_like(occ)
+        flat = torch.zeros_like(occ, dtype=torch.int64)
+        for axis in range(3):
+            cell = torch.floor(norm[..., axis] * g[axis]).to(torch.int64)
+            in_bounds &= (cell >= 0) & (cell < g[axis])
+            flat = flat * g[axis] + cell.clamp(0, g[axis] - 1)
+        occ = torch.where(in_bounds, binaries[lvl].reshape(-1)[flat], occ)
+    return occ
+
+
+def march_range(origins, directions, aabb_min, aabb_max, binaries,
+                near_plane: float, far_plane: float):
+    """Per-ray [t_near, t_far]: slab test against the coarsest cascade
+    level's box, clipped to the near/far planes."""
+    outer_min, outer_max = aabb_min, aabb_max
+    if binaries is not None and binaries.dim() == 4 and binaries.shape[0] > 1:
+        outer_min, outer_max = level_aabb(aabb_min, aabb_max,
+                                          binaries.shape[0] - 1)
+    t_near, t_far = ray_aabb_intersect(origins, directions, outer_min,
+                                       outer_max)
+    return torch.clamp(t_near, min=near_plane), torch.clamp(t_far, max=far_plane)
+
+
+def dilate_binaries(binaries: torch.Tensor) -> torch.Tensor:
+    """One-cell dilation (3x3x3 max-pool with edge replication) of a
+    [G,G,G] or [L,G,G,G] binary grid."""
+    squeeze = binaries.dim() == 3
+    b = binaries[None] if squeeze else binaries
+    for axis in (1, 2, 3):
+        size = b.shape[axis]
+        fwd = torch.cat([b.narrow(axis, 1, size - 1),
+                         b.narrow(axis, size - 1, 1)], dim=axis)
+        bwd = torch.cat([b.narrow(axis, 0, 1),
+                         b.narrow(axis, 0, size - 1)], dim=axis)
+        b = b | fwd | bwd
+    return b[0] if squeeze else b
+
+
+def occupied_world_aabb(binaries, aabb_min, aabb_max, expand_cells: float = 2.0):
+    """World AABB of the occupied cells (union over cascade levels), each
+    level's box grown by ``expand_cells`` of its cell width. Every sample
+    the eval march can mark valid lies inside it, so a ray that misses it
+    renders exact background. Returns (lo [3], hi [3], any_occ bool)."""
+    if binaries.dim() == 3:
+        binaries = binaries[None]
+    big = 3.4e38
+    dev = aabb_min.device
+    lo_all = torch.full((3,), big, dtype=torch.float32, device=dev)
+    hi_all = torch.full((3,), -big, dtype=torch.float32, device=dev)
+    any_all = False
+    for lvl in range(binaries.shape[0]):
+        lo_l, hi_l = level_aabb(aabb_min, aabb_max, lvl)
+        b = binaries[lvl]
+        if not bool(b.any()):
+            continue
+        cell = (hi_l - lo_l) / torch.tensor(b.shape, dtype=torch.float32,
+                                            device=dev)
+        mins, maxs = [], []
+        for ax in range(3):
+            occ = b.any(dim=tuple(a for a in range(3) if a != ax))
+            idx = torch.nonzero(occ)[:, 0]
+            mins.append(idx.min())
+            maxs.append(idx.max() + 1)
+        mn = torch.stack(mins).to(torch.float32) - expand_cells
+        mx = torch.stack(maxs).to(torch.float32) + expand_cells
+        lo_all = torch.minimum(lo_all, lo_l + mn * cell)
+        hi_all = torch.maximum(hi_all, lo_l + mx * cell)
+        any_all = True
+    return lo_all, hi_all, any_all
+
+
+def march_rays(origins: torch.Tensor,
+               directions: torch.Tensor,
+               aabb_min: torch.Tensor,
+               aabb_max: torch.Tensor,
+               render_step_size: float,
+               n_candidates: int,
+               max_samples_per_ray: int,
+               binaries: Optional[torch.Tensor] = None,
+               near_plane: float = 0.0,
+               far_plane: float = 1e10,
+               occupancy_stride: int = 1):
+    """Rays -> compacted RaySamples + diagnostics (eval march: no jitter,
+    uniform steps).
+
+    ``occupancy_stride > 1`` probes ``binaries`` once per group of that many
+    candidates, at the group's centre, and lets it vouch for the group; it
+    requires a dilated grid and (stride/2) * step <= one cell (see the JAX
+    docstring). The first ``S`` valid candidates per ray are selected with
+    ``topk`` on the candidate index; slots past a ray's valid count hold
+    arbitrary candidates, so compare them under the mask.
+    """
+    t_near, t_far = march_range(origins, directions, aabb_min, aabb_max,
+                                binaries, near_plane, far_plane)
+    dtype, dev = origins.dtype, origins.device
+    steps = torch.arange(n_candidates, dtype=dtype, device=dev)
+    t0 = t_near[:, None] + steps[None, :] * render_step_size
+    t1 = t0 + render_step_size
+    valid = (t0 + t1) * 0.5 < t_far[:, None]
+
+    if binaries is not None:
+        if occupancy_stride > 1:
+            n_probe = -(-n_candidates // occupancy_stride)
+            kp = (torch.arange(n_probe, dtype=dtype, device=dev) * occupancy_stride
+                  + 0.5 * occupancy_stride)
+            tp = t_near[:, None] + kp[None, :] * render_step_size
+            posp = origins[:, None, :] + directions[:, None, :] * tp[..., None]
+            occ_p = occupancy_lookup(binaries, posp, aabb_min, aabb_max)
+            occupied = occ_p.repeat_interleave(occupancy_stride,
+                                               dim=1)[:, :n_candidates]
+        else:
+            mids = (t0 + t1) * 0.5
+            pos = origins[:, None, :] + directions[:, None, :] * mids[..., None]
+            occupied = occupancy_lookup(binaries, pos, aabb_min, aabb_max)
+        valid = valid & occupied
+
+    big = n_candidates + 1
+    key = torch.where(valid, torch.arange(n_candidates, device=dev)[None, :],
+                      torch.full_like(valid, big, dtype=torch.int64))
+    vals, order = torch.topk(key, max_samples_per_ray, dim=1, largest=False,
+                             sorted=True)
+    t_starts = t_near[:, None] + order.to(dtype) * render_step_size
+    t_ends = t_starts + render_step_size
+    mask = vals < big
+
+    n_valid_total = valid.sum(dim=-1)
+    info = {
+        "n_samples_per_ray": mask.sum(dim=-1),
+        "n_dropped_per_ray": torch.clamp(n_valid_total - max_samples_per_ray,
+                                         min=0),
+        "t_near": t_near,
+        "t_far": t_far,
+    }
+    return RaySamples(t_starts=t_starts, t_ends=t_ends, mask=mask), info

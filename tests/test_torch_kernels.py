@@ -1,0 +1,120 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+CUDA kernels have no CPU or interpret mode, so every test here needs a GPU
+and nvcc, and skips without them (the decision is made inside the fixture,
+never at import). On the card: ``python -m pytest -m cuda tests/``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nersemble_tpu_torch.config import flagship_model_config
+from nersemble_tpu_torch.models.nersemble import NeRSembleModel
+from nersemble_tpu_torch.ops import fused_mlp as tfm
+from nersemble_tpu_torch.ops import quad_kernel
+from nersemble_tpu_torch.ops.hash_encoding import HashGridLevels
+from nersemble_tpu_torch.ops.mlp import init_mlp
+from nersemble_tpu_torch.utils.cameras import add_contrast
+from nersemble_tpu_torch.utils.params import ParamTree
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+MLP_SHAPES = [
+    # (in, out, layers, width, skips, bias, out_act)
+    (32, 16, 2, 64, (), False, None),           # density base
+    (18, 3, 3, 64, (), False, "sigmoid"),       # colour head
+    (173, 128, 6, 128, (4,), True, "relu"),     # flagship deformation stem
+    (61, 16, 2, 16, (), True, "relu"),          # tiny stem
+    (45 + 16, 32, 6, 32, (4,), True, "relu"),   # narrow stem with a skip
+]
+
+
+@pytest.mark.parametrize("d_in,d_out,n_layers,width,skips,bias,out_act",
+                         MLP_SHAPES)
+@pytest.mark.parametrize("rows", [1, 1000, 4096])
+def test_fused_mlp_kernel_matches_plain(cuda, d_in, d_out, n_layers, width,
+                                        skips, bias, out_act, rows):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = ParamTree(init_mlp(g, d_in, d_out, n_layers, width, skips, bias))
+    x = torch.randn(rows, d_in, generator=g, device=cuda)
+    before = tfm.LAUNCHES
+    out = tfm.fused_mlp_apply(params, x, out_act, torch.bfloat16, skips)
+    torch.cuda.synchronize()
+    assert tfm.LAUNCHES == before + 1
+    ref = tfm.fused_mlp_plain(params, x, out_act, torch.bfloat16, skips)
+    assert out.shape == (rows, d_out) and out.dtype == torch.float32
+    tfm.compare_to_plain(out, ref)  # the tolerance stated in ops/fused_mlp.py
+
+
+def test_fused_mlp_kernel_rejects_bad_inputs(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = ParamTree(init_mlp(g, 32, 16, 2, 64, (), False))
+    x = torch.randn(64, 32, device=cuda)
+    with pytest.raises(ValueError):
+        tfm.fused_mlp_apply(params, x.t().contiguous().t())  # non-contiguous
+    with pytest.raises(ValueError):
+        tfm.fused_mlp_apply(params, x.half())
+    with pytest.raises(ValueError):
+        tfm.fused_mlp_apply(params, x, compute_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("layout,width,dtype", [
+    ((6, 12, 4, 1.5), 8, torch.bfloat16),   # padded dense + 2048-row hashed
+    ((4, 10, 4, 1.5), 16, torch.bfloat16),  # tiny: 1024-row hashed levels
+    ((4, 10, 4, 1.5), 16, torch.float32),
+    ((16, 19, 16, 1.4472692012786865), 8, torch.bfloat16),  # flagship levels
+])
+def test_quad_build_kernel_is_bit_exact(cuda, layout, width, dtype):
+    levels = HashGridLevels.create(*layout)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    table = torch.randn(levels.total_entries, width, generator=g,
+                        device=cuda).to(dtype)
+    before = quad_kernel.LAUNCHES
+    out = quad_kernel.quad_build(table, levels)
+    torch.cuda.synchronize()
+    assert quad_kernel.LAUNCHES == before + 1
+    assert torch.equal(out, quad_kernel.quad_build_plain(table, levels))
+
+
+def test_render_rays_on_cuda_matches_cpu(cuda):
+    """The tiny slice in bf16 through both kernels vs the CPU plain path,
+    with contrast added to the random init so that the hash table, the time
+    codes and the warp all shape the output. Tolerance 1e-4: the two paths
+    share all code but the kernels (B3 bit-exact, B1-fwd summing in another
+    order); a quad table with two quarters swapped moves a frame of this
+    scene by 2.6e-3 or more."""
+    cfg = flagship_model_config(tiny=True)
+    cfg.sampling.global_budget_fraction = 0.125
+    cpu_model, gpu_model = NeRSembleModel(cfg), NeRSembleModel(cfg, cuda)
+    params = add_contrast(cpu_model.init_params(torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(0)
+    occ = torch.from_numpy((rng.uniform(size=16 ** 3) < 0.3).astype(np.float32))
+    d = rng.normal(size=(256, 3)) * [0.05, 0.3, 0.3] + [1.0, 0.0, 0.0]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = {"origins": torch.tensor([[-8.0, 0.0, 0.0]]).repeat(256, 1),
+            "directions": torch.from_numpy(d.astype(np.float32)),
+            "timesteps": torch.from_numpy(rng.integers(0, 8, 256))}
+    sched = {"window_deform": 7.0, "window_hash": 8.0}
+    ref = cpu_model.render_rays(params, rays, cpu_model.binaries(occ), sched)
+    before = (tfm.LAUNCHES, quad_kernel.LAUNCHES)
+    out = gpu_model.render_rays(params.to(cuda),
+                                {k: v.to(cuda) for k, v in rays.items()},
+                                gpu_model.binaries(occ.to(cuda)), sched)
+    assert tfm.LAUNCHES > before[0] and quad_kernel.LAUNCHES > before[1]
+    assert float(ref["accumulation"].max()) > 0.01
+    assert float(ref["deformation"].abs().max()) > 1e-4
+    for key in ("rgb", "depth", "accumulation", "deformation"):
+        torch.testing.assert_close(out[key].cpu(), ref[key], rtol=0.0,
+                                   atol=1e-4)
+
