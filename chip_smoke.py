@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's render path once on one NVIDIA GPU.
+"""Run the PyTorch port's render and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
   1. device    -- requires CUDA; prints the card and its power limit;
-  2. build     -- compiles the CUDA kernels from csrc/ (nvcc, sm_90a);
+  2. build     -- compiles the CUDA kernels from csrc/ (one nvcc per source,
+                  in parallel, sm_90a);
   3. kernels   -- each kernel vs its plain PyTorch version at the flagship
-                  shapes: the quad build (B3) on a [6,537,216, 64] bf16 table
-                  must be bit-exact; the fused MLP forward (B1-fwd) on the
-                  stem, base and head at 98,304 rows within the tolerance
-                  stated in ops/fused_mlp.py (max error under half a bf16 ulp
-                  of the largest output, mean error under 1e-5 of the mean
-                  output). Times both;
+                  shapes, with times for both: the quad build (B3) on a
+                  [6,537,216, 64] bf16 table and the quad fold (B4) on a
+                  [6,537,216, 256] bf16 gradient must be bit-exact; the fused
+                  MLP forward (B1-fwd) on the stem, base and head at 98,304
+                  rows within ops/fused_mlp.py's forward bound (max error
+                  under half a bf16 ulp of the largest output, mean error
+                  under 1e-5 of the mean output); the fused MLP backward (B2)
+                  on the same shapes, on fused_mlp.positive_ weights and
+                  inputs (no relu sign depends on rounding, no sum cancels),
+                  within its bound (max error under 1e-3 of the largest
+                  output, mean error under 1e-5 of the mean output, for dx,
+                  every dW and db);
   4. render    -- the flagship model (random weights from a seed, with
                   contrast added so the hash table, the time codes and the
                   warp shape the frames) renders three 550x802 frames through
@@ -20,13 +27,31 @@ Phases, each printing its own lines:
                   grid (5% random fill + the centre block), camera at
                   distance 8, 60 degree vertical view; outputs must be
                   finite, rays must hit, the three timesteps must give three
-                  different frames, and both kernels' launch counters must
-                  grow during this phase;
+                  different frames, and the forward kernels' launch counters
+                  must grow during this phase;
   5. profile   -- one more 550x802 frame under torch.profiler: device busy
                   share, the render path's ranges and the top kernels;
-  6. reference -- a 32x24 frame of the same scene on the GPU vs the port's
-                  CPU path (plain versions of both kernels; the CPU path is
-                  held to the JAX package by tests/test_torch_*.py).
+  6. train     -- the flagship training step as bench.py runs it (4096 rays
+                  of its fixed random batch, S=256, budget 73,728, its grid,
+                  sched at the end of the schedule, constant group learning
+                  rates 5e-3 / 1e-3 / 5e-3, all six losses) through
+                  NeRSembleTrainer.run_step: one warm-up step, 10 timed steps,
+                  then one sampled occupancy update timed alone. Losses must
+                  be finite and fall, the timed steps must make no
+                  synchronizing call (torch.cuda.set_sync_debug_mode), and
+                  all four kernels' launch counters must grow during this
+                  phase;
+  7. train profile -- one more step under torch.profiler: device busy
+                  share, the step's ranges (march, field forward, encode
+                  backward, Adam), the port's four kernels by name (the MLP
+                  backward and the fold run through ctypes, which the
+                  profiler charges to no range) and the top kernels;
+  8. train reference -- a tiny-config training step on the GPU vs the
+                  port's CPU path (contrast-scaled weights): losses and every
+                  gradient leaf within tests/test_torch_kernels.py's bound;
+  9. reference -- a 32x24 frame of the render scene on the GPU vs the port's
+                  CPU path (the CPU path is held to the JAX package by
+                  tests/test_torch_*.py).
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
 and the last line is not printed. Without a CUDA device nothing runs.
@@ -34,8 +59,10 @@ and the last line is not printed. Without a CUDA device nothing runs.
 
 import copy
 import json
+import math
 import subprocess
 import time
+import warnings
 
 import numpy as np
 
@@ -52,6 +79,21 @@ REF_H, REF_W, REF_CHUNK = 32, 24, 256
 REF_TOL = dict(rtol=0.0, atol=1e-4)
 PROFILE_RANGES = ("render:march", "render:sigma_probe", "render:field",
                   "field:hash_encode")
+OWN_KERNELS = ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel", "partial_sum_kernel",
+               "quad_build_kernel", "quad_fold_kernel")
+TRAIN_RAYS, TRAIN_STEPS = 4096, 10
+STEADY_STATE_FILL = 63188        # bench.py: quantized_budget(63188, 4096, 256)
+TRAIN_RANGES = ("train:forward", "render:march", "render:field",
+                "field:hash_encode", "train:backward", "bwd:hash_encode",
+                "bwd:fused_mlp", "bwd:quad_fold", "train:adam")
+# GPU vs CPU train step (tiny config, contrast-scaled bf16): the same plain
+# code but for the four kernels. B3/B4 are bit-exact; B1-fwd/B2 and the
+# encode's f32 atomic scatter sum in other orders, so a recomputed bf16
+# activation can round to its neighbour. Losses to rtol 1e-3; every gradient
+# leaf to rtol 1e-2 with an atol of 2e-3 of the leaf's max, the table's to
+# 2^-6 of its max (an entry rounded to the neighbouring bf16 value).
+TRAIN_REF_TOL = {"loss_rtol": 1e-3, "rtol": 1e-2, "atol": 2e-3,
+                 "table_atol": 2.0 ** -6}
 
 
 def log(phase: str, msg: str) -> None:
@@ -73,41 +115,339 @@ def cuda_time_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_frame(renderer, frame, step) -> None:
-    """One frame under torch.profiler: wall time, summed kernel time (one
-    stream, so kernels do not overlap) and the busy share, then the render
-    path's ranges and the top kernels by device time."""
+def profile_run(phase: str, fn, ranges, unit: str) -> None:
+    """``fn()`` under torch.profiler: wall time, summed kernel time (one
+    stream, so kernels do not overlap) and the busy share, then the given
+    ranges and the top kernels by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        renderer.render_image(frame, step, chunk=CHUNK)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     events = prof.key_averages()
     # record_function ranges also show as GPU annotations: keep kernels only
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                      and e.key not in PROFILE_RANGES),
+                      and e.key not in ranges),
                      key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
-        log("profile", f"wall {wall_ms:.1f} ms/frame; the profiler traced no kernels")
+        log(phase, f"wall {wall_ms:.1f} ms/{unit}; the profiler traced no kernels")
         return
-    log("profile", f"wall {wall_ms:.1f} ms/frame; kernels {busy_ms:.1f} ms/frame; "
-                   f"device busy {100 * busy_ms / wall_ms:.1f}%, idle "
-                   f"{100 * (1 - busy_ms / wall_ms):.1f}%")
+    log(phase, f"wall {wall_ms:.1f} ms/{unit}; kernels {busy_ms:.1f} ms/{unit}; "
+               f"device busy {100 * busy_ms / wall_ms:.1f}%, idle "
+               f"{100 * (1 - busy_ms / wall_ms):.1f}%")
     for e in events:
-        if e.key in PROFILE_RANGES and e.device_type == DeviceType.CPU:
-            log("profile", f"range {e.key:20s} calls {e.count:4d}  host "
-                           f"{e.cpu_time_total / 1e3:8.1f} ms  kernels "
-                           f"{e.device_time_total / 1e3:8.1f} ms "
-                           f"({100 * e.device_time_total / 1e3 / busy_ms:5.1f}%)")
+        if e.key in ranges and e.device_type == DeviceType.CPU:
+            log(phase, f"range {e.key:20s} calls {e.count:4d}  host "
+                       f"{e.cpu_time_total / 1e3:8.1f} ms  kernels "
+                       f"{e.device_time_total / 1e3:8.1f} ms "
+                       f"({100 * e.device_time_total / 1e3 / busy_ms:5.1f}%)")
+    # the port's own kernels, launched through ctypes, belong to no range
+    for name in OWN_KERNELS:
+        own = [e for e in kernels
+               if e.key.removeprefix("void ").startswith((name + "(", name + "<"))]
+        if own:
+            ms = sum(e.self_device_time_total for e in own) / 1e3
+            log(phase, f"kernel {name:20s} calls {sum(e.count for e in own):4d}  "
+                       f"{ms:8.2f} ms ({100 * ms / busy_ms:5.1f}%)")
     for e in kernels[:12]:
-        log("profile", f"{e.self_device_time_total / 1e3:8.2f} ms "
-                       f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
-                       f"x{e.count:<5d} {e.key[:100]}")
+        log(phase, f"{e.self_device_time_total / 1e3:8.2f} ms "
+                   f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
+                   f"x{e.count:<5d} {e.key[:100]}")
+
+
+def mlp_shapes(cfg):
+    """name: (in, out, layers, width, skips, bias, out_act) of the three
+    flagship MLPs."""
+    hc = cfg.hash_ensemble.hash_encoding
+    dfc = cfg.deformation_field
+    stem_in = 3 + 3 * 2 * dfc.n_freq_pos + dfc.warp_code_dim
+    return {
+        "stem": (stem_in, dfc.mlp_layer_width, dfc.mlp_num_layers,
+                 dfc.mlp_layer_width, tuple(dfc.skip_connections), True, "relu"),
+        "base": (hc.n_levels * hc.n_features_per_level, 1 + cfg.geo_feat_dim,
+                 cfg.num_layers, cfg.hidden_dim, (), False, None),
+        "head": (3 + cfg.geo_feat_dim, 3, cfg.num_layers_color,
+                 cfg.hidden_dim_color, (), False, "sigmoid"),
+    }
+
+
+def kernel_phase(cfg, levels, device):
+    """Every kernel vs its plain version at the flagship shapes; returns
+    {kernel: (max_abs_err, ms, plain_ms)}."""
+    import torch
+    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+    from nersemble_tpu_torch.ops.mlp import init_mlp
+    from nersemble_tpu_torch.utils.params import ParamTree
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    hc = cfg.hash_ensemble.hash_encoding
+    width = cfg.hash_ensemble.n_hash_encodings * hc.n_features_per_level
+    results = {}
+
+    table = ((torch.rand(levels.total_entries, width, generator=gen,
+                         device=device) - 0.5) * 2e-4).to(torch.bfloat16)
+    quad = quad_kernel.quad_build_cuda(table, levels)
+    plain = quad_kernel.quad_build_plain(table, levels)
+    torch.cuda.synchronize()
+    if not torch.equal(quad, plain):
+        raise AssertionError("quad build kernel differs from its plain version")
+    err = float((quad.float() - plain.float()).abs().max())
+    del quad, plain
+    k_ms = cuda_time_ms(lambda: quad_kernel.quad_build_cuda(table, levels))
+    p_ms = cuda_time_ms(lambda: quad_kernel.quad_build_plain(table, levels))
+    moved = table.numel() * table.element_size() * 5 / 1e9  # read 1x, write 4x
+    log("kernels", f"B3 quad_build {tuple(table.shape)} -> "
+                   f"({table.shape[0]}, {4 * width}) bf16: bit-exact; "
+                   f"kernel {k_ms:.3f} ms ({1e3 * moved / k_ms:.0f} GB/s), "
+                   f"plain {p_ms:.3f} ms")
+    results["quad_build"] = (err, k_ms, p_ms)
+    del table
+    torch.cuda.empty_cache()
+
+    grad = ((torch.rand(levels.total_entries, 4 * width, generator=gen,
+                        device=device) - 0.5) * 2e-3).to(torch.bfloat16)
+    folded = quad_kernel.quad_fold_cuda(grad, levels)
+    plain = quad_kernel.quad_fold_plain(grad, levels)
+    torch.cuda.synchronize()
+    if not torch.equal(folded, plain):
+        raise AssertionError("quad fold kernel differs from its plain version")
+    err = float((folded.float() - plain.float()).abs().max())
+    del folded, plain
+    k_ms = cuda_time_ms(lambda: quad_kernel.quad_fold_cuda(grad, levels))
+    p_ms = cuda_time_ms(lambda: quad_kernel.quad_fold_plain(grad, levels))
+    moved = grad.numel() * grad.element_size() * 1.25 / 1e9  # read 4W, write W
+    log("kernels", f"B4 quad_fold {tuple(grad.shape)} -> "
+                   f"({grad.shape[0]}, {width}) bf16: bit-exact; "
+                   f"kernel {k_ms:.3f} ms ({1e3 * moved / k_ms:.0f} GB/s), "
+                   f"plain {p_ms:.3f} ms")
+    results["quad_fold"] = (err, k_ms, p_ms)
+    del grad
+    torch.cuda.empty_cache()
+
+    fwd = [0.0, 0.0, 0.0]
+    bwd = [0.0, 0.0, 0.0]
+    for name, (d_in, d_out, n_layers, w, skips, bias, act) in mlp_shapes(cfg).items():
+        params = ParamTree(init_mlp(gen, d_in, d_out, n_layers, w, skips, bias))
+        x = torch.randn(MLP_ROWS, d_in, generator=gen, device=device)
+        out = fused_mlp.fused_mlp_cuda(params, x, act, skips)
+        ref = fused_mlp.fused_mlp_plain(params, x, act, torch.bfloat16, skips)
+        e = fused_mlp.compare_to_plain(out, ref)
+        k_ms = cuda_time_ms(lambda: fused_mlp.fused_mlp_cuda(params, x, act, skips))
+        p_ms = cuda_time_ms(lambda: fused_mlp.fused_mlp_plain(
+            params, x, act, torch.bfloat16, skips))
+        log("kernels", f"B1-fwd {name} [{MLP_ROWS}, {d_in}] -> [{MLP_ROWS}, {d_out}]: "
+                       f"max abs err {e['max_abs']:.3e} (tol {e['max_tol']:.3e}; "
+                       f"{e['max_rel']:.3e} of max |plain|), "
+                       f"mean abs err {e['mean_abs']:.3e} (tol {e['mean_tol']:.3e}); "
+                       f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+        fwd = [max(fwd[0], e["max_abs"]), fwd[1] + k_ms, fwd[2] + p_ms]
+
+        fused_mlp.positive_(params, gen)
+        x = fused_mlp.positive_input(MLP_ROWS, d_in, gen)
+        g = fused_mlp.positive_input(MLP_ROWS, d_out, gen)
+        outs = fused_mlp.fused_mlp_bwd_cuda(params, x, g, act, skips)
+        refs = fused_mlp.fused_mlp_bwd_plain(params, x, g, act, torch.bfloat16, skips)
+        torch.cuda.synchronize()
+        e = fused_mlp.compare_bwd_to_plain(outs, refs)
+        k_ms = cuda_time_ms(lambda: fused_mlp.fused_mlp_bwd_cuda(params, x, g, act, skips))
+        p_ms = cuda_time_ms(lambda: fused_mlp.fused_mlp_bwd_plain(
+            params, x, g, act, torch.bfloat16, skips))
+        macs = sum(layer.w.numel() for layer in params.layers)
+        gflop = 6 * macs * MLP_ROWS / 1e9  # forward recompute, dW, dh
+        log("kernels", f"B2 {name} [{MLP_ROWS}, {d_in}] <- [{MLP_ROWS}, {d_out}] "
+                       f"(positive_): max abs err {e['max_abs']:.3e} "
+                       f"({e['max_rel']:.3e} of max |plain|, tol "
+                       f"{fused_mlp.BWD_MAX_ERR_REL:g}), mean abs err "
+                       f"{e['mean_abs']:.3e} (tol {fused_mlp.BWD_MEAN_ERR_REL:g} "
+                       f"of mean |plain|), worst of dx, dW, db; kernel "
+                       f"{k_ms:.3f} ms ({gflop / k_ms:.0f} TFLOP/s over "
+                       f"{gflop:.1f} GFLOP), plain {p_ms:.3f} ms")
+        bwd = [max(bwd[0], e["max_abs"]), bwd[1] + k_ms, bwd[2] + p_ms]
+        del params, x, g, out, ref, outs, refs
+    results["fused_mlp_fwd"] = tuple(fwd)
+    results["fused_mlp_bwd"] = tuple(bwd)
+    torch.cuda.empty_cache()
+    return results
+
+
+def bench_batch(n_rays: int, n_timesteps: int, grid_resolution: int, device):
+    """bench.py's fixed random batch: ``__graft_entry__._example_rays(n,
+    n_timesteps, seed=1)`` plus rgb, alpha and depth drawn from
+    ``default_rng(0)`` after its occupancy grid."""
+    import torch
+    rng = np.random.default_rng(1)
+    d = rng.normal(size=(n_rays, 3)).astype(np.float32) \
+        * np.array([0.05, 0.3, 0.3]) + np.array([1.0, 0.0, 0.0])
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    timesteps = rng.integers(0, n_timesteps, n_rays)
+    rng = np.random.default_rng(0)
+    rng.uniform(size=(grid_resolution,) * 3)  # bench.py draws its grid first
+    batch = {
+        "origins": np.tile(np.array([[-8.0, 0.0, 0.0]], np.float32), (n_rays, 1)),
+        "directions": d.astype(np.float32),
+        "timesteps": timesteps.astype(np.int64),
+        "rgb": rng.uniform(size=(n_rays, 3)).astype(np.float32),
+        "alpha": rng.uniform(size=n_rays).astype(np.float32),
+        "depth": rng.uniform(7.5, 9.5, n_rays).astype(np.float32),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def train_phase(cfg, device):
+    """The flagship training step; returns the launch counts of the phase."""
+    import torch
+    from nersemble_tpu_torch.config import OptimizerConfig
+    from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
+    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+    from nersemble_tpu_torch.ops.sampling import quantized_budget
+    from nersemble_tpu_torch.utils.cameras import synthetic_occupancy
+
+    optimizers = {name: OptimizerConfig(lr=lr, scheduler_gamma=1.0)
+                  for name, lr in (("fields", 5e-3), ("deformation_field", 1e-3),
+                                   ("embeddings", 5e-3))}
+    grid = torch.from_numpy(synthetic_occupancy(cfg.grid_resolution, 0.05, SEED))
+    trainer = NeRSembleTrainer(cfg, TRAIN_RAYS, optimizers, seed=SEED,
+                               device=device, grid_occs=grid.to(device))
+    S = cfg.sampling.max_samples_per_ray
+    trainer._budget = quantized_budget(STEADY_STATE_FILL, TRAIN_RAYS, S)
+    batch = bench_batch(TRAIN_RAYS, cfg.n_timesteps, cfg.grid_resolution, device)
+    # steps past the schedule's end (window_deform 7, window_hash 32,
+    # eps_depth 0.01), off the occupancy (16) and budget (125) cadences
+    step0 = cfg.window_hash_encodings_end + 1
+    log("train", f"flagship: {TRAIN_RAYS} rays, S={S}, budget {trainer._budget}, "
+                 f"chunk cap {cfg.max_n_samples_per_batch}, steps from {step0}: "
+                 f"{trainer.sched_values(step0)}, lrs {trainer.lr_values(step0)}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_mlp.LAUNCHES = fused_mlp.BWD_LAUNCHES = 0
+    quad_kernel.LAUNCHES = quad_kernel.FOLD_LAUNCHES = 0
+    start = time.perf_counter()
+    first, aux0 = trainer.run_step(step0, batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - start
+    totals, auxes = [], []
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        start = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            total, aux = trainer.run_step(step0 + 1 + i, batch)
+            totals.append(total)
+            auxes.append(aux)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in syncs if "called a synchronizing" in str(w.message)]
+    start = time.perf_counter()
+    occ_step = step0 - 1 + 16
+    trainer.maybe_update_occupancy(occ_step)
+    torch.cuda.synchronize()
+    occ_ms = (time.perf_counter() - start) * 1e3
+    launches = {"fused_mlp_fwd": fused_mlp.LAUNCHES,
+                "fused_mlp_bwd": fused_mlp.BWD_LAUNCHES,
+                "quad_build": quad_kernel.LAUNCHES,
+                "quad_fold": quad_kernel.FOLD_LAUNCHES}
+
+    values = [float(first)] + [float(t) for t in totals]
+    losses = {k: float(v) for k, v in auxes[-1]["losses"].items()}
+    step_s = elapsed / TRAIN_STEPS
+    valid = float(auxes[-1]["num_samples"])
+    dropped = float(auxes[-1]["num_budget_dropped"])
+    log("train", f"warm-up step {1e3 * warm_s:.1f} ms; {TRAIN_STEPS} steps "
+                 f"{1e3 * step_s:.1f} ms/step, {TRAIN_RAYS / step_s:.0f} rays/s, "
+                 f"{valid / step_s:.0f} valid samples/s ({valid:.0f} valid/step), "
+                 f"{trainer._budget / step_s:.0f} evaluated samples/s; "
+                 f"budget-dropped {dropped:.0f}/step; peak memory "
+                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                 f"host syncs in the timed steps: {len(syncs)}")
+    for w in syncs[:3]:
+        log("train", f"sync: {str(w.message)[:160]} ({w.filename}:{w.lineno})")
+    if syncs:  # ROADMAP C5: a host read inside the step drains the GPU's queue
+        raise AssertionError(f"{len(syncs)} synchronizing operations in the timed steps")
+    log("train", f"occupancy update (sampled, step {occ_step}): {occ_ms:.1f} ms; "
+                 f"grid fill {float(trainer.model.binaries(trainer.grid_occs).float().mean()):.4f}")
+    log("train", f"loss per step {[round(v, 6) for v in values]}; last step {losses}; "
+                 f"psnr {float(auxes[-1]['psnr']):.3f}; launches {launches}")
+    if not all(math.isfinite(v) for v in values + list(losses.values())):
+        raise AssertionError(f"non-finite loss: {values} {losses}")
+    if not values[-1] < values[0]:
+        raise AssertionError(f"the loss did not fall: {values}")
+    for kernel, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"the training path never launched {kernel}")
+
+    profile_run("train profile", lambda: trainer.run_step(step0 + 1 + TRAIN_STEPS, batch),
+                TRAIN_RANGES, "step")
+    return launches
+
+
+def tiny_train_grads(cfg, params, device):
+    """One tiny-config training forward + backward on ``device``: (losses,
+    gradients by state_dict key), both on the CPU."""
+    import torch
+    from nersemble_tpu_torch.models.nersemble import NeRSembleModel
+
+    model = NeRSembleModel(cfg, device)
+    p = copy.deepcopy(params).to(device)  # Module.to moves in place
+    for q in p.parameters():
+        q.requires_grad_(True)
+    rng = np.random.default_rng(0)
+    occ = torch.from_numpy((rng.uniform(size=16 ** 3) < 0.3).astype(np.float32))
+    d = rng.normal(size=(256, 3)) * [0.05, 0.3, 0.3] + [1.0, 0.0, 0.0]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    batch = {"origins": torch.tensor([[-8.0, 0.0, 0.0]]).repeat(256, 1),
+             "directions": torch.from_numpy(d.astype(np.float32)),
+             "timesteps": torch.from_numpy(rng.integers(0, 8, 256)),
+             "rgb": torch.from_numpy(rng.uniform(size=(256, 3)).astype(np.float32)),
+             "alpha": torch.from_numpy(rng.uniform(size=256).astype(np.float32)),
+             "depth": torch.from_numpy(rng.uniform(7.5, 9.5, 256).astype(np.float32))}
+    batch = {k: v.to(device) for k, v in batch.items()}
+    jitter = torch.from_numpy(rng.uniform(size=256).astype(np.float32)).to(device)
+    sched = {"window_deform": 7.0, "window_hash": 8.0, "eps_depth": 0.3}
+    out = model.render_rays(p, batch, model.binaries(occ.to(device)), sched,
+                            train=True, budget=2048, jitter=jitter)
+    losses = model.compute_losses(out, batch, sched, train=True)
+    sum(losses.values()).backward()
+    return ({k: float(v.detach()) for k, v in losses.items()},
+            {k: q.grad.cpu() for k, q in p.named_parameters()})
+
+
+def train_reference_phase(device) -> None:
+    import torch
+    from nersemble_tpu_torch.config import flagship_model_config
+    from nersemble_tpu_torch.models.nersemble import NeRSembleModel
+    from nersemble_tpu_torch.utils.cameras import add_contrast
+
+    cfg = flagship_model_config(tiny=True)
+    cfg.sampling.global_budget_fraction = 0.5
+    params = add_contrast(NeRSembleModel(cfg).init_params(
+        torch.Generator().manual_seed(SEED)))
+    ref_losses, ref_grads = tiny_train_grads(cfg, params, "cpu")
+    losses, grads = tiny_train_grads(cfg, params, device)
+    loss_err = max(abs(losses[k] - ref_losses[k]) / max(abs(ref_losses[k]), 1e-30)
+                   for k in ref_losses)
+    worst = {}
+    for k, ref in ref_grads.items():
+        scale = float(ref.abs().max())
+        atol = (TRAIN_REF_TOL["table_atol"] if k == "field.table"
+                else TRAIN_REF_TOL["atol"]) * scale
+        excess = (grads[k] - ref).abs() - TRAIN_REF_TOL["rtol"] * ref.abs()
+        worst[k] = float(excess.max()) / atol if scale > 0 else math.inf
+    log("train reference", f"tiny step GPU vs CPU: losses max rel err {loss_err:.2e} "
+                           f"(tol {TRAIN_REF_TOL['loss_rtol']:g}); gradient leaves, "
+                           f"worst (|err| - rtol*|ref|) / atol: "
+                           f"{max(worst.values()):.3f} at {max(worst, key=worst.get)} "
+                           f"(pass <= 1)")
+    if not loss_err <= TRAIN_REF_TOL["loss_rtol"]:
+        raise AssertionError(f"GPU losses {losses} vs CPU {ref_losses}")
+    if not max(worst.values()) <= 1.0:
+        raise AssertionError(f"GPU gradients differ from the CPU path: {worst}")
 
 
 def main() -> None:
@@ -120,13 +460,11 @@ def main() -> None:
     from nersemble_tpu_torch.models.nersemble import NeRSembleModel
     from nersemble_tpu_torch.ops import cuda_lib, fused_mlp, quad_kernel
     from nersemble_tpu_torch.ops.hash_encoding import HashGridLevels
-    from nersemble_tpu_torch.ops.mlp import init_mlp
     from nersemble_tpu_torch.utils.cameras import (
         add_contrast,
         pinhole_frame,
         synthetic_occupancy,
     )
-    from nersemble_tpu_torch.utils.params import ParamTree
     from nersemble_tpu_torch.utils.windows import sched_values
 
     # ---- 1. device ----------------------------------------------------------
@@ -146,65 +484,15 @@ def main() -> None:
     log("build", f"kernels ready in {time.perf_counter() - start:.1f} s "
                  f"({cuda_lib.library_path().name})")
     for line in (cuda_lib.BUILD_DIR / "build.log").read_text().splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or line.startswith("# "):
             log("build", line.strip())
 
     # ---- 3. kernels vs plain at the flagship shapes ---------------------------
     cfg = flagship_model_config(tiny=False)
-    gen = torch.Generator(device=device).manual_seed(SEED)
     hc = cfg.hash_ensemble.hash_encoding
     levels = HashGridLevels.create(hc.n_levels, hc.log2_hashmap_size,
                                    hc.base_resolution, hc.per_level_scale)
-    width = cfg.hash_ensemble.n_hash_encodings * hc.n_features_per_level
-    table = ((torch.rand(levels.total_entries, width, generator=gen,
-                         device=device) - 0.5) * 2e-4).to(torch.bfloat16)
-    quad = quad_kernel.quad_build_cuda(table, levels)
-    plain = quad_kernel.quad_build_plain(table, levels)
-    torch.cuda.synchronize()
-    if not torch.equal(quad, plain):
-        raise AssertionError("quad build kernel differs from its plain version")
-    quad_err = float((quad.float() - plain.float()).abs().max())
-    del quad, plain
-    quad_ms = cuda_time_ms(lambda: quad_kernel.quad_build_cuda(table, levels))
-    quad_plain_ms = cuda_time_ms(lambda: quad_kernel.quad_build_plain(table, levels))
-    moved = table.numel() * table.element_size() * 5 / 1e9  # read 1x, write 4x
-    log("kernels", f"B3 quad_build {tuple(table.shape)} -> "
-                   f"({table.shape[0]}, {4 * width}) bf16: bit-exact; "
-                   f"kernel {quad_ms:.3f} ms ({1e3 * moved / quad_ms:.0f} GB/s), "
-                   f"plain {quad_plain_ms:.3f} ms")
-    del table
-    torch.cuda.empty_cache()
-
-    dfc = cfg.deformation_field
-    stem_in = 3 + 3 * 2 * dfc.n_freq_pos + dfc.warp_code_dim
-    mlp_shapes = {  # name: (in, out, layers, width, skips, bias, out_act)
-        "stem": (stem_in, dfc.mlp_layer_width, dfc.mlp_num_layers,
-                 dfc.mlp_layer_width, tuple(dfc.skip_connections), True, "relu"),
-        "base": (hc.n_levels * hc.n_features_per_level, 1 + cfg.geo_feat_dim,
-                 cfg.num_layers, cfg.hidden_dim, (), False, None),
-        "head": (3 + cfg.geo_feat_dim, 3, cfg.num_layers_color,
-                 cfg.hidden_dim_color, (), False, "sigmoid"),
-    }
-    mlp_err, mlp_ms, mlp_plain_ms = 0.0, 0.0, 0.0
-    for shape, (d_in, d_out, n_layers, w, skips, bias, act) in mlp_shapes.items():
-        params = ParamTree(init_mlp(gen, d_in, d_out, n_layers, w, skips, bias))
-        x = torch.randn(MLP_ROWS, d_in, generator=gen, device=device)
-        out = fused_mlp.fused_mlp_cuda(params, x, act, skips)
-        ref = fused_mlp.fused_mlp_plain(params, x, act, torch.bfloat16, skips)
-        err = fused_mlp.compare_to_plain(out, ref)
-        k_ms = cuda_time_ms(lambda: fused_mlp.fused_mlp_cuda(params, x, act, skips))
-        p_ms = cuda_time_ms(lambda: fused_mlp.fused_mlp_plain(
-            params, x, act, torch.bfloat16, skips))
-        log("kernels", f"B1-fwd {shape} [{MLP_ROWS}, {d_in}] -> [{MLP_ROWS}, {d_out}]: "
-                       f"max abs err {err['max_abs']:.3e} (tol {err['max_tol']:.3e}; "
-                       f"{err['max_rel']:.3e} of max |plain|), "
-                       f"mean abs err {err['mean_abs']:.3e} (tol {err['mean_tol']:.3e}); "
-                       f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-        mlp_err = max(mlp_err, err["max_abs"])
-        mlp_ms += k_ms
-        mlp_plain_ms += p_ms
-    del params, x, out, ref
-    torch.cuda.empty_cache()
+    kernel_results = kernel_phase(cfg, levels, device)
 
     # ---- 4. render ------------------------------------------------------------
     model = NeRSembleModel(cfg, device)
@@ -228,8 +516,8 @@ def main() -> None:
     images = [renderer.render_image(frame, step, chunk=CHUNK) for frame in frames]
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
-    launches = {"fused_mlp_fwd": fused_mlp.LAUNCHES,
-                "quad_build": quad_kernel.LAUNCHES}
+    render_launches = {"fused_mlp_fwd": fused_mlp.LAUNCHES,
+                       "quad_build": quad_kernel.LAUNCHES}
 
     hits = [renderer.render_hit_mask(torch.from_numpy(f["origins"]).to(device),
                                      torch.from_numpy(f["directions"]).to(device))
@@ -255,18 +543,28 @@ def main() -> None:
             log("render", f"max |rgb(t={TIMESTEPS[i]}) - rgb(t={TIMESTEPS[j]})| {diff:.4f}")
             if not diff > 1 / 255:  # one 8-bit level
                 raise AssertionError("frames of different timesteps are the same")
-    for kernel, count in launches.items():
+    for kernel, count in render_launches.items():
         if count <= 0:
             raise AssertionError(f"the render path never launched {kernel}")
     log("render", f"3 frames {FRAME_W}x{FRAME_H}: {1e3 * elapsed / len(frames):.1f} "
                   f"ms/frame, hit fraction {hit_fraction:.4f}, "
                   f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-                  f"launches {launches}")
+                  f"launches {render_launches}")
 
     # ---- 5. profile -------------------------------------------------------------
-    profile_frame(renderer, frames[1], step)
+    profile_run("profile", lambda: renderer.render_image(frames[1], step, chunk=CHUNK),
+                PROFILE_RANGES, "frame")
+    renderer._fparams = None  # free the cached quad table before training
+    torch.cuda.empty_cache()
 
-    # ---- 6. reference: the GPU render vs the port's CPU path ------------------
+    # ---- 6.-7. train and its profile ----------------------------------------------
+    train_launches = train_phase(cfg, device)
+    torch.cuda.empty_cache()
+
+    # ---- 8. train reference: the tiny step on the GPU vs the CPU path ------------
+    train_reference_phase(device)
+
+    # ---- 9. reference: the GPU render vs the port's CPU path ------------------
     small = pinhole_frame(REF_H, REF_W, TIMESTEPS[1])
     start = time.perf_counter()
     gpu_image = renderer.render_image(small, step, chunk=REF_CHUNK)
@@ -285,18 +583,17 @@ def main() -> None:
         np.testing.assert_allclose(gpu_image[key], cpu_image[key], **REF_TOL,
                                    err_msg=key)
 
+    sources = {"fused_mlp_fwd": ("fused_mlp_fwd.cu", "nersemble_tpu/ops/fused_mlp.py:71"),
+               "fused_mlp_bwd": ("fused_mlp_bwd.cu", "nersemble_tpu/ops/fused_mlp.py:83"),
+               "quad_build": ("quad_build.cu", "nersemble_tpu/ops/quad_pallas.py:162"),
+               "quad_fold": ("quad_fold.cu", "nersemble_tpu/ops/quad_pallas.py:221")}
     print(json.dumps({"kernels": [
-        {"name": "fused_mlp_fwd", "route": "cuda",
-         "source": "nersemble_tpu_torch/csrc/fused_mlp_fwd.cu",
-         "replaces": "nersemble_tpu/ops/fused_mlp.py:71",
-         "launches": launches["fused_mlp_fwd"], "max_abs_err": mlp_err,
-         "ms": mlp_ms, "plain_ms": mlp_plain_ms},
-        {"name": "quad_build", "route": "cuda",
-         "source": "nersemble_tpu_torch/csrc/quad_build.cu",
-         "replaces": "nersemble_tpu/ops/quad_pallas.py:162",
-         "launches": launches["quad_build"], "max_abs_err": quad_err,
-         "ms": quad_ms, "plain_ms": quad_plain_ms},
-    ]}), flush=True)
+        {"name": kernel, "route": "cuda",
+         "source": f"nersemble_tpu_torch/csrc/{src}", "replaces": replaces,
+         "launches": train_launches[kernel],
+         "max_abs_err": kernel_results[kernel][0],
+         "ms": kernel_results[kernel][1], "plain_ms": kernel_results[kernel][2]}
+        for kernel, (src, replaces) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -1,4 +1,4 @@
-"""Model configuration dataclasses (render-path subset of nersemble_tpu.config).
+"""Model and optimizer configuration dataclasses (subset of nersemble_tpu.config).
 
 Same class names, field names and defaults as the JAX package's
 ``nersemble_tpu/config.py`` so a config can be carried across field by field
@@ -10,7 +10,7 @@ lever is documented once, in the JAX config.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclass
@@ -142,6 +142,26 @@ class ModelConfig:
     table_dtype: str = "bfloat16"
     use_fused_mlp: bool = True
     shard_hash_tables: bool = False
+
+
+@dataclass
+class OptimizerConfig:
+    """Adam + StepLR of one parameter group."""
+
+    lr: float = 5e-3
+    eps: float = 1e-15
+    weight_decay: float = 0.0
+    scheduler_step_size: int = 20000
+    scheduler_gamma: float = 0.8
+
+
+def default_optimizers() -> Dict[str, OptimizerConfig]:
+    """The three groups of ``TrainConfig.optimizers`` in the JAX package."""
+    return {
+        "fields": OptimizerConfig(lr=5e-3, scheduler_gamma=0.8),
+        "deformation_field": OptimizerConfig(lr=1e-3, scheduler_gamma=0.5),
+        "embeddings": OptimizerConfig(lr=5e-3, scheduler_gamma=0.8),
+    }
 
 
 def flagship_model_config(tiny: bool = False) -> ModelConfig:

@@ -1,21 +1,25 @@
-"""Weights carried over from the JAX package (its npz checkpoints).
+"""Checkpoints in the JAX package's npz format, both ways.
 
-A JAX checkpoint (nersemble_tpu/engine/checkpoints.py) is a flat ``np.savez``
-of ``/``-joined pytree paths: ``params/field/table``,
-``params/deformation/stem/layers/0/w``, ``grid_occs``, ``extra/...``; lists
-carry a ``__seq_type__`` marker entry. Reading one needs only numpy. The
-arrays keep their layouts ([in, out] weights, the [E, W] table, the
-128-column head), and the port's ``state_dict`` keys are the same paths
-joined with ``.``.
+A checkpoint (nersemble_tpu/engine/checkpoints.py) is a flat ``np.savez``
+of ``/``-joined pytree paths: ``step``, ``params/field/table``,
+``params/deformation/stem/layers/0/w``, ``opt_state/count``,
+``opt_state/mu/...``, ``opt_state/nu/...``, ``grid_occs``, ``extra/...``;
+lists carry a ``__seq_type__`` marker entry. Reading and writing one needs
+only numpy. The arrays keep their layouts ([in, out] weights, the [E, W]
+table, the 128-column head), and the port's ``state_dict`` keys are the
+same paths joined with ``.``, so a port checkpoint resumes in JAX and a JAX
+checkpoint resumes here.
 """
 
+import os
 from pathlib import Path
-from typing import Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from nersemble_tpu_torch.utils.params import ParamTree
+from nersemble_tpu_torch.engine.optimizers import AdamState
+from nersemble_tpu_torch.utils.params import ParamTree, to_tree
 
 _SEQ = "__seq_type__"
 
@@ -41,14 +45,33 @@ def _nest(flat: Dict[str, np.ndarray]):
     return listify(root)
 
 
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts/lists -> flat ``/`` keys (``_flatten`` of the JAX
+    package: lists get a ``__seq_type__`` marker)."""
+    flat = {}
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            flat.update(_flatten(value, f"{prefix}{key}/"))
+    elif isinstance(tree, (list, tuple)):
+        flat[f"{prefix}{_SEQ}"] = np.array("list")
+        for i, value in enumerate(tree):
+            flat.update(_flatten(value, f"{prefix}{i}/"))
+    else:
+        flat[prefix[:-1]] = np.asarray(tree)
+    return flat
+
+
+def _subtree(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+    return {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+
+
 def params_from_numpy(tree_or_flat: Union[Dict, list],
                       device="cpu") -> ParamTree:
     """A JAX parameter pytree as numpy arrays (nested dicts/lists), or the
     flat ``params/...`` dict of a checkpoint, -> the port's ParamTree."""
     tree = tree_or_flat
     if any(isinstance(k, str) and k.startswith("params/") for k in tree):
-        tree = _nest({k[len("params/"):]: v for k, v in tree.items()
-                      if k.startswith("params/")})
+        tree = _nest(_subtree(tree, "params/"))
 
     def to_tensors(node):
         if isinstance(node, dict):
@@ -60,14 +83,66 @@ def params_from_numpy(tree_or_flat: Union[Dict, list],
     return ParamTree(to_tensors(tree)).to(device)
 
 
-def load_jax_checkpoint(path, device="cpu") -> Tuple[ParamTree, torch.Tensor, Dict]:
-    """A JAX ``step-*.ckpt`` -> (params, grid_occs, extra). Optimizer state
-    is not read (eval only)."""
+def opt_state_from_numpy(flat: Dict[str, np.ndarray], device="cpu") -> AdamState:
+    """The flat ``opt_state/...`` entries of a checkpoint -> AdamState."""
+    count = torch.tensor(int(flat["opt_state/count"]), dtype=torch.int32,
+                         device=device)
+    return AdamState(count,
+                     params_from_numpy(_nest(_subtree(flat, "opt_state/mu/")), device),
+                     params_from_numpy(_nest(_subtree(flat, "opt_state/nu/")), device))
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def save_checkpoint(path, step: int, params: ParamTree, opt_state: AdamState,
+                    grid_occs: torch.Tensor,
+                    extra: Optional[Dict[str, Any]] = None) -> None:
+    """Write ``path`` atomically in the JAX package's format."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    state = {
+        "step": np.asarray(step),
+        "params": to_tree(params, _numpy),
+        "opt_state": {"count": _numpy(opt_state.count),
+                      "mu": to_tree(opt_state.mu, _numpy),
+                      "nu": to_tree(opt_state.nu, _numpy)},
+        "grid_occs": _numpy(grid_occs),
+    }
+    if extra:
+        state["extra"] = extra
+    tmp = path.with_suffix(".tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, **_flatten(state))
+    os.replace(tmp, path)
+
+
+def _read(path) -> Dict[str, np.ndarray]:
     with np.load(Path(path), allow_pickle=False) as data:
-        flat = {k: data[k] for k in data.files}
-    params = params_from_numpy(flat, device)
+        return {k: data[k] for k in data.files}
+
+
+def _extra(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    return {k[len("extra/"):]: v for k, v in flat.items()
+            if k.startswith("extra/") and "__" not in k}
+
+
+def load_checkpoint(path, device="cpu") -> Tuple[int, ParamTree, AdamState,
+                                                 torch.Tensor, Dict]:
+    """A checkpoint of either package -> (step, params, opt_state,
+    grid_occs, extra)."""
+    flat = _read(path)
     grid_occs = torch.from_numpy(
         np.asarray(flat["grid_occs"], np.float32)).to(device)
-    extra = {k[len("extra/"):]: flat[k] for k in flat
-             if k.startswith("extra/") and "__" not in k}
-    return params, grid_occs, extra
+    return (int(flat["step"]), params_from_numpy(flat, device),
+            opt_state_from_numpy(flat, device), grid_occs, _extra(flat))
+
+
+def load_jax_checkpoint(path, device="cpu") -> Tuple[ParamTree, torch.Tensor, Dict]:
+    """A ``step-*.ckpt`` -> (params, grid_occs, extra), without the
+    optimizer state (eval only)."""
+    flat = _read(path)
+    grid_occs = torch.from_numpy(
+        np.asarray(flat["grid_occs"], np.float32)).to(device)
+    return params_from_numpy(flat, device), grid_occs, _extra(flat)

@@ -1,11 +1,13 @@
-"""The NeRSemble dynamic radiance-field model, render path (port of
-nersemble_tpu/models/nersemble.py, ``render_rays(train=False)``).
+"""The NeRSemble dynamic radiance-field model (port of
+nersemble_tpu/models/nersemble.py).
 
 Occupancy-grid ray marching -> per-timestep latent lookup -> SE(3) warp
-into canonical space -> hash-ensemble field -> alpha compositing. The model
-object holds the static configuration; parameters are a ``ParamTree``
-(``init_params`` or ``engine.checkpoints.params_from_numpy``) passed in,
-like the JAX package's functional style.
+into canonical space -> hash-ensemble field -> alpha compositing ->
+supervision losses; the occupancy grid's EMA update goes through the same
+field. The model object holds the static configuration; parameters are a
+``ParamTree`` (``init_params`` or ``engine.checkpoints.params_from_numpy``)
+and the grid state a tensor, both passed in, like the JAX package's
+functional style.
 
 World/normalized composition quirk kept from the reference: the warp is
 computed on AABB-normalized positions and its offset is added to the WORLD
@@ -32,7 +34,14 @@ from nersemble_tpu_torch.models.field import (
     init_field,
     prepare_field,
 )
-from nersemble_tpu_torch.ops.occupancy import occupancy_binaries
+from nersemble_tpu_torch.ops import losses as L
+from nersemble_tpu_torch.ops.distortion import distortion_loss
+from nersemble_tpu_torch.ops.occupancy import (
+    OccupancyDraws,
+    draw_occupancy,
+    occupancy_binaries,
+    update_occupancy_grid,
+)
 from nersemble_tpu_torch.ops.rendering import (
     exclusive_cumsum,
     render_accumulation,
@@ -255,29 +264,41 @@ class NeRSembleModel:
 
     # -- rendering -----------------------------------------------------------
 
-    @torch.no_grad()
     def render_rays(self, params: ParamTree, rays: Dict, binaries, sched: Dict,
                     train: bool = False, budget: Optional[int] = None,
-                    fparams: Optional[Dict] = None) -> Dict:
-        """Render a ray batch at eval: origins [R,3], directions [R,3],
-        optional integer timesteps [R]. ``budget`` overrides the compaction
-        sample budget (None: R * S * global_budget_fraction). ``fparams``: a
+                    fparams: Optional[Dict] = None,
+                    jitter: Optional[torch.Tensor] = None) -> Dict:
+        """Render a ray batch: origins [R,3], directions [R,3], optional
+        integer timesteps [R]. ``budget`` overrides the compaction sample
+        budget (None: R * S * global_budget_fraction). ``fparams``: a
         prebuilt ``prepare_field`` result, reused across an image's chunks.
+
+        ``train=True`` is the training forward: differentiable in
+        ``params``, the sample comb shifted by ``jitter`` [R] in [0, 1)
+        (drawn by the caller; None: no shift), no eval levers. Eval runs
+        under ``torch.no_grad``.
         """
         if train:
-            raise NotImplementedError("render_rays(train=True) is not ported yet")
+            return self._render(params, rays, binaries, sched, True, budget,
+                                fparams, jitter)
+        with torch.no_grad():
+            return self._render(params, rays, binaries, sched, False, budget,
+                                fparams, None)
+
+    def _render(self, params, rays, binaries, sched, train, budget, fparams,
+                jitter) -> Dict:
         cfg, scfg = self.config, self.config.sampling
         origins, directions = rays["origins"], rays["directions"]
         R = origins.shape[0]
         S = scfg.max_samples_per_ray
-        if scfg.eval_max_samples_per_ray > 0:
+        if not train and scfg.eval_max_samples_per_ray > 0:
             S = min(S, scfg.eval_max_samples_per_ray)
         n_cand = scfg.max_candidates_per_ray
 
         # eval strided march on the dilated grid: one probe vouches for
         # `stride` candidates while (stride/2) * step <= one cell
         march_binaries, occupancy_stride = binaries, 1
-        if (scfg.eval_coarse_prefilter and binaries is not None
+        if (not train and scfg.eval_coarse_prefilter and binaries is not None
                 and not cfg.disable_occupancy_grid):
             stride = 1
             if scfg.eval_probe_stride > 1:
@@ -297,7 +318,7 @@ class NeRSembleModel:
                 origins, directions, self.aabb_min, self.aabb_max,
                 cfg.render_step_size, n_cand, S, binaries=march_binaries,
                 near_plane=cfg.near_plane, far_plane=cfg.far_plane,
-                occupancy_stride=occupancy_stride)
+                jitter=jitter, occupancy_stride=occupancy_stride)
 
         timesteps = rays.get("timesteps")
         if timesteps is None:
@@ -319,8 +340,8 @@ class NeRSembleModel:
         n_samples_out = info["n_samples_per_ray"]
         mask_monotone = True  # march_rays fills a valid slot PREFIX per ray
         ps = scfg.eval_termination_probe_stride
-        if (scfg.eval_early_stop_trans > 0 and budget < R * S and ps > 1
-                and S >= 2 * ps):
+        if (not train and scfg.eval_early_stop_trans > 0 and budget < R * S
+                and ps > 1 and S >= 2 * ps):
             with record_function("render:sigma_probe"):
                 keep = self._probe_termination(params, fparams, samples,
                                                ray_pack, budget, sched)
@@ -334,10 +355,11 @@ class NeRSembleModel:
                                        budget, mask_monotone, sched)
 
         # alpha_thre pruning (nerfacc's sigma_fn filter): low-opacity samples
-        # neither attenuate nor render
+        # neither attenuate nor render nor receive gradients; the mask comes
+        # from detached sigmas
         if cfg.alpha_thre > 0:
             delta = samples.t_ends - samples.t_starts
-            keep = 1.0 - torch.exp(-sigmas * delta) >= cfg.alpha_thre
+            keep = 1.0 - torch.exp(-sigmas.detach() * delta) >= cfg.alpha_thre
             samples = samples._replace(mask=samples.mask & keep)
             sigmas = sigmas * keep
 
@@ -357,3 +379,84 @@ class NeRSembleModel:
         if cfg.use_deformation_field:
             outputs["deformation"] = render_expected_value(weights, offsets_norm)
         return outputs
+
+    # -- losses --------------------------------------------------------------
+
+    def compute_losses(self, outputs: Dict, batch: Dict, sched: Dict,
+                       train: bool = True) -> Dict[str, torch.Tensor]:
+        """Scaled loss dict. batch: rgb [R,3], optional alpha [R] in [0,1],
+        optional depth [R] (0 = invalid)."""
+        cfg = self.config
+        samples, weights = outputs["samples"], outputs["weights"]
+        alpha, depth_gt = batch.get("alpha"), batch.get("depth")
+        losses = {"rgb_loss": L.masked_rgb_loss(
+            outputs["rgb"], batch["rgb"], alpha, cfg.use_masked_rgb_loss,
+            cfg.alpha_mask_threshold)}
+        if cfg.lambda_alpha_loss > 0 and alpha is not None:
+            losses["alpha_loss"] = cfg.lambda_alpha_loss * L.alpha_loss(
+                outputs["accumulation"], alpha)
+        if train and depth_gt is not None:
+            eps = sched.get("eps_depth", cfg.eps_depth_final)
+            if cfg.lambda_empty_loss > 0:
+                losses["empty_loss"] = cfg.lambda_empty_loss * L.empty_loss(
+                    weights, samples.t_starts, samples.t_ends, samples.mask,
+                    depth_gt, eps)
+            if cfg.lambda_near_loss > 0:
+                losses["near_loss"] = cfg.lambda_near_loss * L.near_loss(
+                    weights, samples.t_starts, samples.t_ends, samples.mask,
+                    depth_gt, eps)
+            if cfg.lambda_depth_loss > 0:
+                losses["depth_loss"] = cfg.lambda_depth_loss * L.depth_loss(
+                    outputs["depth"], depth_gt)
+        if cfg.lambda_dist_loss > 0 and train:
+            R = weights.shape[0]
+            ray_mask = torch.arange(R, device=weights.device) < cfg.dist_loss_max_rays
+            losses["dist_loss"] = cfg.lambda_dist_loss * distortion_loss(
+                weights, samples.t_starts, samples.t_ends, samples.mask, ray_mask)
+        return losses
+
+    def param_groups(self, params: ParamTree) -> Dict[str, list]:
+        """Top-level parameter keys per optimizer group."""
+        groups = {"fields": ["field"], "deformation_field": [], "embeddings": []}
+        if "deformation" in params:
+            groups["deformation_field"].append("deformation")
+        for key in ("time_embedding", "time_embedding_deformation"):
+            if key in params:
+                groups["embeddings"].append(key)
+        return groups
+
+    # -- occupancy grid ------------------------------------------------------
+
+    def init_grid_occs(self) -> torch.Tensor:
+        cfg = self.config
+        return torch.zeros(cfg.grid_levels * cfg.grid_resolution ** 3,
+                           dtype=torch.float32, device=self.device)
+
+    @torch.no_grad()
+    def density_at(self, params: ParamTree, positions: torch.Tensor,
+                   timesteps: torch.Tensor, sched: Dict) -> torch.Tensor:
+        """sigma at [N, 3] world positions and [N] integer timesteps, the
+        quad table built once, samples in chunks."""
+        fparams = self.prepare_field(params)
+        return self._chunked_samples(
+            lambda p, t: self._density(params, fparams, p, t, sched),
+            (positions, timesteps), positions.shape[0])
+
+    def occupancy_grid_update(self, params: ParamTree, grid_occs: torch.Tensor,
+                              sched: Dict, warmup: bool,
+                              generator: Optional[torch.Generator] = None,
+                              draws: Optional[OccupancyDraws] = None) -> torch.Tensor:
+        """One EMA update of the grid state; the random draws come from
+        ``draws`` or, when None, from ``generator``."""
+        cfg = self.config
+        if draws is None:
+            draws = draw_occupancy(grid_occs.shape[0], cfg.n_timesteps, warmup,
+                                   generator)
+
+        def occ_eval_fn(positions, timesteps):
+            return self.density_at(params, positions, timesteps, sched) \
+                * cfg.render_step_size
+
+        return update_occupancy_grid(
+            grid_occs, occ_eval_fn, draws, cfg.grid_resolution, self.aabb_min,
+            self.aabb_max, cfg.occ_thre, cfg.occupancy_grid_ema_decay, warmup)

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles every source into one shared library with a plain C
-interface for ``sm_90a`` (Hopper), at first use, into ``build/`` beside the
+``nvcc`` compiles every source (in parallel) and links them into one shared
+library with a plain C interface for ``sm_90a`` (Hopper), at first use, into ``build/`` beside the
 package (listed in ``.gitignore``); the library is loaded with ``ctypes``.
 The file name carries a hash of the sources and flags, so an edited source
 is rebuilt and a stale library is never loaded. No PyTorch headers are
@@ -15,13 +15,15 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-SOURCES = ("fused_mlp_fwd.cu", "quad_build.cu")
+SOURCES = ("fused_mlp_fwd.cu", "fused_mlp_bwd.cu", "quad_build.cu",
+           "quad_fold.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VOID_P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -29,8 +31,13 @@ _LL_P = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     # x, out, wt, bias, meta, n_rows, stream
     "fused_mlp_fwd": (_VOID_P, _VOID_P, _VOID_P, _VOID_P, _LL_P, _LL, _VOID_P),
+    # x, g, dx, wt, bias, wf, partials, total, meta, n_rows, n_parts, stream
+    "fused_mlp_bwd": (_VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,
+                      _VOID_P, _VOID_P, _LL_P, _LL, _LL, _VOID_P),
     # table, out, n_rows, row_bytes, meta, stream
     "quad_build": (_VOID_P, _VOID_P, _LL, _LL, _LL_P, _VOID_P),
+    # g, out, n_rows, quarter_bytes, elem_bytes, meta, stream
+    "quad_fold": (_VOID_P, _VOID_P, _LL, _LL, _LL, _LL_P, _VOID_P),
 }
 
 _library = None  # the loaded CDLL, once per process
@@ -55,23 +62,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libnersemble_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> Tuple[bool, str]:
+    """Run the commands concurrently; (all succeeded, their log)."""
+    start = time.perf_counter()
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = "".join(f"$ {' '.join(cmd)}\n# exit {proc.returncode}\n{out}"
+                  for cmd, proc, out in zip(cmds, procs, outs))
+    log += f"# {time.perf_counter() - start:.1f} s\n"
+    return all(proc.returncode == 0 for proc in procs), log
+
+
 def build() -> Path:
     """Compile the kernels unless this exact build exists; returns the
-    library path. The compiler's resource report (``-Xptxas -v``) is kept in
+    library path. One nvcc per source, all started together, then one link.
+    The compiler's resource report (``-Xptxas -v``) is kept in
     ``build/build.log``."""
     target = library_path()
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = find_nvcc(), f"{target.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{Path(name).stem}.{tag}.o" for name in SOURCES]
+    ok, log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / name), "-o",
+                         str(obj)] for name, obj in zip(SOURCES, objects)])
     partial = target.with_suffix(f".{os.getpid()}.partial")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(partial),
-           *(str(CSRC_DIR / name) for name in SOURCES)]
-    start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = (f"$ {' '.join(cmd)}\n# {time.perf_counter() - start:.1f} s, "
-           f"exit {proc.returncode}\n{proc.stdout}{proc.stderr}")
+    if ok:
+        link_ok, link_log = _run_all([[nvcc, "-shared", *NVCC_FLAGS[:2], "-o",
+                                       str(partial), *map(str, objects)]])
+        ok, log = link_ok, log + link_log
     (BUILD_DIR / "build.log").write_text(log)
-    if proc.returncode != 0:
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if not ok:
         raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(partial, target)
     return target

@@ -1,15 +1,18 @@
-"""Fused MLP forward: the CUDA kernel B1-fwd and its plain PyTorch version.
+"""Fused MLP: the CUDA kernels B1-fwd and B2 and their plain PyTorch versions.
 
-Counterpart of nersemble_tpu/ops/fused_mlp.py (forward only; the backward
-kernel comes with training). ``fused_mlp_apply`` is the entry point: on a
-CPU tensor it runs ``fused_mlp_plain``; on a CUDA tensor it launches
-``csrc/fused_mlp_fwd.cu`` (see the note at the top of that file for what the
-kernel replaces, what bounds it and how) or raises. There is no fallback.
+Counterpart of nersemble_tpu/ops/fused_mlp.py. ``fused_mlp_apply`` is the
+entry point, a ``torch.autograd.Function`` that saves ``x`` and the weights
+(as ``_fused_vjp_fwd`` does) and recomputes the forward in its backward. On
+CPU tensors it runs ``fused_mlp_plain`` / ``fused_mlp_bwd_plain``; on CUDA
+tensors it launches ``csrc/fused_mlp_fwd.cu`` / ``csrc/fused_mlp_bwd.cu``
+(see the notes at the top of those files for what each kernel replaces,
+what bounds it and how) or raises. There is no fallback.
 """
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
+from torch.profiler import record_function
 
 from nersemble_tpu_torch.ops import cuda_lib
 from nersemble_tpu_torch.ops.mlp import activate, round_to
@@ -20,8 +23,33 @@ _PAD = 8            # shared-memory row padding (elements)
 _TILE_ROWS = 128
 _SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use (H100)
 _ACTIVATIONS = {None: 0, "none": 0, "relu": 1, "sigmoid": 2}
+# csrc/fused_mlp_bwd.cu BT, KC, WKS, GS: rows per tile, staged K columns of
+# the forward weights, row stride of the staged f32 weights (32 input
+# features + 4), f32 row stride of the two gradient buffers
+_BWD_ROWS, _BWD_KC, _BWD_WKS, _BWD_GS = 64, 64, 36, 132
 
-LAUNCHES = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+LAUNCHES = 0      # B1-fwd launches since the last reset (chip_smoke.py reads it)
+BWD_LAUNCHES = 0  # B2 launches since the last reset
+
+# B2 vs plain tolerance, per output (dx, every dW and db), held on
+# ``positive_`` parameters and inputs. On random ones the bf16 forward that
+# the backward recomputes is chaotic at the ulp level: another f32 summation
+# order (or the tensor cores' own accumulation) flips a bf16 rounding in
+# ~1e-4 of the stem's hidden activations and a relu sign about once per 2M,
+# one sign flip in a middle layer moves a whole row of the (layer by layer
+# shrinking) gradients, and dW sums ~10^5 terms of both signs. Two correct
+# backwards then differ by up to 7% of max |dx| and 1.7e-3 of mean |dW| at
+# 16,384 stem rows (the plain version with f64 sums against itself; CPU).
+# On ``positive_`` values every relu sign is fixed by its column and every
+# sum has terms of one sign, so at 98,304 rows the f64-sum version uses at
+# most 1% of the mean bound and one with 1e-6 relative noise on every
+# pre-activation at most 7%, while a backward that takes dh from the
+# bf16-rounded weights exceeds it 20-630x and one that rounds the hidden
+# gradients to bf16 (autograd through ``round_to``) 14-40x (stem, base and
+# head, three seeds; CPU measurements, tests/test_torch_train_ops.py checks
+# the second).
+BWD_MAX_ERR_REL = 1e-3  # of max |plain|
+BWD_MEAN_ERR_REL = 1e-5  # of mean |plain|
 
 # Kernel vs plain tolerance. The two sum the f32 products in different
 # orders, so now and then a hidden activation rounds to the neighbouring
@@ -38,20 +66,19 @@ def _pad16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def fused_mlp_plain(params, x: torch.Tensor,
-                    out_activation: Optional[str] = None,
-                    compute_dtype: torch.dtype = torch.bfloat16,
-                    skip_connections: Sequence[int] = ()) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: float32 products of operands
-    rounded to ``compute_dtype``, f32 bias, relu then rounding on hidden
-    layers, the output activation in float32."""
+def _forward_chain(params, x: torch.Tensor, out_activation: Optional[str],
+                   compute_dtype: torch.dtype, skip_connections: Sequence[int]):
+    """The layer chain of ``_forward_math``: (output, the input of every
+    layer after its skip concat)."""
     layers = params.layers
     skips = set(skip_connections)
     x_in = round_to(x, compute_dtype)
     h = x_in
+    hs = []
     for i, layer in enumerate(layers):
         if i in skips and i > 0:
             h = torch.cat([h, x_in], dim=-1)
+        hs.append(h)
         pre = h @ round_to(layer.w, compute_dtype)
         if "b" in layer:
             pre = pre + layer.b
@@ -59,23 +86,118 @@ def fused_mlp_plain(params, x: torch.Tensor,
             h = round_to(torch.relu(pre), compute_dtype)
         else:
             h = activate(pre, out_activation)
-    return h
+    return h, hs
+
+
+def fused_mlp_plain(params, x: torch.Tensor,
+                    out_activation: Optional[str] = None,
+                    compute_dtype: torch.dtype = torch.bfloat16,
+                    skip_connections: Sequence[int] = ()) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: float32 products of operands
+    rounded to ``compute_dtype``, f32 bias, relu then rounding on hidden
+    layers, the output activation in float32."""
+    return _forward_chain(params, x, out_activation, compute_dtype,
+                          skip_connections)[0]
+
+
+@torch.no_grad()
+def fused_mlp_bwd_plain(params, x: torch.Tensor, g: torch.Tensor,
+                        out_activation: Optional[str] = None,
+                        compute_dtype: torch.dtype = torch.bfloat16,
+                        skip_connections: Sequence[int] = ()):
+    """``_bwd_kernel`` transcribed: recompute the forward from ``x`` and the
+    weights, then per layer (last first) ``dW = h_in^T g`` with ``h_in`` the
+    rounded layer input in f32, ``db = sum g``, ``dh = g W^T`` with the
+    **f32** weights, the skip layer's last ``d_in`` columns of dh to dx, and
+    the relu mask of the rounded hidden activation. Returns (dx [N, d_in]
+    f32, [dW_i] f32, [db_i] f32 or None)."""
+    layers = params.layers
+    skips = set(skip_connections)
+    n_layers, in_dim = len(layers), x.shape[-1]
+    out, hs = _forward_chain(params, x, out_activation, compute_dtype, skips)
+    g = g.to(torch.float32)
+    if out_activation == "sigmoid":
+        g = g * out * (1.0 - out)
+    elif out_activation == "relu":
+        g = g * (out > 0).to(g.dtype)
+    dx = torch.zeros(x.shape[0], in_dim, dtype=torch.float32, device=x.device)
+    dws: List[torch.Tensor] = [None] * n_layers
+    dbs = [None] * n_layers if "b" in layers[0] else None
+    for i in range(n_layers - 1, -1, -1):
+        dws[i] = hs[i].t() @ g
+        if dbs is not None:
+            dbs[i] = torch.sum(g, dim=0)
+        dh = g @ layers[i].w.t()
+        if i in skips and i > 0:
+            dx = dx + dh[:, -in_dim:]
+            dh = dh[:, :-in_dim]
+        if i > 0:
+            h_prev = hs[i][:, :dh.shape[-1]]
+            g = dh * (h_prev > 0).to(dh.dtype)
+        else:
+            dx = dx + dh
+    return dx, dws, dbs
+
+
+def _compare(out: torch.Tensor, ref: torch.Tensor, max_rel: float,
+             mean_rel: float, what: str) -> Dict[str, float]:
+    err = (out.float() - ref).abs()
+    scale = float(ref.abs().max())
+    res = {"max_abs": float(err.max()),
+           "max_rel": float(err.max()) / scale if scale else 0.0,
+           "max_tol": max_rel * scale,
+           "mean_abs": float(err.mean()),
+           "mean_tol": mean_rel * float(ref.abs().mean())}
+    if not (res["max_abs"] <= res["max_tol"] and res["mean_abs"] <= res["mean_tol"]):
+        raise AssertionError(f"{what} differs from its plain version: {res}")
+    return res
 
 
 def compare_to_plain(out: torch.Tensor, ref: torch.Tensor) -> Dict[str, float]:
     """Max abs error (also relative to max |ref|) and mean abs error of
     ``out`` against the plain version's ``ref``, with their limits; raises
     AssertionError when either limit is exceeded."""
-    err = (out.float() - ref).abs()
-    scale = float(ref.abs().max())
-    res = {"max_abs": float(err.max()),
-           "max_rel": float(err.max()) / scale,
-           "max_tol": MAX_ERR_REL * scale,
-           "mean_abs": float(err.mean()),
-           "mean_tol": MEAN_ERR_REL * float(ref.abs().mean())}
-    if not (res["max_abs"] <= res["max_tol"] and res["mean_abs"] <= res["mean_tol"]):
-        raise AssertionError(f"fused MLP differs from its plain version: {res}")
-    return res
+    return _compare(out, ref, MAX_ERR_REL, MEAN_ERR_REL, "fused MLP")
+
+
+def positive_(params, generator: torch.Generator):
+    """Overwrite an MLP's parameters in place for B2's kernel-vs-plain check
+    (``BWD_MAX_ERR_REL``): weights s_j * U(0.5, 1.5) / in_dim with a random
+    sign s_j per output column, biases s_j * U(0, 0.1). With
+    ``positive_input`` x (and output gradients) every pre-activation has
+    its column's sign and every gradient stays >= 0."""
+    with torch.no_grad():
+        for layer in params.layers:
+            kw = dict(generator=generator, device=generator.device)
+            d_in, d_out = layer.w.shape
+            sign = torch.randint(0, 2, (d_out,), **kw).to(layer.w.dtype) * 2 - 1
+            layer.w.copy_(sign * (0.5 + torch.rand(layer.w.shape, **kw)) / d_in)
+            if "b" in layer:
+                layer.b.copy_(sign * 0.1 * torch.rand(d_out, **kw))
+    return params
+
+
+def positive_input(rows: int, width: int, generator: torch.Generator) -> torch.Tensor:
+    """[rows, width] float32 values U(0.5, 1.5)."""
+    return 0.5 + torch.rand(rows, width, generator=generator,
+                            device=generator.device)
+
+
+def compare_bwd_to_plain(outs, refs) -> Dict[str, float]:
+    """``compare_to_plain`` for a backward's (dx, dWs, dbs) with the B2
+    bounds, output by output; returns the worst of each number."""
+    (dx, dws, dbs), (rdx, rdws, rdbs) = outs, refs
+    pairs = [("dx", dx, rdx)] + [(f"dW{i}", a, b) for i, (a, b)
+                                 in enumerate(zip(dws, rdws))]
+    if rdbs is not None:
+        pairs += [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(dbs, rdbs))]
+    worst: Dict[str, float] = {}
+    for name, a, b in pairs:
+        res = _compare(a, b, BWD_MAX_ERR_REL, BWD_MEAN_ERR_REL,
+                       f"fused MLP backward {name}")
+        for key in ("max_abs", "max_rel", "mean_abs"):
+            worst[key] = max(worst.get(key, 0.0), res[key])
+    return worst
 
 
 def pack_weights(params, d_in: int, skip_connections: Sequence[int] = ()):
@@ -177,18 +299,154 @@ def fused_mlp_cuda(params, x: torch.Tensor, out_activation: Optional[str] = None
     return out
 
 
+def bwd_layout(params, d_in: int, skip_connections: Sequence[int]):
+    """B2's operands besides B1-fwd's packed ones: the f32 weights in their
+    ``[in, out]`` layout, concatenated, and per layer (real input width,
+    real output width, hidden input width, offset of W_i in that buffer =
+    offset of dW_i in a partial, offset of db_i in a partial). A partial
+    holds every dW_i as ``[out][in]`` (so a warp's RMW is coalesced), then
+    every db_i; its length is rounded up to 4 floats."""
+    layers = params.layers
+    skips = set(skip_connections)
+    per_layer, w_off, prev_out = [], 0, None
+    for i, layer in enumerate(layers):
+        d_out = layer.w.shape[1]
+        hw = 0 if i == 0 else prev_out
+        in_real = layer.w.shape[0]
+        per_layer.append([in_real, d_out, hw, w_off])
+        w_off += in_real * d_out
+        prev_out = d_out
+    b_off = w_off
+    for entry, layer in zip(per_layer, layers):
+        entry.append(b_off)
+        if "b" in layer:
+            b_off += entry[1]
+    wf = torch.cat([layer.w.detach().reshape(-1) for layer in layers])
+    return wf, per_layer, -(-b_off // 4) * 4
+
+
+def _packed_bwd(params, d_in: int, skip_connections: Sequence[int]):
+    """``bwd_layout``, cached on the MLP module like ``_packed_weights``."""
+    key = (d_in, tuple(skip_connections),
+           tuple((t.data_ptr(), t._version) for t in params.parameters()))
+    cached = getattr(params, "_fused_mlp_bwd_packed", None)
+    if cached is None or cached[0] != key:
+        cached = (key, bwd_layout(params, d_in, skip_connections))
+        params._fused_mlp_bwd_packed = cached
+    return cached[1]
+
+
+def split_partial_sum(total: torch.Tensor, per_layer, has_bias: bool):
+    """The reduced partial buffer -> ([dW_i [in, out]], [db_i] or None)."""
+    dws, dbs = [], [] if has_bias else None
+    for in_real, d_out, _, w_off, b_off in per_layer:
+        dws.append(total[w_off:w_off + in_real * d_out].view(d_out, in_real)
+                   .t().contiguous())
+        if has_bias:
+            dbs.append(total[b_off:b_off + d_out].clone())
+    return dws, dbs
+
+
+def bwd_smem_bytes(per_layer_fwd, kx: int, h_stride: int) -> int:
+    n_layers = len(per_layer_fwd) // 5
+    n_max = max(per_layer_fwd[5 * i] for i in range(n_layers))
+    stage = max(2 * n_max * (_BWD_KC + _PAD), 4 * n_max * _BWD_WKS)
+    return (2 * _BWD_ROWS * (kx + _PAD) + 2 * (n_layers - 1) * _BWD_ROWS * h_stride
+            + 4 * 2 * _BWD_ROWS * _BWD_GS + stage)
+
+
+def fused_mlp_bwd_cuda(params, x: torch.Tensor, g: torch.Tensor,
+                       out_activation: Optional[str] = None,
+                       skip_connections: Sequence[int] = ()):
+    """Launch kernel B2 on CUDA tensors ``x [N, d_in]`` and ``g [N, d_out]``
+    (float32): returns (dx, [dW_i], [db_i] or None), all f32."""
+    global BWD_LAUNCHES
+    if not (x.is_cuda and g.is_cuda):
+        raise ValueError("fused_mlp_bwd_cuda takes CUDA tensors")
+    for name, t in (("x", x), ("g", g)):
+        if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 2-D float32 tensor, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if out_activation not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation {out_activation!r}")
+    n_rows, d_in = x.shape
+    wt, bias, per_layer, kx, h_stride, d_out, has_bias = _packed_weights(
+        params, d_in, skip_connections)
+    wf, per_layer_bwd, part_stride = _packed_bwd(params, d_in, skip_connections)
+    if g.shape != (n_rows, d_out):
+        raise ValueError(f"g is {tuple(g.shape)}, expected {(n_rows, d_out)}")
+    if wt.device != x.device:
+        raise ValueError(f"weights on {wt.device}, input on {x.device}")
+    smem = bwd_smem_bytes(per_layer, kx, h_stride)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"fused MLP backward needs {smem} B of shared memory "
+                         f"> {_SMEM_LIMIT}")
+    n_tiles = -(-n_rows // _BWD_ROWS)
+    n_parts = max(1, min(n_tiles, torch.cuda.get_device_properties(
+        x.device).multi_processor_count))
+    dx = torch.empty(n_rows, d_in, dtype=torch.float32, device=x.device)
+    partials = torch.empty(n_parts, part_stride, dtype=torch.float32,
+                           device=x.device)
+    total = torch.empty(part_stride, dtype=torch.float32, device=x.device)
+    meta = [len(per_layer) // 5, d_in, kx, d_out, _ACTIVATIONS[out_activation],
+            h_stride, int(has_bias), part_stride]
+    for i, (in_real, out_real, hw, w_off, b_off) in enumerate(per_layer_bwd):
+        meta += [*per_layer[5 * i:5 * i + 5], in_real, out_real, hw, w_off, b_off]
+    status = cuda_lib.library().fused_mlp_bwd(
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(), wt.data_ptr(),
+        bias.data_ptr(), wf.data_ptr(), partials.data_ptr(), total.data_ptr(),
+        cuda_lib.int64_array(meta), n_rows, n_parts,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_lib.check(status, "fused_mlp_bwd")
+    BWD_LAUNCHES += 1
+    dws, dbs = split_partial_sum(total, per_layer_bwd, has_bias)
+    return dx, dws, dbs
+
+
+class _FusedMLP(torch.autograd.Function):
+    """Forward B1-fwd / backward B2 (CUDA) or the plain pair (CPU); saves
+    ``x`` and the weights and recomputes the activations in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, params, out_activation, compute_dtype, skips, *weights):
+        ctx.save_for_backward(x, *weights)
+        ctx.params, ctx.out_activation = params, out_activation
+        ctx.compute_dtype, ctx.skips = compute_dtype, skips
+        if x.device.type == "cpu":
+            return fused_mlp_plain(params, x, out_activation, compute_dtype, skips)
+        return fused_mlp_cuda(params, x, out_activation, skips)
+
+    @staticmethod
+    def backward(ctx, g):
+        x = ctx.saved_tensors[0]
+        params = ctx.params
+        with record_function("bwd:fused_mlp"):
+            if x.device.type == "cpu":
+                dx, dws, dbs = fused_mlp_bwd_plain(params, x, g, ctx.out_activation,
+                                                   ctx.compute_dtype, ctx.skips)
+            else:
+                dx, dws, dbs = fused_mlp_bwd_cuda(params, x, g.contiguous(),
+                                                  ctx.out_activation, ctx.skips)
+        return (dx, None, None, None, None, *dws, *(dbs or ()))
+
+
 def fused_mlp_apply(params, x: torch.Tensor,
                     out_activation: Optional[str] = None,
                     compute_dtype: torch.dtype = torch.bfloat16,
                     skip_connections: Sequence[int] = ()) -> torch.Tensor:
-    """The MLP chain through kernel B1-fwd (CUDA) or its plain version (CPU).
+    """The MLP chain through kernels B1-fwd / B2 (CUDA) or their plain
+    versions (CPU), differentiable in ``x`` and every weight and bias.
 
-    The kernel computes in bf16; a CUDA call with another compute dtype
+    The kernels compute in bf16; a CUDA call with another compute dtype
     raises rather than silently taking the plain path."""
-    if x.device.type == "cpu":
-        return fused_mlp_plain(params, x, out_activation, compute_dtype,
-                               skip_connections)
-    if compute_dtype != torch.bfloat16:
+    if out_activation not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation {out_activation!r}")
+    if x.device.type != "cpu" and compute_dtype != torch.bfloat16:
         raise ValueError(f"the fused MLP kernel computes in bfloat16, not {compute_dtype}")
-    return fused_mlp_cuda(params, x, out_activation, skip_connections)
+    layers = params.layers
+    tensors = [layer.w for layer in layers]
+    if "b" in layers[0]:
+        tensors += [layer.b for layer in layers]
+    return _FusedMLP.apply(x, params, out_activation, compute_dtype,
+                           tuple(skip_connections), *tensors)
 

@@ -1,4 +1,4 @@
-"""Multiresolution hash-grid encoding, forward (port of
+"""Multiresolution hash-grid encoding (port of
 nersemble_tpu/ops/hash_encoding.py).
 
 The layout is the JAX package's, kept exactly so checkpoints interchange:
@@ -13,7 +13,8 @@ The blended encode is plain PyTorch here: gather the rows as
 [N, 2 corners, L, 4 quarters, H tables, F_l], then sum over tables,
 quarters and corners. The JAX version rounds ``rows * code`` to the table
 dtype before its f32 sum; this does the same (the product is taken in the
-table dtype).
+table dtype). Its backward is JAX's analytic one (``_BlendedEncode``); the
+hand kernel for both directions is ROADMAP A3.
 """
 
 from dataclasses import dataclass
@@ -21,6 +22,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from nersemble_tpu_torch.ops.quad_kernel import N_QUARTERS, quad_build
 from nersemble_tpu_torch.utils.device import device_constant
@@ -133,6 +135,88 @@ def build_quad_table(table: torch.Tensor, levels: HashGridLevels,
     return quad_build(table.to(dtype).contiguous(), levels)
 
 
+def _quad_weights(fx: torch.Tensor, fz: torch.Tensor) -> torch.Tensor:
+    """Quarter interpolation weights u_q = wx * wz, [N, L, 4]."""
+    gx, gz = 1.0 - fx, 1.0 - fz
+    return torch.stack([gx * gz, gx * fz, fx * gz, fx * fz], dim=-1)
+
+
+class _BlendedEncode(torch.autograd.Function):
+    """``_blended_core`` with the analytic backward of ``_blended_vjp_bwd``.
+
+    The forward keeps two residuals in the table dtype, as JAX does:
+    CG [n,2,L,4,Fl] (the code-blended quarters) and BH [n,L,H,Fl] (the
+    weight-blended rows, corners and quarters folded). The backward rounds
+    to the table dtype where JAX does (gbar before the BH product; the row
+    gradient ``wy * u * gbar`` and its product with the code) and gives the
+    gradients of the quad table, the code and the weights wy, fx, fz (which
+    autograd carries on to the positions through ``hash_grid_indices``).
+
+    The table gradient is scattered into an f32 [E, 4W] accumulator and cast
+    to the table dtype once. JAX accumulates its dense prefix in f32 too,
+    but its hashed levels in the table dtype (a bf16 add per scattered row):
+    bf16 accumulation saturates on hot entries (ROADMAP C4), which this
+    avoids; at bf16 the two differ by a few bf16 ulps on hashed entries that
+    receive several rows (tests/test_torch_train_encode.py states the bound).
+    """
+
+    @staticmethod
+    def forward(ctx, quad_table, code, wy, fx, fz, entry_idx, n_levels,
+                features_per_logical, keep_residuals):
+        n, L, Fl = code.shape[0], n_levels, features_per_logical
+        W = quad_table.shape[1] // N_QUARTERS
+        H = W // Fl
+        dt = quad_table.dtype
+        rows = quad_table[entry_idx.reshape(-1)].view(n, 2, L, N_QUARTERS, H, Fl)
+        # per-logical-table blend, product rounded to the table dtype as in JAX
+        code_t = code.to(dt)[:, None, None, None, :, None]
+        cg = torch.sum(rows * code_t, dim=4, dtype=torch.float32)  # [n,2,L,4,Fl]
+        u = _quad_weights(fx, fz)  # [n,L,4]
+        g = torch.sum(cg * u[:, None, :, :, None], dim=3)  # [n,2,L,Fl]
+        out = g[:, 0] * wy[:, :L, None] + g[:, 1] * wy[:, L:, None]
+        if keep_residuals:
+            wu = (wy.view(n, 2, L)[..., None] * u[:, None]).to(dt)  # [n,2,L,4]
+            b = rows[:, 0] * wu[:, 0, :, :, None, None] \
+                + rows[:, 1] * wu[:, 1, :, :, None, None]  # [n,L,4,H,Fl] dt
+            bh = torch.sum(b, dim=2, dtype=torch.float32).to(dt)  # [n,L,H,Fl]
+            ctx.save_for_backward(cg.to(dt), bh, code, entry_idx, wy, fx, fz)
+            ctx.table_shape = quad_table.shape
+            ctx.layout = (L, Fl)
+        return out.reshape(n, L * Fl)
+
+    @staticmethod
+    @record_function("bwd:hash_encode")
+    def backward(ctx, gbar):
+        CG, BH, code, entry_idx, wy, fx, fz = ctx.saved_tensors
+        L, Fl = ctx.layout
+        E, W4 = ctx.table_shape
+        n, dt = code.shape[0], CG.dtype
+        gbar = gbar.to(torch.float32).reshape(n, 1, L, 1, Fl)
+        cg = CG.to(torch.float32)
+        u = _quad_weights(fx, fz)
+        u5 = u[:, None, :, :, None]  # [n,1,L,4,1]
+        w5 = wy.view(n, 2, L)[:, :, :, None, None]  # [n,2,L,1,1]
+
+        d_wy = torch.sum(cg * u5 * gbar, dim=(3, 4)).reshape(n, 2 * L)
+        core = cg * w5 * gbar  # [n,2,L,4,Fl]
+        gx, gz = 1.0 - fx, 1.0 - fz
+        pat_fx = torch.stack([-gz, -fz, gz, fz], dim=-1)[:, None, :, :, None]
+        pat_fz = torch.stack([-gx, gx, -fx, fx], dim=-1)[:, None, :, :, None]
+        d_fx = torch.sum(core * pat_fx, dim=(1, 3, 4))
+        d_fz = torch.sum(core * pat_fz, dim=(1, 3, 4))
+        # d code[h] = sum_{l,f} BH[l,h,f] * gbar[l,f], product in the table dtype
+        gb = gbar.reshape(n, L, 1, Fl).to(dt)
+        d_code = torch.sum(BH * gb, dim=(1, 3), dtype=torch.float32)
+
+        # d rows = (gbar * u * wy) rounded, times the rounded code
+        m = (gbar * u5 * w5).to(dt)  # [n,2,L,4,Fl]
+        d_rows = m[:, :, :, :, None, :] * code.to(dt)[:, None, None, None, :, None]
+        acc = torch.zeros(E, W4, dtype=torch.float32, device=CG.device)
+        acc.index_add_(0, entry_idx.reshape(-1),
+                       d_rows.reshape(-1, W4).to(torch.float32))
+        return (acc.to(dt), d_code, d_wy, d_fx, d_fz, None, None, None, None)
+
+
 def hash_encode_blended(quad_table: torch.Tensor, x: torch.Tensor,
                         code: torch.Tensor, levels: HashGridLevels,
                         features_per_logical: int = 2,
@@ -141,17 +225,13 @@ def hash_encode_blended(quad_table: torch.Tensor, x: torch.Tensor,
 
         out[n, l*Fl+f] = sum_{corner,h} w[n,l,corner] * code[n,h]
                          * table[idx[n,l,corner], h*Fl + f]
+
+    Differentiable in the quad table, the code and ``x`` (analytic
+    backward, no re-gather; see ``_BlendedEncode``).
     """
     entry_idx, wy, fx, fz = hash_grid_indices(x, levels, smoothstep)
-    n, L, Fl = x.shape[0], levels.n_levels, features_per_logical
-    W = quad_table.shape[1] // N_QUARTERS
-    H = W // Fl
-    rows = quad_table[entry_idx.reshape(-1)].view(n, 2, L, N_QUARTERS, H, Fl)
-    # per-logical-table blend, product rounded to the table dtype as in JAX
-    code_t = code.to(quad_table.dtype)[:, None, None, None, :, None]
-    cg = torch.sum(rows * code_t, dim=4, dtype=torch.float32)  # [n,2,L,4,Fl]
-    gx, gz = 1.0 - fx, 1.0 - fz
-    u = torch.stack([gx * gz, gx * fz, fx * gz, fx * fz], dim=-1)  # [n,L,4]
-    g = torch.sum(cg * u[:, None, :, :, None], dim=3)  # [n,2,L,Fl]
-    out = g[:, 0] * wy[:, :L, None] + g[:, 1] * wy[:, L:, None]
-    return out.reshape(n, L * Fl)
+    code = code.to(torch.float32)
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (quad_table, code, wy, fx, fz))
+    return _BlendedEncode.apply(quad_table, code, wy, fx, fz, entry_idx,
+                                levels.n_levels, features_per_logical, keep)

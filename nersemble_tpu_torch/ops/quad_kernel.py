@@ -1,22 +1,27 @@
-"""xz-quad table build: the CUDA kernel B3 and its plain PyTorch version.
+"""xz-quad table build and its gradient fold: the CUDA kernels B3 and B4 and
+their plain PyTorch versions.
 
-Counterpart of nersemble_tpu/ops/quad_pallas.py::build (the fold kernel
-comes with training). ``quad_build`` is the entry point: on a CPU tensor it
-runs ``quad_build_plain``; on a CUDA tensor it launches
-``csrc/quad_build.cu`` (see the note at the top of that file) or raises.
-The kernel is a copy, so its output is bit-exact against the plain version.
+Counterpart of nersemble_tpu/ops/quad_pallas.py (``build``, ``fold``) and of
+``quad_from_cast``'s custom VJP in nersemble_tpu/ops/hash_encoding.py.
+``quad_build`` is the entry point, a ``torch.autograd.Function`` whose
+backward is ``quad_fold``. On CPU tensors they run ``quad_build_plain`` /
+``quad_fold_plain``; on CUDA tensors they launch ``csrc/quad_build.cu`` /
+``csrc/quad_fold.cu`` (see the notes at the top of those files) or raise.
+Both kernels are bit-exact against their plain versions.
 """
 
 from typing import List, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from nersemble_tpu_torch.ops import cuda_lib
 
 N_QUARTERS = 4
-MAX_LEVELS = 32  # csrc/quad_build.cu QB_MAX_LEVELS
+MAX_LEVELS = 32  # csrc/quad_build.cu QB_MAX_LEVELS, csrc/quad_fold.cu QF_MAX_LEVELS
 
-LAUNCHES = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+LAUNCHES = 0       # B3 launches since the last reset (chip_smoke.py reads it)
+FOLD_LAUNCHES = 0  # B4 launches since the last reset
 
 
 def quarter_strides(levels) -> List[Tuple[int, ...]]:
@@ -74,9 +79,79 @@ def quad_build_cuda(table: torch.Tensor, levels) -> torch.Tensor:
     return out
 
 
+def quad_fold_plain(g: torch.Tensor, levels) -> torch.Tensor:
+    """``_quad_bwd_xla``: [E, 4W] -> [E, W], per level the inverse rolls of
+    quarters 1..3 added to quarter 0 in f32, in that order, then cast to the
+    gradient dtype."""
+    W = g.shape[1] // N_QUARTERS
+    segs = []
+    for l in range(levels.n_levels):
+        off, size = levels.offsets[l], levels.sizes[l]
+        seg = g[off:off + size]
+        sx = levels.x_strides[l] % size
+        sz = levels.z_strides[l] % size
+        acc = seg[:, :W].to(torch.float32) \
+            + torch.roll(seg[:, W:2 * W], sz, dims=0).to(torch.float32) \
+            + torch.roll(seg[:, 2 * W:3 * W], sx, dims=0).to(torch.float32) \
+            + torch.roll(seg[:, 3 * W:], (sx + sz) % size, dims=0).to(torch.float32)
+        segs.append(acc.to(g.dtype))
+    return torch.cat(segs, dim=0)
+
+
+def quad_fold_cuda(g: torch.Tensor, levels) -> torch.Tensor:
+    """Launch kernel B4 on a contiguous CUDA quad gradient [E, 4W] (bf16 or
+    f32)."""
+    global FOLD_LAUNCHES
+    if not g.is_cuda:
+        raise ValueError("quad_fold_cuda takes a CUDA tensor")
+    if g.dim() != 2 or not g.is_contiguous() or g.shape[1] % N_QUARTERS:
+        raise ValueError(f"g must be a contiguous [E, 4W] tensor, got {tuple(g.shape)}")
+    if g.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the fold kernel takes bf16 or f32, not {g.dtype}")
+    if g.shape[0] != levels.total_entries:
+        raise ValueError(f"g has {g.shape[0]} rows, the layout {levels.total_entries}")
+    if levels.n_levels > MAX_LEVELS:
+        raise ValueError(f"the kernel takes <= {MAX_LEVELS} levels")
+    width = g.shape[1] // N_QUARTERS
+    quarter_bytes = width * g.element_size()
+    if quarter_bytes % 16 or quarter_bytes > 4096:
+        raise ValueError(f"quarters of {quarter_bytes} B: the kernel folds "
+                         "16-byte chunks of quarters up to 4096 B")
+    out = torch.empty(g.shape[0], width, dtype=g.dtype, device=g.device)
+    status = cuda_lib.library().quad_fold(
+        g.data_ptr(), out.data_ptr(), g.shape[0], quarter_bytes,
+        g.element_size(), cuda_lib.int64_array(kernel_layout(levels)),
+        torch.cuda.current_stream(g.device).cuda_stream)
+    cuda_lib.check(status, "quad_fold")
+    FOLD_LAUNCHES += 1
+    return out
+
+
+def quad_fold(g: torch.Tensor, levels) -> torch.Tensor:
+    """[E, 4W] quad gradient -> [E, W] canonical gradient: kernel B4 on
+    CUDA, the plain version on CPU."""
+    if g.device.type == "cpu":
+        return quad_fold_plain(g, levels)
+    return quad_fold_cuda(g, levels)
+
+
+class _QuadBuild(torch.autograd.Function):
+    """B3 forward, B4 backward (``quad_from_cast`` and its custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, table, levels):
+        ctx.levels = levels
+        if table.device.type == "cpu":
+            return quad_build_plain(table, levels)
+        return quad_build_cuda(table, levels)
+
+    @staticmethod
+    def backward(ctx, g):
+        with record_function("bwd:quad_fold"):
+            return quad_fold(g.contiguous(), ctx.levels), None
+
+
 def quad_build(table: torch.Tensor, levels) -> torch.Tensor:
     """[E, W] (already cast) -> [E, 4W] quad gather operand: kernel B3 on
-    CUDA, the plain version on CPU."""
-    if table.device.type == "cpu":
-        return quad_build_plain(table, levels)
-    return quad_build_cuda(table, levels)
+    CUDA, the plain version on CPU; its gradient is the fold (B4)."""
+    return _QuadBuild.apply(table, levels)

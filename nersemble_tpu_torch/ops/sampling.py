@@ -1,12 +1,13 @@
-"""Occupancy-grid ray marching with fixed shapes, eval subset (port of
+"""Occupancy-grid ray marching with fixed shapes (port of
 nersemble_tpu/ops/sampling.py).
 
 Rays are intersected with the scene box, marched in ``n_candidates``
-uniform steps, candidates in unoccupied cells are dropped, and the first
-``S`` valid candidates per ray are kept in [R, S] slots (mask marks valid
-slots). Global compaction then picks the samples the field evaluates.
-Cone-angle marching (growing steps) and its two-phase coarse prefilter come
-with the slice that needs them.
+uniform steps (shifted by a per-ray jitter in training), candidates in
+unoccupied cells are dropped, and the first ``S`` valid candidates per ray
+are kept in [R, S] slots (mask marks valid slots). Global compaction then
+picks the samples the field evaluates; the trainer sizes that budget with
+``quantized_budget``. Cone-angle marching (growing steps) and its two-phase
+coarse prefilter come with the slice that needs them.
 """
 
 from typing import NamedTuple, Optional
@@ -190,6 +191,24 @@ def occupied_world_aabb(binaries, aabb_min, aabb_max, expand_cells: float = 2.0)
     return lo_all, hi_all, any_all
 
 
+def quantized_budget(measured_samples: float, n_rays: int, n_slots: int,
+                     headroom: float = 1.15,
+                     current: Optional[int] = None) -> int:
+    """Next train-step compaction budget from a measured valid-sample count:
+    ``measured * headroom`` rounded up to a quantum of R*S/128, with
+    hysteresis against ``current`` (grow at once, shrink only by a whole
+    quantum). The reasoning behind the numbers is in the JAX docstring."""
+    total = n_rays * n_slots
+    quantum = max(total // 128, 128)
+    q = -(-int(measured_samples * headroom) // quantum) * quantum
+    q = min(max(q, quantum), total)
+    if current is not None:
+        if q > current or q <= current - quantum:
+            return q
+        return current
+    return q
+
+
 def march_rays(origins: torch.Tensor,
                directions: torch.Tensor,
                aabb_min: torch.Tensor,
@@ -200,10 +219,12 @@ def march_rays(origins: torch.Tensor,
                binaries: Optional[torch.Tensor] = None,
                near_plane: float = 0.0,
                far_plane: float = 1e10,
+               jitter: Optional[torch.Tensor] = None,
                occupancy_stride: int = 1):
-    """Rays -> compacted RaySamples + diagnostics (eval march: no jitter,
-    uniform steps).
+    """Rays -> compacted RaySamples + diagnostics (uniform steps).
 
+    ``jitter``: optional [R] uniforms in [0, 1) shifting each ray's sample
+    comb (training-time stratification); None starts at the near point.
     ``occupancy_stride > 1`` probes ``binaries`` once per group of that many
     candidates, at the group's centre, and lets it vouch for the group; it
     requires a dilated grid and (stride/2) * step <= one cell (see the JAX
@@ -215,7 +236,9 @@ def march_rays(origins: torch.Tensor,
                                 binaries, near_plane, far_plane)
     dtype, dev = origins.dtype, origins.device
     steps = torch.arange(n_candidates, dtype=dtype, device=dev)
-    t0 = t_near[:, None] + steps[None, :] * render_step_size
+    if jitter is None:
+        jitter = torch.zeros_like(t_near)
+    t0 = t_near[:, None] + (steps[None, :] + jitter[:, None]) * render_step_size
     t1 = t0 + render_step_size
     valid = (t0 + t1) * 0.5 < t_far[:, None]
 
@@ -223,8 +246,8 @@ def march_rays(origins: torch.Tensor,
         if occupancy_stride > 1:
             n_probe = -(-n_candidates // occupancy_stride)
             kp = (torch.arange(n_probe, dtype=dtype, device=dev) * occupancy_stride
-                  + 0.5 * occupancy_stride)
-            tp = t_near[:, None] + kp[None, :] * render_step_size
+                  + 0.5 * occupancy_stride)[None, :] + jitter[:, None]
+            tp = t_near[:, None] + kp * render_step_size
             posp = origins[:, None, :] + directions[:, None, :] * tp[..., None]
             occ_p = occupancy_lookup(binaries, posp, aabb_min, aabb_max)
             occupied = occ_p.repeat_interleave(occupancy_stride,
@@ -240,7 +263,8 @@ def march_rays(origins: torch.Tensor,
                       torch.full_like(valid, big, dtype=torch.int64))
     vals, order = torch.topk(key, max_samples_per_ray, dim=1, largest=False,
                              sorted=True)
-    t_starts = t_near[:, None] + order.to(dtype) * render_step_size
+    t_starts = t_near[:, None] + (order.to(dtype) + jitter[:, None]) \
+        * render_step_size
     t_ends = t_starts + render_step_size
     mask = vals < big
 

@@ -17,8 +17,9 @@ Tree = Union[Dict, list, tuple, torch.Tensor]
 
 class ParamTree(nn.Module):
     """Dict entries become parameters (tensors), submodules (dicts) or
-    ``nn.ModuleList``s (lists). Parameters are inference-only here
-    (``requires_grad=False``); training arrives with the training slice."""
+    ``nn.ModuleList``s (lists). Parameters are created with
+    ``requires_grad=False`` (rendering needs no gradients); the trainer
+    turns gradients on."""
 
     def __init__(self, tree: Dict[str, Tree]):
         super().__init__()
@@ -33,6 +34,25 @@ class ParamTree(nn.Module):
 
     def __contains__(self, key: str) -> bool:
         return key in self._modules or key in self._parameters
+
+
+def to_tree(params: nn.Module, fn=lambda t: t) -> Dict[str, Tree]:
+    """A ParamTree -> the JAX pytree's nesting (dicts, lists for
+    ``ModuleList``s) with ``fn(parameter)`` at the leaves."""
+    tree: Dict[str, Tree] = {}
+    for key, value in params._parameters.items():
+        tree[key] = fn(value.detach())
+    for key, child in params._modules.items():
+        if isinstance(child, nn.ModuleList):
+            tree[key] = [to_tree(c, fn) for c in child]
+        else:
+            tree[key] = to_tree(child, fn)
+    return tree
+
+
+def params_like(params: nn.Module, fn) -> ParamTree:
+    """A ParamTree shaped like ``params`` with ``fn(parameter)`` as leaves."""
+    return ParamTree(to_tree(params, fn))
 
 
 def uniform(shape, low: float, high: float, generator: torch.Generator,

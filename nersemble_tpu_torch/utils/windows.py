@@ -1,7 +1,7 @@
 """Coarse-to-fine window functions and host-side schedules.
 
 Port of ``nersemble_tpu/utils/windows.py`` plus the trainer's
-``sched_values`` (``nersemble_tpu/engine/trainer.py:404-423``). Schedule
+``sched_values`` and ``lr_values`` (``nersemble_tpu/engine/trainer.py:404-428``). Schedule
 values are plain Python floats computed on the host per step; the window is
 evaluated on the device of the tensor it multiplies.
 """
@@ -11,7 +11,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from nersemble_tpu_torch.config import ModelConfig
+from nersemble_tpu_torch.config import ModelConfig, OptimizerConfig
 from nersemble_tpu_torch.utils.device import device_constant
 
 
@@ -33,6 +33,19 @@ def generic_schedule(step, init_value: float, final_value: float,
         return float(final_value)
     frac = np.clip((step - begin_step) / (end_step - begin_step), 0.0, 1.0)
     return float(init_value + (final_value - init_value) * frac)
+
+
+def step_lr(step, base_lr: float, step_size: int, gamma: float) -> float:
+    """StepLR: ``base_lr * gamma^floor(step / step_size)``."""
+    return float(base_lr * (gamma ** (step // step_size)))
+
+
+def lr_values(optimizers: Dict[str, OptimizerConfig], step: int) -> Dict[str, float]:
+    """Per-group learning rates at ``step``, rounded to float32 like the JAX
+    trainer's ``np.float32`` values (``NeRSembleTrainer.lr_values``)."""
+    return {name: float(np.float32(step_lr(step, oc.lr, oc.scheduler_step_size,
+                                           oc.scheduler_gamma)))
+            for name, oc in optimizers.items()}
 
 
 def sched_values(config: ModelConfig, step: int) -> Dict[str, float]:

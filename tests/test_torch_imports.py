@@ -1,6 +1,9 @@
-"""The port imports without JAX or YAML, and its configs equal the JAX ones."""
+"""The port imports without JAX or YAML, its configs equal the JAX ones, and
+structural rules hold in its sources (no bitcast carriers, no host syncs in
+the training step)."""
 
 import dataclasses
+import inspect
 import pkgutil
 import re
 import subprocess
@@ -15,6 +18,7 @@ import nersemble_tpu_torch
 import nersemble_tpu_torch.config as torch_config
 
 PACKAGE = REPO / "nersemble_tpu_torch"
+CSRC = PACKAGE / "csrc"
 
 
 def _submodules():
@@ -51,13 +55,22 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 @pytest.mark.parametrize("name", ["HashEncodingConfig", "HashEnsembleConfig",
                                   "SE3DeformationFieldConfig",
-                                  "SamplingConfig", "ModelConfig"])
+                                  "SamplingConfig", "ModelConfig",
+                                  "OptimizerConfig"])
 def test_config_defaults_match(name):
     ours = getattr(torch_config, name)()
     theirs = getattr(jax_config, name)()
     assert [f.name for f in dataclasses.fields(ours)] == \
         [f.name for f in dataclasses.fields(theirs)]
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+
+
+def test_default_optimizers_match():
+    ours = {k: dataclasses.asdict(v)
+            for k, v in torch_config.default_optimizers().items()}
+    theirs = {k: dataclasses.asdict(v)
+              for k, v in jax_config.TrainConfig().optimizers.items()}
+    assert ours == theirs
 
 
 @pytest.mark.parametrize("tiny", [True, False])
@@ -75,3 +88,48 @@ def test_no_int_float_bitcasts_in_the_port():
     offenders = [str(p) for p in PACKAGE.rglob("*.py")
                  if bitcast.search(p.read_text())]
     assert offenders == []
+    # the CUDA sources: no int <-> float bit reinterpretation intrinsics
+    # (whole 16-byte row copies as uint4 move bf16/f32 bits unchanged)
+    cuda_bitcast = re.compile(r"__u?int_as_float|__float_as_u?int|"
+                              r"__u?short_as_bfloat16|__bfloat16_as_u?short|"
+                              r"__u?short_as_half|__half_as_u?short")
+    sources = sorted(CSRC.glob("*.cu"))
+    assert {p.name for p in sources} >= {"fused_mlp_fwd.cu", "fused_mlp_bwd.cu",
+                                         "quad_build.cu", "quad_fold.cu"}
+    assert [str(p) for p in sources if cuda_bitcast.search(p.read_text())] == []
+
+
+def test_cuda_sources_include_only_the_toolkit():
+    """csrc/ builds with nvcc alone: no PyTorch, JAX or XLA headers."""
+    allowed = {"cuda_runtime.h", "cuda_bf16.h", "stdint.h"}
+    for path in CSRC.glob("*.cu"):
+        includes = set(re.findall(r'^#include\s*[<"]([^>"]+)[>"]',
+                                  path.read_text(), re.MULTILINE))
+        assert includes <= allowed, (path.name, includes - allowed)
+
+
+# modules whose code runs inside NeRSembleTrainer.train_step
+TRAIN_PATH = ["models/nersemble.py", "models/field.py", "models/deformation.py",
+              "ops/fused_mlp.py", "ops/quad_kernel.py", "ops/hash_encoding.py",
+              "ops/hash_ensemble.py", "ops/mlp.py", "ops/posenc.py",
+              "ops/sampling.py", "ops/occupancy.py", "ops/rendering.py",
+              "ops/losses.py", "ops/distortion.py", "ops/trunc_exp.py",
+              "ops/sh.py", "engine/optimizers.py", "utils/se3.py",
+              "utils/windows.py", "utils/metrics.py", "utils/device.py"]
+HOST_SYNC = re.compile(r"\.(item|cpu|numpy)\(")
+
+
+def test_no_host_sync_in_the_train_step():
+    """ROADMAP C5: reading a device value on the host (``.item()``,
+    ``.cpu()``, ``.numpy()``) waits for the GPU's queue to drain. No module on the
+    train path does it; the trainer reads sample counts on the host only on
+    the adaptive budget's cadence (``_maybe_adapt_budget``)."""
+    offenders = [name for name in TRAIN_PATH
+                 if HOST_SYNC.search((PACKAGE / name).read_text())]
+    assert offenders == []
+    from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
+    for method in ("train_step", "run_step", "maybe_update_occupancy"):
+        source = inspect.getsource(getattr(NeRSembleTrainer, method))
+        assert not HOST_SYNC.search(source), method
+        assert not re.search(r"\b(float|int|bool)\(", source), method
+    assert "float(aux" in inspect.getsource(NeRSembleTrainer._maybe_adapt_budget)

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from nersemble_tpu_torch.config import flagship_model_config
 from nersemble_tpu_torch.models.nersemble import NeRSembleModel
 from nersemble_tpu_torch.ops import fused_mlp as tfm
@@ -57,6 +59,49 @@ def test_fused_mlp_kernel_matches_plain(cuda, d_in, d_out, n_layers, width,
     tfm.compare_to_plain(out, ref)  # the tolerance stated in ops/fused_mlp.py
 
 
+@pytest.mark.parametrize("d_in,d_out,n_layers,width,skips,bias,out_act",
+                         MLP_SHAPES)
+@pytest.mark.parametrize("rows", [1, 1000, 4096, 98304])
+def test_fused_mlp_bwd_kernel_matches_plain(cuda, d_in, d_out, n_layers, width,
+                                            skips, bias, out_act, rows):
+    """B2 against fused_mlp_bwd_plain within ops/fused_mlp.py's stated
+    bounds (compare_bwd_to_plain), for dx, every dW and every db, on
+    positive_ weights and inputs (no relu sign depends on rounding, no sum
+    cancels)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    params = tfm.positive_(ParamTree(init_mlp(g, d_in, d_out, n_layers, width,
+                                              skips, bias)), g)
+    x = tfm.positive_input(rows, d_in, g)
+    gy = tfm.positive_input(rows, d_out, g)
+    before = tfm.BWD_LAUNCHES
+    out = tfm.fused_mlp_bwd_cuda(params, x, gy, out_act, skips)
+    torch.cuda.synchronize()
+    assert tfm.BWD_LAUNCHES == before + 1
+    ref = tfm.fused_mlp_bwd_plain(params, x, gy, out_act, torch.bfloat16, skips)
+    assert out[0].shape == (rows, d_in)
+    assert [tuple(w.shape) for w in out[1]] == [tuple(w.shape) for w in ref[1]]
+    tfm.compare_bwd_to_plain(out, ref)
+
+
+def test_fused_mlp_autograd_launches_both_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    params = tfm.positive_(ParamTree(init_mlp(g, 173, 128, 6, 128, (4,), True)), g)
+    for p in params.parameters():
+        p.requires_grad_(True)
+    x = tfm.positive_input(3000, 173, g).requires_grad_(True)
+    gy = tfm.positive_input(3000, 128, g)
+    before = (tfm.LAUNCHES, tfm.BWD_LAUNCHES)
+    out = tfm.fused_mlp_apply(params, x, "relu", torch.bfloat16, (4,))
+    out.backward(gy)
+    torch.cuda.synchronize()
+    assert (tfm.LAUNCHES, tfm.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref = tfm.fused_mlp_bwd_plain(params, x.detach(), gy, "relu",
+                                  torch.bfloat16, (4,))
+    layers = params.layers
+    tfm.compare_bwd_to_plain((x.grad, [l.w.grad for l in layers],
+                              [l.b.grad for l in layers]), ref)
+
+
 def test_fused_mlp_kernel_rejects_bad_inputs(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     params = ParamTree(init_mlp(g, 32, 16, 2, 64, (), False))
@@ -85,6 +130,55 @@ def test_quad_build_kernel_is_bit_exact(cuda, layout, width, dtype):
     torch.cuda.synchronize()
     assert quad_kernel.LAUNCHES == before + 1
     assert torch.equal(out, quad_kernel.quad_build_plain(table, levels))
+
+
+@pytest.mark.parametrize("layout,width,dtype", [
+    ((6, 12, 4, 1.5), 8, torch.bfloat16),   # padded dense + 2048-row hashed
+    ((4, 10, 4, 1.5), 16, torch.bfloat16),  # tiny: 1024-row hashed levels
+    ((4, 10, 4, 1.5), 16, torch.float32),
+    ((16, 19, 16, 1.4472692012786865), 64, torch.bfloat16),  # flagship
+])
+def test_quad_fold_kernel_is_bit_exact(cuda, layout, width, dtype):
+    levels = HashGridLevels.create(*layout)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    grad = torch.randn(levels.total_entries, 4 * width, generator=g,
+                       device=cuda).to(dtype)
+    before = quad_kernel.FOLD_LAUNCHES
+    out = quad_kernel.quad_fold(grad, levels)
+    torch.cuda.synchronize()
+    assert quad_kernel.FOLD_LAUNCHES == before + 1
+    assert out.shape == (levels.total_entries, width) and out.dtype == dtype
+    assert torch.equal(out, quad_kernel.quad_fold_plain(grad, levels))
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """The tiny-config training forward + backward (chip_smoke.py's train
+    reference: contrast-scaled bf16 parameters, a 30%-fill grid, budget
+    below R*S) on the GPU vs the port's CPU path, within its stated bound
+    (chip_smoke.TRAIN_REF_TOL)."""
+    cfg = flagship_model_config(tiny=True)
+    cfg.sampling.global_budget_fraction = 0.5
+    params = add_contrast(NeRSembleModel(cfg).init_params(
+        torch.Generator().manual_seed(0)))
+    ref_losses, ref_grads = chip_smoke.tiny_train_grads(cfg, params, "cpu")
+    before = (tfm.LAUNCHES, tfm.BWD_LAUNCHES, quad_kernel.LAUNCHES,
+              quad_kernel.FOLD_LAUNCHES)
+    losses, grads = chip_smoke.tiny_train_grads(cfg, params, cuda)
+    torch.cuda.synchronize()
+    after = (tfm.LAUNCHES, tfm.BWD_LAUNCHES, quad_kernel.LAUNCHES,
+             quad_kernel.FOLD_LAUNCHES)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    assert losses.keys() == ref_losses.keys() and len(losses) == 6
+    for k in losses:
+        assert losses[k] == pytest.approx(ref_losses[k],
+                                          rel=chip_smoke.TRAIN_REF_TOL["loss_rtol"], abs=1e-9), k
+    for k, ref in ref_grads.items():
+        scale = float(ref.abs().max())
+        assert scale > 0, k
+        atol = (chip_smoke.TRAIN_REF_TOL["table_atol"] if k == "field.table"
+                else chip_smoke.TRAIN_REF_TOL["atol"]) * scale
+        torch.testing.assert_close(grads[k], ref, rtol=chip_smoke.TRAIN_REF_TOL["rtol"],
+                                   atol=atol, msg=k)
 
 
 def test_render_rays_on_cuda_matches_cpu(cuda):
