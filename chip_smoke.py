@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's render and training paths once on one NVIDIA GPU.
+"""Run the PyTorch port's render, training and measurement paths once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -20,6 +21,16 @@ Phases, each printing its own lines:
                   within its bound (max error under 1e-3 of the largest
                   output, mean error under 1e-5 of the mean output, for dx,
                   every dW and db);
+ 3b. copy kernels -- the measurement path's kernels vs their plain versions,
+                  bit-exact, with the time of the one PyTorch call that
+                  computes the same function: the row gather (P1) at the
+                  gather probe's full size (2^20 rows of a [6,328,832, 128]
+                  bf16 table, depth 32; index_select), and on the flagship
+                  [6,537,216, 64] bf16 table the copy (P2; clone), the
+                  broadcast to four quarters (P3; repeat) and the
+                  seven-fetch (P4; cat), P4 held first on seven distinct
+                  inputs and timed, as the ladder runs it, on one input
+                  passed seven times;
   4. render    -- the flagship model (random weights from a seed, with
                   contrast added so the hash table, the time codes and the
                   warp shape the frames) renders three 550x802 frames through
@@ -51,16 +62,27 @@ Phases, each printing its own lines:
                   gradient leaf within tests/test_torch_kernels.py's bound;
   9. reference -- a 32x24 frame of the render scene on the GPU vs the port's
                   CPU path (the CPU path is held to the JAX package by
-                  tests/test_torch_*.py).
-Then one JSON line with the kernels, and the last line
+                  tests/test_torch_*.py);
+ 10. bench     -- nersemble_tpu_torch.bench in this process with --iters 5:
+                  its JSON line must parse with bench.py's keys and a finite
+                  loss, and the four train-path kernels must launch;
+ 11. diagnostics -- the measurement scripts, in this process:
+                  bench_quad_build --diag (the P2 -> P3 -> P4 -> B3 ladder)
+                  and its default mode (the alternative builds and folds
+                  equal to the plain ones, B3/B4 bit-exact), gather_probe at
+                  2^18 rows (P1 at every depth) and profile_step --iters 3;
+                  P1-P4's launch counters must grow here.
+Then one JSON line with the eight kernels (launches on their path, times,
+the bound and the library call's time), and the last line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
 and the last line is not printed. Without a CUDA device nothing runs.
 """
 
+import contextlib
 import copy
+import io
 import json
 import math
-import subprocess
 import time
 import warnings
 
@@ -82,7 +104,10 @@ PROFILE_RANGES = ("render:march", "render:sigma_probe", "render:field",
 OWN_KERNELS = ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel", "partial_sum_kernel",
                "quad_build_kernel", "quad_fold_kernel")
 TRAIN_RAYS, TRAIN_STEPS = 4096, 10
-STEADY_STATE_FILL = 63188        # bench.py: quantized_budget(63188, 4096, 256)
+BENCH_ITERS = 5
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
+BENCH_EXTRA_KEYS = {"ray_samples_per_sec", "step_ms", "n_rays", "budget",
+                    "n_candidates", "device", "loss", "power_limit"}
 TRAIN_RANGES = ("train:forward", "render:march", "render:field",
                 "field:hash_encode", "train:backward", "bwd:hash_encode",
                 "bwd:fused_mlp", "bwd:quad_fold", "train:adam")
@@ -100,19 +125,10 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def cuda_time_ms(fn, reps: int = 5) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls after one warm-up."""
-    import torch
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def kernel_entry(err: float, ms: float, plain_ms: float, bound, library_ms=None) -> dict:
+    """A kernel's line of the summary; ``bound`` is (bound_ms, bound_by)."""
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
 
 
 def profile_run(phase: str, fn, ranges, unit: str) -> None:
@@ -177,12 +193,15 @@ def mlp_shapes(cfg):
 
 
 def kernel_phase(cfg, levels, device):
-    """Every kernel vs its plain version at the flagship shapes; returns
-    {kernel: (max_abs_err, ms, plain_ms)}."""
+    """Every kernel of the train and render paths vs its plain version at
+    the flagship shapes; returns {kernel: kernel_entry(...)}. No single
+    PyTorch call computes any of these four functions: library_ms is
+    None."""
     import torch
     from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
     from nersemble_tpu_torch.ops.mlp import init_mlp
     from nersemble_tpu_torch.utils.params import ParamTree
+    from nersemble_tpu_torch.utils.timing import bound_ms, cuda_time_ms
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     hc = cfg.hash_ensemble.hash_encoding
@@ -200,12 +219,12 @@ def kernel_phase(cfg, levels, device):
     del quad, plain
     k_ms = cuda_time_ms(lambda: quad_kernel.quad_build_cuda(table, levels))
     p_ms = cuda_time_ms(lambda: quad_kernel.quad_build_plain(table, levels))
-    moved = table.numel() * table.element_size() * 5 / 1e9  # read 1x, write 4x
+    moved = table.numel() * table.element_size() * 5  # read 1x, write 4x
+    results["quad_build"] = kernel_entry(err, k_ms, p_ms, bound_ms(moved))
     log("kernels", f"B3 quad_build {tuple(table.shape)} -> "
                    f"({table.shape[0]}, {4 * width}) bf16: bit-exact; "
-                   f"kernel {k_ms:.3f} ms ({1e3 * moved / k_ms:.0f} GB/s), "
-                   f"plain {p_ms:.3f} ms")
-    results["quad_build"] = (err, k_ms, p_ms)
+                   f"kernel {k_ms:.3f} ms ({moved / k_ms / 1e6:.0f} GB/s, bound "
+                   f"{results['quad_build']['bound_ms']:.3f} ms), plain {p_ms:.3f} ms")
     del table
     torch.cuda.empty_cache()
 
@@ -220,23 +239,29 @@ def kernel_phase(cfg, levels, device):
     del folded, plain
     k_ms = cuda_time_ms(lambda: quad_kernel.quad_fold_cuda(grad, levels))
     p_ms = cuda_time_ms(lambda: quad_kernel.quad_fold_plain(grad, levels))
-    moved = grad.numel() * grad.element_size() * 1.25 / 1e9  # read 4W, write W
+    moved = grad.numel() * grad.element_size() * 1.25  # read 4W, write W
+    results["quad_fold"] = kernel_entry(err, k_ms, p_ms, bound_ms(moved))
     log("kernels", f"B4 quad_fold {tuple(grad.shape)} -> "
                    f"({grad.shape[0]}, {width}) bf16: bit-exact; "
-                   f"kernel {k_ms:.3f} ms ({1e3 * moved / k_ms:.0f} GB/s), "
-                   f"plain {p_ms:.3f} ms")
-    results["quad_fold"] = (err, k_ms, p_ms)
+                   f"kernel {k_ms:.3f} ms ({moved / k_ms / 1e6:.0f} GB/s, bound "
+                   f"{results['quad_fold']['bound_ms']:.3f} ms), plain {p_ms:.3f} ms")
     del grad
     torch.cuda.empty_cache()
 
-    fwd = [0.0, 0.0, 0.0]
-    bwd = [0.0, 0.0, 0.0]
+    # summed over the stem, base and head: max err, ms, plain ms, then the
+    # bound of each launch (the larger of bytes and operations) summed
+    fwd = [0.0, 0.0, 0.0, []]
+    bwd = [0.0, 0.0, 0.0, []]
     for name, (d_in, d_out, n_layers, w, skips, bias, act) in mlp_shapes(cfg).items():
         params = ParamTree(init_mlp(gen, d_in, d_out, n_layers, w, skips, bias))
         x = torch.randn(MLP_ROWS, d_in, generator=gen, device=device)
         out = fused_mlp.fused_mlp_cuda(params, x, act, skips)
         ref = fused_mlp.fused_mlp_plain(params, x, act, torch.bfloat16, skips)
         e = fused_mlp.compare_to_plain(out, ref)
+        macs = sum(layer.w.numel() for layer in params.layers)
+        weight_bytes = 4 * sum(p.numel() for p in params.parameters())
+        fwd_bound = bound_ms(MLP_ROWS * (d_in + d_out) * 4 + weight_bytes,
+                          bf16_flops=2 * macs * MLP_ROWS)
         k_ms = cuda_time_ms(lambda: fused_mlp.fused_mlp_cuda(params, x, act, skips))
         p_ms = cuda_time_ms(lambda: fused_mlp.fused_mlp_plain(
             params, x, act, torch.bfloat16, skips))
@@ -244,8 +269,10 @@ def kernel_phase(cfg, levels, device):
                        f"max abs err {e['max_abs']:.3e} (tol {e['max_tol']:.3e}; "
                        f"{e['max_rel']:.3e} of max |plain|), "
                        f"mean abs err {e['mean_abs']:.3e} (tol {e['mean_tol']:.3e}); "
-                       f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-        fwd = [max(fwd[0], e["max_abs"]), fwd[1] + k_ms, fwd[2] + p_ms]
+                       f"kernel {k_ms:.3f} ms (bound {fwd_bound[0]:.3f} ms, "
+                       f"{fwd_bound[1]}), plain {p_ms:.3f} ms")
+        fwd = [max(fwd[0], e["max_abs"]), fwd[1] + k_ms, fwd[2] + p_ms,
+               fwd[3] + [fwd_bound]]
 
         fused_mlp.positive_(params, gen)
         x = fused_mlp.positive_input(MLP_ROWS, d_in, gen)
@@ -257,8 +284,12 @@ def kernel_phase(cfg, levels, device):
         k_ms = cuda_time_ms(lambda: fused_mlp.fused_mlp_bwd_cuda(params, x, g, act, skips))
         p_ms = cuda_time_ms(lambda: fused_mlp.fused_mlp_bwd_plain(
             params, x, g, act, torch.bfloat16, skips))
-        macs = sum(layer.w.numel() for layer in params.layers)
         gflop = 6 * macs * MLP_ROWS / 1e9  # forward recompute, dW, dh
+        # reads x, g and the weights, writes dx and every dW and db; the
+        # recomputed forward on the bf16 tensor cores, dW and dh in f32
+        bwd_bound = bound_ms(MLP_ROWS * (2 * d_in + d_out) * 4 + 2 * weight_bytes,
+                          bf16_flops=2 * macs * MLP_ROWS,
+                          f32_flops=4 * macs * MLP_ROWS)
         log("kernels", f"B2 {name} [{MLP_ROWS}, {d_in}] <- [{MLP_ROWS}, {d_out}] "
                        f"(positive_): max abs err {e['max_abs']:.3e} "
                        f"({e['max_rel']:.3e} of max |plain|, tol "
@@ -266,55 +297,42 @@ def kernel_phase(cfg, levels, device):
                        f"{e['mean_abs']:.3e} (tol {fused_mlp.BWD_MEAN_ERR_REL:g} "
                        f"of mean |plain|), worst of dx, dW, db; kernel "
                        f"{k_ms:.3f} ms ({gflop / k_ms:.0f} TFLOP/s over "
-                       f"{gflop:.1f} GFLOP), plain {p_ms:.3f} ms")
-        bwd = [max(bwd[0], e["max_abs"]), bwd[1] + k_ms, bwd[2] + p_ms]
+                       f"{gflop:.1f} GFLOP; bound {bwd_bound[0]:.3f} ms, "
+                       f"{bwd_bound[1]}), plain {p_ms:.3f} ms")
+        bwd = [max(bwd[0], e["max_abs"]), bwd[1] + k_ms, bwd[2] + p_ms,
+               bwd[3] + [bwd_bound]]
         del params, x, g, out, ref, outs, refs
-    results["fused_mlp_fwd"] = tuple(fwd)
-    results["fused_mlp_bwd"] = tuple(bwd)
+    for name, (err, k_ms, p_ms, bounds) in (("fused_mlp_fwd", fwd),
+                                            ("fused_mlp_bwd", bwd)):
+        largest = max(bounds)  # the stem's: it names what bounds the sum
+        results[name] = kernel_entry(err, k_ms, p_ms,
+                                     (sum(b[0] for b in bounds), largest[1]))
     torch.cuda.empty_cache()
     return results
 
 
-def bench_batch(n_rays: int, n_timesteps: int, grid_resolution: int, device):
-    """bench.py's fixed random batch: ``__graft_entry__._example_rays(n,
-    n_timesteps, seed=1)`` plus rgb, alpha and depth drawn from
-    ``default_rng(0)`` after its occupancy grid."""
-    import torch
-    rng = np.random.default_rng(1)
-    d = rng.normal(size=(n_rays, 3)).astype(np.float32) \
-        * np.array([0.05, 0.3, 0.3]) + np.array([1.0, 0.0, 0.0])
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    timesteps = rng.integers(0, n_timesteps, n_rays)
-    rng = np.random.default_rng(0)
-    rng.uniform(size=(grid_resolution,) * 3)  # bench.py draws its grid first
-    batch = {
-        "origins": np.tile(np.array([[-8.0, 0.0, 0.0]], np.float32), (n_rays, 1)),
-        "directions": d.astype(np.float32),
-        "timesteps": timesteps.astype(np.int64),
-        "rgb": rng.uniform(size=(n_rays, 3)).astype(np.float32),
-        "alpha": rng.uniform(size=n_rays).astype(np.float32),
-        "depth": rng.uniform(7.5, 9.5, n_rays).astype(np.float32),
-    }
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-
-
 def train_phase(cfg, device):
-    """The flagship training step; returns the launch counts of the phase."""
+    """The flagship training step; returns (the launch counts of the phase,
+    ms/step)."""
     import torch
+    from nersemble_tpu_torch.bench import LRS
     from nersemble_tpu_torch.config import OptimizerConfig
     from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
     from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
     from nersemble_tpu_torch.ops.sampling import quantized_budget
-    from nersemble_tpu_torch.utils.cameras import synthetic_occupancy
+    from nersemble_tpu_torch.utils.bench_data import (
+        STEADY_STATE_FILL,
+        bench_batch,
+        bench_grid,
+    )
 
     optimizers = {name: OptimizerConfig(lr=lr, scheduler_gamma=1.0)
-                  for name, lr in (("fields", 5e-3), ("deformation_field", 1e-3),
-                                   ("embeddings", 5e-3))}
-    grid = torch.from_numpy(synthetic_occupancy(cfg.grid_resolution, 0.05, SEED))
+                  for name, lr in LRS.items()}
+    grid = bench_grid(cfg.grid_resolution)
     trainer = NeRSembleTrainer(cfg, TRAIN_RAYS, optimizers, seed=SEED,
                                device=device, grid_occs=grid.to(device))
     S = cfg.sampling.max_samples_per_ray
-    trainer._budget = quantized_budget(STEADY_STATE_FILL, TRAIN_RAYS, S)
+    trainer._budget = quantized_budget(STEADY_STATE_FILL, TRAIN_RAYS, S)  # 73,728
     batch = bench_batch(TRAIN_RAYS, cfg.n_timesteps, cfg.grid_resolution, device)
     # steps past the schedule's end (window_deform 7, window_hash 32,
     # eps_depth 0.01), off the occupancy (16) and budget (125) cadences
@@ -384,7 +402,7 @@ def train_phase(cfg, device):
 
     profile_run("train profile", lambda: trainer.run_step(step0 + 1 + TRAIN_STEPS, batch),
                 TRAIN_RANGES, "step")
-    return launches
+    return launches, 1e3 * step_s
 
 
 def tiny_train_grads(cfg, params, device):
@@ -426,7 +444,7 @@ def train_reference_phase(device) -> None:
 
     cfg = flagship_model_config(tiny=True)
     cfg.sampling.global_budget_fraction = 0.5
-    params = add_contrast(NeRSembleModel(cfg).init_params(
+    params = add_contrast(NeRSembleModel(cfg, "cpu").init_params(
         torch.Generator().manual_seed(SEED)))
     ref_losses, ref_grads = tiny_train_grads(cfg, params, "cpu")
     losses, grads = tiny_train_grads(cfg, params, device)
@@ -450,6 +468,138 @@ def train_reference_phase(device) -> None:
         raise AssertionError(f"GPU gradients differ from the CPU path: {worst}")
 
 
+def copy_kernel_phase(levels, device):
+    """P1-P4 vs their plain versions, bit-exact, at the measurement path's
+    shapes; returns {kernel: kernel_entry(...)}."""
+    import torch
+    from nersemble_tpu_torch.ops import copy_kernels as ck
+    from nersemble_tpu_torch.scripts import gather_probe
+    from nersemble_tpu_torch.utils.timing import bound_ms, cuda_time_ms
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    results = {}
+
+    def check(name, note, kernel, plain, library, n_bytes):
+        out, ref, lib = kernel(), plain(), library()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{name} kernel differs from its plain version")
+        if not torch.equal(lib, ref):
+            raise AssertionError(f"{name}: the library call computes another function")
+        err = float((out.float() - ref.float()).abs().max())
+        del out, ref, lib
+        torch.cuda.empty_cache()
+        k_ms, p_ms, l_ms = (cuda_time_ms(fn) for fn in (kernel, plain, library))
+        results[name] = kernel_entry(err, k_ms, p_ms, bound_ms(n_bytes), l_ms)
+        b_ms = results[name]["bound_ms"]
+        log("copy kernels", f"{name} {note}: bit-exact; kernel {k_ms:.3f} ms "
+                            f"({n_bytes / k_ms / 1e6:.0f} GB/s over {n_bytes / 1e9:.3f} "
+                            f"GB; bound {b_ms:.3f} ms, {100 * b_ms / k_ms:.1f}% of it), "
+                            f"plain {p_ms:.3f} ms, library {l_ms:.3f} ms")
+
+    E, W, N = gather_probe.ENTRIES, gather_probe.WIDTH, gather_probe.ROWS
+    depth = ck.DEFAULT_DEPTH
+    table = torch.rand(E, W, generator=gen, device=device).to(torch.bfloat16)
+    idx = torch.randint(0, E, (N,), generator=gen, device=device, dtype=torch.int32)
+    check("gather_rows", f"[{E}, {W}] bf16 x {N} int32 rows, depth {depth}",
+          lambda: ck.gather_rows_cuda(table, idx, depth),
+          lambda: ck.gather_rows_plain(table, idx),
+          lambda: table.index_select(0, idx),
+          N * idx.element_size() + 2 * N * W * table.element_size())
+    del table, idx
+
+    x = torch.randn(levels.total_entries, 64, generator=gen,
+                    device=device).to(torch.bfloat16)
+    x_bytes = x.numel() * x.element_size()
+    # P4 is held on seven distinct inputs, which shows which four it stores,
+    # and timed as the ladder runs it, on one input passed seven times (each
+    # distinct byte counts once).
+    distinct = [x] + [torch.randn(x.shape, generator=gen, device=device)
+                      .to(torch.bfloat16) for _ in range(6)]
+    out = ck.fetch7_cuda(*distinct)
+    if not (torch.equal(out, ck.fetch7_plain(*distinct)) and torch.equal(
+            out, torch.cat([distinct[i] for i in (0, 1, 3, 5)], dim=1))):
+        raise AssertionError("fetch7 kernel differs from its plain version on "
+                             "seven distinct inputs")
+    del out, distinct
+    torch.cuda.empty_cache()
+    log("copy kernels", "fetch7 on seven distinct inputs: bit-exact against its "
+                        "plain version and torch.cat of inputs 0, 1, 3, 5")
+    seven = [x] * 7
+    note = f"{tuple(x.shape)} bf16, block {ck.BLOCK} rows"
+    check("copy", note, lambda: ck.copy_cuda(x), lambda: ck.copy_plain(x),
+          lambda: x.clone(), 2 * x_bytes)
+    check("bcast_quarters", note, lambda: ck.bcast_quarters_cuda(x),
+          lambda: ck.bcast_quarters_plain(x), lambda: x.repeat(1, 4), 5 * x_bytes)
+    check("fetch7", note, lambda: ck.fetch7_cuda(*seven),
+          lambda: ck.fetch7_plain(*seven),
+          lambda: torch.cat([seven[0], seven[1], seven[3], seven[5]], dim=1),
+          5 * x_bytes)
+    del x, seven
+    torch.cuda.empty_cache()
+    return results
+
+
+def bench_phase(train_step_ms: float) -> None:
+    """The port's train-step bench, in this process."""
+    import torch
+    from nersemble_tpu_torch import bench
+    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+
+    fused_mlp.LAUNCHES = fused_mlp.BWD_LAUNCHES = 0
+    quad_kernel.LAUNCHES = quad_kernel.FOLD_LAUNCHES = 0
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        bench.main(["--iters", str(BENCH_ITERS)])
+    printed = out.getvalue()
+    print(printed, end="", flush=True)
+    lines = [line for line in printed.splitlines() if line.startswith("{")]
+    if len(lines) != 1:
+        raise AssertionError(f"the bench printed {len(lines)} JSON lines")
+    result = json.loads(lines[0])
+    if set(result) != BENCH_KEYS or set(result["extra"]) != BENCH_EXTRA_KEYS:
+        raise AssertionError(f"the bench's keys differ from bench.py's: {result}")
+    if not math.isfinite(result["extra"]["loss"]):
+        raise AssertionError(f"the bench's loss is not finite: {result}")
+    launches = {"fused_mlp_fwd": fused_mlp.LAUNCHES,
+                "fused_mlp_bwd": fused_mlp.BWD_LAUNCHES,
+                "quad_build": quad_kernel.LAUNCHES,
+                "quad_fold": quad_kernel.FOLD_LAUNCHES}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the bench did not launch every kernel: {launches}")
+    log("bench", f"{result['extra']['step_ms']} ms/step over {BENCH_ITERS} steps "
+                 f"(train phase: {train_step_ms:.1f} ms/step through run_step), "
+                 f"{result['value']} rays/s, loss {result['extra']['loss']:.6f}; "
+                 f"launches {launches}; "
+                 f"{time.perf_counter() - start:.1f} s with set-up")
+    torch.cuda.empty_cache()
+
+
+def diagnostics_phase() -> dict:
+    """The measurement scripts, in this process; returns the launch counts
+    of P1-P4 on this path."""
+    import torch
+    from nersemble_tpu_torch.ops import copy_kernels
+    from nersemble_tpu_torch.scripts import bench_quad_build, gather_probe, profile_step
+
+    copy_kernels.reset_counts()
+    for module, argv in ((bench_quad_build, ["--diag"]), (bench_quad_build, []),
+                         (gather_probe, ["--rows", str(2 ** 18)]),
+                         (profile_step, ["--iters", "3"])):
+        command = " ".join(["python -m", module.__name__, *argv])
+        start = time.perf_counter()
+        log("diagnostics", f"$ {command}")
+        module.main(argv)
+        torch.cuda.empty_cache()
+        log("diagnostics", f"{command}: {time.perf_counter() - start:.1f} s")
+    launches = copy_kernels.counts()
+    log("diagnostics", f"launches {launches}")
+    for kernel, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"the measurement path never launched {kernel}")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -460,11 +610,9 @@ def main() -> None:
     from nersemble_tpu_torch.models.nersemble import NeRSembleModel
     from nersemble_tpu_torch.ops import cuda_lib, fused_mlp, quad_kernel
     from nersemble_tpu_torch.ops.hash_encoding import HashGridLevels
-    from nersemble_tpu_torch.utils.cameras import (
-        add_contrast,
-        pinhole_frame,
-        synthetic_occupancy,
-    )
+    from nersemble_tpu_torch.utils.bench_data import bench_grid
+    from nersemble_tpu_torch.utils.cameras import add_contrast, pinhole_frame
+    from nersemble_tpu_torch.utils.timing import nvidia_smi
     from nersemble_tpu_torch.utils.windows import sched_values
 
     # ---- 1. device ----------------------------------------------------------
@@ -472,11 +620,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
     log("device", f"{name}; torch {torch.__version__} cuda {torch.version.cuda}")
-    print(smi, flush=True)
+    print(nvidia_smi(), flush=True)
 
     # ---- 2. build -------------------------------------------------------------
     start = time.perf_counter()
@@ -494,12 +639,14 @@ def main() -> None:
                                    hc.base_resolution, hc.per_level_scale)
     kernel_results = kernel_phase(cfg, levels, device)
 
+    # ---- 3b. the measurement path's copy kernels vs plain ----------------------
+    kernel_results.update(copy_kernel_phase(levels, device))
+
     # ---- 4. render ------------------------------------------------------------
     model = NeRSembleModel(cfg, device)
     params = add_contrast(model.init_params(
         torch.Generator(device=device).manual_seed(SEED)))
-    grid_occs = torch.from_numpy(
-        synthetic_occupancy(cfg.grid_resolution, 0.05, SEED)).to(device)
+    grid_occs = bench_grid(cfg.grid_resolution).to(device)
     renderer = Renderer(model, params, grid_occs)
     frames = [pinhole_frame(FRAME_H, FRAME_W, ts) for ts in TIMESTEPS]
     step = cfg.window_hash_encodings_end  # end of schedule: windows 7 and 32
@@ -558,7 +705,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 6.-7. train and its profile ----------------------------------------------
-    train_launches = train_phase(cfg, device)
+    train_launches, train_step_ms = train_phase(cfg, device)
     torch.cuda.empty_cache()
 
     # ---- 8. train reference: the tiny step on the GPU vs the CPU path ------------
@@ -583,16 +730,29 @@ def main() -> None:
         np.testing.assert_allclose(gpu_image[key], cpu_image[key], **REF_TOL,
                                    err_msg=key)
 
-    sources = {"fused_mlp_fwd": ("fused_mlp_fwd.cu", "nersemble_tpu/ops/fused_mlp.py:71"),
-               "fused_mlp_bwd": ("fused_mlp_bwd.cu", "nersemble_tpu/ops/fused_mlp.py:83"),
-               "quad_build": ("quad_build.cu", "nersemble_tpu/ops/quad_pallas.py:162"),
-               "quad_fold": ("quad_fold.cu", "nersemble_tpu/ops/quad_pallas.py:221")}
+    del cpu_renderer, renderer, params
+    torch.cuda.empty_cache()
+
+    # ---- 10. bench --------------------------------------------------------------
+    bench_phase(train_step_ms)
+
+    # ---- 11. diagnostics: the measurement scripts --------------------------------
+    launches = {**train_launches, **diagnostics_phase()}
+
+    sources = {
+        "fused_mlp_fwd": ("fused_mlp_fwd.cu", "nersemble_tpu/ops/fused_mlp.py:71"),
+        "fused_mlp_bwd": ("fused_mlp_bwd.cu", "nersemble_tpu/ops/fused_mlp.py:83"),
+        "quad_build": ("quad_build.cu", "nersemble_tpu/ops/quad_pallas.py:162"),
+        "quad_fold": ("quad_fold.cu", "nersemble_tpu/ops/quad_pallas.py:221"),
+        "gather_rows": ("gather_rows.cu", "scripts/pallas_gather_probe.py:36"),
+        "copy": ("copy_ladder.cu", "scripts/bench_quad_build.py:76"),
+        "bcast_quarters": ("copy_ladder.cu", "scripts/bench_quad_build.py:92"),
+        "fetch7": ("copy_ladder.cu", "scripts/bench_quad_build.py:110"),
+    }
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda",
          "source": f"nersemble_tpu_torch/csrc/{src}", "replaces": replaces,
-         "launches": train_launches[kernel],
-         "max_abs_err": kernel_results[kernel][0],
-         "ms": kernel_results[kernel][1], "plain_ms": kernel_results[kernel][2]}
+         "launches": launches[kernel], **kernel_results[kernel]}
         for kernel, (src, replaces) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -8,7 +8,8 @@ lists carry a ``__seq_type__`` marker entry. Reading and writing one needs
 only numpy. The arrays keep their layouts ([in, out] weights, the [E, W]
 table, the 128-column head), and the port's ``state_dict`` keys are the
 same paths joined with ``.``, so a port checkpoint resumes in JAX and a JAX
-checkpoint resumes here.
+checkpoint resumes here. Loaded tensors go to the card unless the caller
+names another device.
 """
 
 import os
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from nersemble_tpu_torch.engine.optimizers import AdamState
+from nersemble_tpu_torch.utils.device import resolve_device
 from nersemble_tpu_torch.utils.params import ParamTree, to_tree
 
 _SEQ = "__seq_type__"
@@ -66,9 +68,11 @@ def _subtree(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
 
 
 def params_from_numpy(tree_or_flat: Union[Dict, list],
-                      device="cpu") -> ParamTree:
+                      device="cuda") -> ParamTree:
     """A JAX parameter pytree as numpy arrays (nested dicts/lists), or the
-    flat ``params/...`` dict of a checkpoint, -> the port's ParamTree."""
+    flat ``params/...`` dict of a checkpoint, -> the port's ParamTree on
+    ``device``."""
+    device = resolve_device(device)
     tree = tree_or_flat
     if any(isinstance(k, str) and k.startswith("params/") for k in tree):
         tree = _nest(_subtree(tree, "params/"))
@@ -83,8 +87,9 @@ def params_from_numpy(tree_or_flat: Union[Dict, list],
     return ParamTree(to_tensors(tree)).to(device)
 
 
-def opt_state_from_numpy(flat: Dict[str, np.ndarray], device="cpu") -> AdamState:
+def opt_state_from_numpy(flat: Dict[str, np.ndarray], device="cuda") -> AdamState:
     """The flat ``opt_state/...`` entries of a checkpoint -> AdamState."""
+    device = resolve_device(device)
     count = torch.tensor(int(flat["opt_state/count"]), dtype=torch.int32,
                          device=device)
     return AdamState(count,
@@ -128,10 +133,11 @@ def _extra(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
             if k.startswith("extra/") and "__" not in k}
 
 
-def load_checkpoint(path, device="cpu") -> Tuple[int, ParamTree, AdamState,
-                                                 torch.Tensor, Dict]:
+def load_checkpoint(path, device="cuda") -> Tuple[int, ParamTree, AdamState,
+                                                  torch.Tensor, Dict]:
     """A checkpoint of either package -> (step, params, opt_state,
     grid_occs, extra)."""
+    device = resolve_device(device)
     flat = _read(path)
     grid_occs = torch.from_numpy(
         np.asarray(flat["grid_occs"], np.float32)).to(device)
@@ -139,9 +145,10 @@ def load_checkpoint(path, device="cpu") -> Tuple[int, ParamTree, AdamState,
             opt_state_from_numpy(flat, device), grid_occs, _extra(flat))
 
 
-def load_jax_checkpoint(path, device="cpu") -> Tuple[ParamTree, torch.Tensor, Dict]:
+def load_jax_checkpoint(path, device="cuda") -> Tuple[ParamTree, torch.Tensor, Dict]:
     """A ``step-*.ckpt`` -> (params, grid_occs, extra), without the
     optimizer state (eval only)."""
+    device = resolve_device(device)
     flat = _read(path)
     grid_occs = torch.from_numpy(
         np.asarray(flat["grid_occs"], np.float32)).to(device)

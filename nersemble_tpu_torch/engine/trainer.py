@@ -8,8 +8,8 @@ every 16 steps (all cells during warm-up), the adaptive compaction budget
 with its fast-grow path, and checkpoints in the JAX package's format that
 carry the budget state, so a resumed run makes the same decisions at the
 same steps. Batches come from the caller as dicts of tensors on the
-trainer's device: origins, directions, timesteps, rgb and optional alpha
-and depth.
+trainer's device (the card unless ``device`` says otherwise): origins,
+directions, timesteps, rgb and optional alpha and depth.
 
 The jitter of step ``k`` and the occupancy draws of an update at step ``k``
 come from generators seeded by (seed, k): a run resumed from a checkpoint
@@ -33,6 +33,7 @@ from nersemble_tpu_torch.engine.optimizers import (
 )
 from nersemble_tpu_torch.models.nersemble import NeRSembleModel
 from nersemble_tpu_torch.ops.sampling import quantized_budget
+from nersemble_tpu_torch.utils.device import resolve_device
 from nersemble_tpu_torch.utils.metrics import psnr
 from nersemble_tpu_torch.utils.params import ParamTree
 from nersemble_tpu_torch.utils.windows import lr_values, sched_values
@@ -44,10 +45,10 @@ _JITTER, _OCCUPANCY = 0, 1  # generator streams
 class NeRSembleTrainer:
     def __init__(self, model_config: ModelConfig, n_rays: int = 4096,
                  optimizers: Optional[Dict[str, OptimizerConfig]] = None,
-                 seed: int = 19980801, device="cpu",
+                 seed: int = 19980801, device="cuda",
                  params: Optional[ParamTree] = None,
                  grid_occs: Optional[torch.Tensor] = None):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model = NeRSembleModel(model_config, self.device)
         self.config = self.model.config
         self.optimizers = optimizers or default_optimizers()

@@ -57,6 +57,7 @@ from nersemble_tpu_torch.ops.sampling import (
     march_rays,
     scatter_rows_back,
 )
+from nersemble_tpu_torch.utils.device import resolve_device
 from nersemble_tpu_torch.utils.params import ParamTree, normal
 
 _BACKGROUNDS = {"white": (1.0, 1.0, 1.0), "black": (0.0, 0.0, 0.0)}
@@ -65,10 +66,10 @@ _BACKGROUNDS = {"white": (1.0, 1.0, 1.0), "black": (0.0, 0.0, 0.0)}
 class NeRSembleModel:
     """Static configuration and the render computation over a ParamTree."""
 
-    def __init__(self, config: ModelConfig, device="cpu"):
+    def __init__(self, config: ModelConfig, device="cuda"):
         # own copy: auto-sizing the candidate count below edits it
         self.config = config = copy.deepcopy(config)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.levels = build_levels(config)
         box = np.asarray(config.scene_box, np.float32)
         self.aabb_min = torch.from_numpy(box[0]).to(self.device)

@@ -21,7 +21,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("fused_mlp_fwd.cu", "fused_mlp_bwd.cu", "quad_build.cu",
-           "quad_fold.cu")
+           "quad_fold.cu", "gather_rows.cu", "copy_ladder.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,13 @@ _SIGNATURES = {
     "quad_build": (_VOID_P, _VOID_P, _LL, _LL, _LL_P, _VOID_P),
     # g, out, n_rows, quarter_bytes, elem_bytes, meta, stream
     "quad_fold": (_VOID_P, _VOID_P, _LL, _LL, _LL, _LL_P, _VOID_P),
+    # table, idx, out, n_rows, row_bytes, idx_bytes, depth, stream
+    "gather_rows": (_VOID_P, _VOID_P, _VOID_P, _LL, _LL, _LL, _LL, _VOID_P),
+    # x, out, n_rows, row_bytes, block_rows, stream
+    "ladder_copy": (_VOID_P, _VOID_P, _LL, _LL, _LL, _VOID_P),
+    "ladder_bcast": (_VOID_P, _VOID_P, _LL, _LL, _LL, _VOID_P),
+    # r0..r6, out, n_rows, row_bytes, block_rows, stream
+    "ladder_fetch7": (*(_VOID_P,) * 8, _LL, _LL, _LL, _VOID_P),
 }
 
 _library = None  # the loaded CDLL, once per process

@@ -1,9 +1,21 @@
-"""Small constant tensors kept on the device."""
+"""The device an entry point runs on, and small constant tensors kept on
+the device."""
 
 import functools
 from typing import Tuple
 
 import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``. The port's entry points run on the
+    card unless the caller asks for another device; naming a CUDA device on
+    a machine without one raises instead of carrying on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU by "
+                           "default; pass device='cpu' for its CPU path")
+    return device
 
 
 @functools.lru_cache(maxsize=64)

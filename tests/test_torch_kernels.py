@@ -13,6 +13,7 @@ import chip_smoke
 
 from nersemble_tpu_torch.config import flagship_model_config
 from nersemble_tpu_torch.models.nersemble import NeRSembleModel
+from nersemble_tpu_torch.ops import copy_kernels
 from nersemble_tpu_torch.ops import fused_mlp as tfm
 from nersemble_tpu_torch.ops import quad_kernel
 from nersemble_tpu_torch.ops.hash_encoding import HashGridLevels
@@ -158,7 +159,7 @@ def test_train_step_on_cuda_matches_cpu(cuda):
     (chip_smoke.TRAIN_REF_TOL)."""
     cfg = flagship_model_config(tiny=True)
     cfg.sampling.global_budget_fraction = 0.5
-    params = add_contrast(NeRSembleModel(cfg).init_params(
+    params = add_contrast(NeRSembleModel(cfg, "cpu").init_params(
         torch.Generator().manual_seed(0)))
     ref_losses, ref_grads = chip_smoke.tiny_train_grads(cfg, params, "cpu")
     before = (tfm.LAUNCHES, tfm.BWD_LAUNCHES, quad_kernel.LAUNCHES,
@@ -190,7 +191,7 @@ def test_render_rays_on_cuda_matches_cpu(cuda):
     scene by 2.6e-3 or more."""
     cfg = flagship_model_config(tiny=True)
     cfg.sampling.global_budget_fraction = 0.125
-    cpu_model, gpu_model = NeRSembleModel(cfg), NeRSembleModel(cfg, cuda)
+    cpu_model, gpu_model = NeRSembleModel(cfg, "cpu"), NeRSembleModel(cfg, cuda)
     params = add_contrast(cpu_model.init_params(torch.Generator().manual_seed(0)))
     rng = np.random.default_rng(0)
     occ = torch.from_numpy((rng.uniform(size=16 ** 3) < 0.3).astype(np.float32))
@@ -212,3 +213,99 @@ def test_render_rays_on_cuda_matches_cpu(cuda):
         torch.testing.assert_close(out[key].cpu(), ref[key], rtol=0.0,
                                    atol=1e-4)
 
+
+# -- the measurement path's copy kernels (P1-P4): copies, so bit-exact --------
+
+@pytest.mark.parametrize("entries,width,rows,depth,dtype,idx_dtype", [
+    (1000, 128, 4096, 32, torch.bfloat16, torch.int32),   # the probe's rows
+    (1000, 128, 4099, 64, torch.bfloat16, torch.int64),   # rows % depth != 0
+    (77, 64, 37, 16, torch.float32, torch.int32),         # fewer rows than a group
+    (513, 8, 1001, 8, torch.bfloat16, torch.int64),       # 16-byte rows
+    (300, 24, 3, 64, torch.float32, torch.int32),         # 96-byte rows, 3 rows
+    (3, 128, 0, 32, torch.bfloat16, torch.int32),         # no rows
+    (23, 128, 40, 8, torch.bfloat16, torch.int32),        # five whole groups
+    (23, 128, 37, 64, torch.bfloat16, torch.int32),       # one partial group
+    (23, 24, 50, 16, torch.float32, torch.int64),         # 6 chunks, ragged lanes
+    (23, 8, 9, 32, torch.bfloat16, torch.int32),          # 1 chunk per row
+])
+def test_gather_rows_kernel_is_bit_exact(cuda, entries, width, rows, depth,
+                                         dtype, idx_dtype):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    table = torch.randn(entries, width, generator=g, device=cuda).to(dtype)
+    idx = torch.randint(0, entries, (rows,), generator=g, device=cuda,
+                        dtype=idx_dtype)
+    before = copy_kernels.GATHER_LAUNCHES
+    out = copy_kernels.gather_rows_cuda(table, idx, depth)
+    torch.cuda.synchronize()
+    assert copy_kernels.GATHER_LAUNCHES == before + 1
+    assert torch.equal(out, copy_kernels.gather_rows_plain(table, idx))
+
+
+def test_gather_rows_kernel_reads_past_2_gib(cuda):
+    """Rows above byte offset 2^31 of the table (64-bit offsets)."""
+    entries = (2 ** 31) // 256 + 4096
+    table = torch.zeros(entries, 128, dtype=torch.bfloat16, device=cuda)
+    table[-4096:] = torch.randn(4096, 128, device=cuda).to(torch.bfloat16)
+    idx = torch.arange(entries - 4096, entries, device=cuda,
+                       dtype=torch.int32).flip(0)
+    out = copy_kernels.gather_rows_cuda(table, idx, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(out, table.index_select(0, idx))
+
+
+@pytest.mark.parametrize("rows,width,block,dtype", [
+    (4096, 64, 2048, torch.bfloat16),   # whole blocks
+    (5000, 64, 2048, torch.bfloat16),   # a ragged last block
+    (1000, 8, 256, torch.bfloat16),     # 16-byte rows
+    (777, 12, 100, torch.float32),      # 48-byte rows, ragged
+    (3, 64, 2048, torch.bfloat16),      # fewer rows than a block
+    (100, 64, 32, torch.bfloat16),      # small blocks, ragged last block
+    (77, 12, 10, torch.float32),        # 3 chunks per row, ragged
+    (5, 8, 8, torch.bfloat16),          # 1 chunk per row, one block
+])
+def test_copy_ladder_kernels_are_bit_exact(cuda, rows, width, block, dtype):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    seven = [torch.randn(rows, width, generator=g, device=cuda).to(dtype)
+             for _ in range(7)]
+    x = seven[0]
+    before = copy_kernels.counts()
+    assert torch.equal(copy_kernels.copy_cuda(x, block), copy_kernels.copy_plain(x))
+    assert torch.equal(copy_kernels.bcast_quarters_cuda(x, block),
+                       copy_kernels.bcast_quarters_plain(x))
+    assert torch.equal(copy_kernels.fetch7_cuda(*seven, block=block),
+                       copy_kernels.fetch7_plain(*seven))
+    torch.cuda.synchronize()
+    after = copy_kernels.counts()
+    assert [after[k] - before[k] for k in ("copy", "bcast_quarters", "fetch7")] \
+        == [1, 1, 1]
+
+
+def test_bcast_quarters_kernel_writes_past_2_gib(cuda):
+    """An [E, 4W] output over 2^31 bytes (64-bit output offsets)."""
+    rows = (2 ** 31) // 512 + 2048 + 7  # 512-byte output rows, ragged
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(rows, 64, generator=g, device=cuda).to(torch.bfloat16)
+    out = copy_kernels.bcast_quarters_cuda(x)
+    torch.cuda.synchronize()
+    assert out.numel() * out.element_size() > 2 ** 31
+    assert torch.equal(out, copy_kernels.bcast_quarters_plain(x))
+    del out
+    out = copy_kernels.fetch7_cuda(*[x] * 7)
+    torch.cuda.synchronize()
+    assert torch.equal(out[-4096:], torch.cat([x[-4096:]] * 4, dim=1))
+
+
+def test_copy_kernels_reject_bad_inputs(cuda):
+    x = torch.randn(64, 64, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        copy_kernels.copy_cuda(x.t())                       # non-contiguous
+    with pytest.raises(ValueError):
+        copy_kernels.bcast_quarters_cuda(x.half())          # fp16
+    with pytest.raises(ValueError):
+        copy_kernels.fetch7_cuda(*[x] * 6)                  # six inputs
+    with pytest.raises(ValueError):
+        copy_kernels.gather_rows_cuda(x, torch.zeros(4, dtype=torch.int32,
+                                                     device=cuda), depth=12)
+    with pytest.raises(ValueError):
+        copy_kernels.gather_rows_cuda(torch.randn(8, 128, device=cuda),  # 512 B rows
+                                      torch.zeros(4, dtype=torch.int32, device=cuda))

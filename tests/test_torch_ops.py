@@ -145,7 +145,7 @@ def test_fused_mlp_plain_matches_pallas(interpret_mode, name, d_in, d_out,
     theirs = jfm.fused_mlp_apply(params, x, out_activation=out_act,
                                  compute_dtype=jnp.dtype(dtype),
                                  skip_connections=skips)
-    ours = tfm.fused_mlp_apply(params_from_numpy(params), t(x), out_act,
+    ours = tfm.fused_mlp_apply(params_from_numpy(params, "cpu"), t(x), out_act,
                                getattr(torch, dtype), skips)
     tol = dict(rtol=1e-5, atol=2e-5) if dtype == "float32" \
         else dict(rtol=1e-2, atol=1e-2)
@@ -157,7 +157,7 @@ def test_apply_mlp(dtype):
     params, x = _mlp_case(45 + 16, 32, 4, 32, (2,), True)
     theirs = j_apply_mlp(params, x, out_activation=jax.nn.relu,
                          compute_dtype=jnp.dtype(dtype), skip_connections=(2,))
-    ours = apply_mlp(params_from_numpy(params), t(x), "relu",
+    ours = apply_mlp(params_from_numpy(params, "cpu"), t(x), "relu",
                      getattr(torch, dtype), (2,))
     tol = F32 if dtype == "float32" else dict(rtol=1e-2, atol=1e-2)
     np.testing.assert_allclose(n(ours), n(theirs), **tol)
@@ -170,7 +170,7 @@ def test_fused_mlp_plain_equals_apply_mlp(name, d_in, d_out, n_layers, width,
     """The unfused chain rounds at the same points, so the port needs one
     MLP path (``use_fused_mlp=False`` is rejected, not a second route)."""
     params, x = _mlp_case(d_in, d_out, n_layers, width, skips, bias)
-    p = params_from_numpy(params)
+    p = params_from_numpy(params, "cpu")
     assert torch.equal(apply_mlp(p, t(x), out_act, torch.bfloat16, skips),
                        tfm.fused_mlp_plain(p, t(x), out_act, torch.bfloat16, skips))
 
@@ -207,7 +207,7 @@ def test_fused_mlp_kernel_packing(name, d_in, d_out, n_layers, width, skips,
     layer's K split) computes the plain chain, within the kernel's stated
     tolerance (``fused_mlp.compare_to_plain``)."""
     params, x = _mlp_case(d_in, d_out, n_layers, width, skips, bias, rows=300)
-    p = params_from_numpy(params)
+    p = params_from_numpy(params, "cpu")
     ours = _emulate_fused_kernel(p, t(x), out_act, skips)
     plain = tfm.fused_mlp_plain(p, t(x), out_act, torch.bfloat16, skips)
     tfm.compare_to_plain(ours, plain)
@@ -271,7 +271,7 @@ def test_fused_mlp_tolerance_tells_sum_order_from_missing_rounding(
 def test_fused_mlp_cuda_wrapper_rejects_cpu_tensors():
     params, x = _mlp_case(32, 16, 2, 64, (), False)
     with pytest.raises(ValueError):
-        tfm.fused_mlp_cuda(params_from_numpy(params), t(x))
+        tfm.fused_mlp_cuda(params_from_numpy(params, "cpu"), t(x))
 
 
 # -- quad build ----------------------------------------------------------------

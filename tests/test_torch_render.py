@@ -70,7 +70,7 @@ def test_render_rays_matches_jax(grid, fraction, sched):
     cfg_t, cfg_j = _configs(fraction)
     jm = JaxModel(cfg_j)
     params = _scaled_params(jm)
-    tm = NeRSembleModel(cfg_t)
+    tm = NeRSembleModel(cfg_t, "cpu")
     assert tm.config.sampling.max_candidates_per_ray == \
         jm.config.sampling.max_candidates_per_ray
     rays = example_rays(64, 8, seed=1)
@@ -80,7 +80,7 @@ def test_render_rays_matches_jax(grid, fraction, sched):
                            jm.binaries(jnp.asarray(grid)),
                            {k: jnp.float32(v) for k, v in SCHEDS[sched].items()},
                            rng=None, train=False)
-    t_out = tm.render_rays(params_from_numpy(params),
+    t_out = tm.render_rays(params_from_numpy(params, "cpu"),
                            {k: t(v) for k, v in rays.items()},
                            tm.binaries(t(grid)), SCHEDS[sched])
 
@@ -100,8 +100,8 @@ def test_render_rays_matches_jax(grid, fraction, sched):
 
 def test_render_image_packing_matches_unpacked_chunks(grid):
     cfg_t, cfg_j = _configs(1.0)
-    params = params_from_numpy(_scaled_params(JaxModel(cfg_j)))
-    tm = NeRSembleModel(cfg_t)
+    params = params_from_numpy(_scaled_params(JaxModel(cfg_j)), "cpu")
+    tm = NeRSembleModel(cfg_t, "cpu")
     renderer = Renderer(tm, params, t(grid))
     image = pinhole_frame(10, 14, timestep=3, fov_y_deg=90.0)
     hit = renderer.render_hit_mask(t(image["origins"]), t(image["directions"]))
@@ -134,7 +134,7 @@ def test_jax_checkpoint_renders_the_same(grid, tmp_path):
     path = tmp_path / "step-000000000.ckpt"
     save_checkpoint(path, 0, jax.tree_util.tree_map(jnp.asarray, params), None,
                     jnp.asarray(grid), extra={"sample_budget": 4096})
-    loaded, grid_occs, extra = load_jax_checkpoint(path)
+    loaded, grid_occs, extra = load_jax_checkpoint(path, "cpu")
     assert int(extra["sample_budget"]) == 4096
     np.testing.assert_array_equal(n(grid_occs), grid)
 
@@ -143,17 +143,17 @@ def test_jax_checkpoint_renders_the_same(grid, tmp_path):
                 if k.startswith("params/") and "__" not in k}
     assert set(loaded.state_dict()) == keys
 
-    tm = NeRSembleModel(cfg_t)
+    tm = NeRSembleModel(cfg_t, "cpu")
     rays = {k: t(v) for k, v in example_rays(64, 8, seed=2).items()}
     a = tm.render_rays(loaded, rays, tm.binaries(grid_occs), SCHEDS["end"])
-    b = tm.render_rays(params_from_numpy(params), rays, tm.binaries(t(grid)),
+    b = tm.render_rays(params_from_numpy(params, "cpu"), rays, tm.binaries(t(grid)),
                        SCHEDS["end"])
     for key in ("rgb", "depth", "accumulation", "deformation"):
         assert torch.equal(a[key], b[key]), key
 
 
 def test_state_dict_keys_follow_the_jax_tree():
-    model = NeRSembleModel(flagship_model_config(tiny=True))
+    model = NeRSembleModel(flagship_model_config(tiny=True), "cpu")
     params = model.init_params(torch.Generator().manual_seed(0))
     jm = JaxModel(__graft_entry__._flagship_model_config(tiny=True))
     shapes = {".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path):
@@ -167,10 +167,11 @@ def test_add_contrast_scales_like_the_parity_params():
     ``_scaled_params`` scales the JAX tree, and every key it names exists."""
     cfg_t, cfg_j = _configs(1.0)
     jm = JaxModel(cfg_j)
-    raw = params_from_numpy(to_numpy_tree(jm.init_params(jax.random.PRNGKey(0))))
+    raw = params_from_numpy(to_numpy_tree(jm.init_params(jax.random.PRNGKey(0))),
+                           "cpu")
     assert set(CONTRAST_SCALES) <= set(raw.state_dict())
     ours = add_contrast(raw).state_dict()
-    theirs = params_from_numpy(_scaled_params(jm)).state_dict()
+    theirs = params_from_numpy(_scaled_params(jm), "cpu").state_dict()
     for key in theirs:
         assert torch.equal(ours[key], theirs[key]), key
 
@@ -179,4 +180,4 @@ def test_unfused_mlp_option_is_rejected():
     cfg = flagship_model_config(tiny=True)
     cfg.use_fused_mlp = False
     with pytest.raises(NotImplementedError):
-        NeRSembleModel(cfg)
+        NeRSembleModel(cfg, "cpu")

@@ -244,7 +244,7 @@ def test_fused_mlp_bwd_plain_matches_pallas(interpret_mode, shape, dtype):
     ours = tfm.fused_mlp_bwd_plain(params, x, g, act, getattr(torch, dtype), skips)
     tfm.compare_bwd_to_plain(ours, theirs)
     # the same through the autograd Function the model calls
-    p = params_from_numpy(to_tree(params, n))
+    p = params_from_numpy(to_tree(params, n), "cpu")
     for q in p.parameters():
         q.requires_grad_(True)
     xt = x.clone().requires_grad_(True)
@@ -352,7 +352,7 @@ def test_fused_adam_update_matches_jax_over_three_groups():
     lrs = {"fields": 5e-3, "deformation_field": 1e-3, "embeddings": 4e-3}
     j_params = jax.tree_util.tree_map(jnp.asarray, tree)
     j_state = optax.scale_by_adam(eps=1e-15).init(j_params)
-    ours = params_from_numpy(tree)
+    ours = params_from_numpy(tree, "cpu")
     state = init_adam(ours)
     key_to_group = group_of_param(groups)
     for step in range(4):
@@ -363,12 +363,12 @@ def test_fused_adam_update_matches_jax_over_three_groups():
             j_params, jax.tree_util.tree_map(jnp.asarray, grads), j_state,
             key_to_group, {k: np.float32(v) for k, v in lrs.items()})
         for name, p in ours.named_parameters():
-            p.grad = params_from_numpy(grads).get_parameter(name).detach().clone()
+            p.grad = params_from_numpy(grads, "cpu").get_parameter(name).detach().clone()
         state = fused_adam_update(ours, state, key_to_group, lrs)
     assert int(state.count) == int(j_state.count) == 4
     for mine, theirs in ((ours, j_params), (state.mu, j_state.mu),
                          (state.nu, j_state.nu)):
-        ref = params_from_numpy(jax.tree_util.tree_map(np.asarray, theirs))
+        ref = params_from_numpy(jax.tree_util.tree_map(np.asarray, theirs), "cpu")
         for name, value in mine.named_parameters():
             np.testing.assert_allclose(n(value), n(ref.get_parameter(name)),
                                        rtol=2e-6, atol=1e-12, err_msg=name)

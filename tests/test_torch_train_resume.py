@@ -48,7 +48,7 @@ def test_five_steps_with_an_occupancy_update_match_jax():
     first steps move parameters whose gradients are below the comparison
     noise differently, which the loss sees only slightly."""
     cfg_t, jm, params, batch, grid, budget = _setup("float32")
-    model = NeRSembleModel(cfg_t)
+    model = NeRSembleModel(cfg_t, "cpu")
     j_params = jax.tree_util.tree_map(jnp.asarray, params)
     j_opt = optax.scale_by_adam(eps=1e-15).init(j_params)
     ours = _trainable(params)
@@ -111,7 +111,7 @@ def _trainer(params_np):
     cfg_t, _, _, _, grid, _ = _setup("float32", fraction=0.25)
     cfg_t.sampling.adaptive_budget_interval = 4  # the budget adapts in-run
     cfg_t.occupancy_grid_warmup_steps = 8        # step 16: a sampled update
-    return NeRSembleTrainer(cfg_t, n_rays=R, seed=5,
+    return NeRSembleTrainer(cfg_t, n_rays=R, seed=5, device="cpu",
                             params=_trainable(params_np).requires_grad_(False),
                             grid_occs=t(grid))
 

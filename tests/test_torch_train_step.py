@@ -154,7 +154,7 @@ def test_train_step_matches_jax(dtype):
         key, budget)
 
     from nersemble_tpu_torch.models.nersemble import NeRSembleModel
-    model = NeRSembleModel(cfg_t)
+    model = NeRSembleModel(cfg_t, "cpu")
     ours = _trainable(params)
     state = init_adam(ours)
     total, losses, grads, state, dropped = _port_step(
@@ -207,9 +207,10 @@ def test_trainer_train_step_is_the_step():
     jitter = np.random.default_rng(4).uniform(size=R).astype(np.float32)
     from nersemble_tpu_torch.models.nersemble import NeRSembleModel
     ours = _trainable(params)
-    _port_step(NeRSembleModel(cfg_t), ours, init_adam(ours), grid, batch,
+    _port_step(NeRSembleModel(cfg_t, "cpu"), ours, init_adam(ours), grid, batch,
                jitter, budget)
-    trainer = NeRSembleTrainer(cfg_t, n_rays=R, params=params_from_numpy(params),
+    trainer = NeRSembleTrainer(cfg_t, n_rays=R, device="cpu",
+                               params=params_from_numpy(params, "cpu"),
                                grid_occs=t(grid))
     trainer._budget = budget
     tbatch = {k: t(v) for k, v in batch.items()}
