@@ -20,13 +20,16 @@ Phases, each printing its own lines:
                   inputs (no relu sign depends on rounding, no sum cancels),
                   within its bound (max error under 1e-3 of the largest
                   output, mean error under 1e-5 of the mean output, for dx,
-                  every dW and db);
+                  every dW and db), each MLP printed with its TFLOP/s, its
+                  bound for the bf16 split it runs and the bound of the
+                  f32-product route;
  3b. copy kernels -- the measurement path's kernels vs their plain versions,
                   bit-exact, with the time of the one PyTorch call that
                   computes the same function: the row gather (P1) at the
                   gather probe's full size (2^20 rows of a [6,328,832, 128]
                   bf16 table, depth 32; index_select), and on the flagship
-                  [6,537,216, 64] bf16 table the copy (P2; clone), the
+                  [6,537,216, 64] bf16 table the copy (P2; clone, then
+                  P2 and clone timed in turns over three rounds), the
                   broadcast to four quarters (P3; repeat) and the
                   seven-fetch (P4; cat), P4 held first on seven distinct
                   inputs and timed, as the ladder runs it, on one input
@@ -101,8 +104,8 @@ REF_H, REF_W, REF_CHUNK = 32, 24, 256
 REF_TOL = dict(rtol=0.0, atol=1e-4)
 PROFILE_RANGES = ("render:march", "render:sigma_probe", "render:field",
                   "field:hash_encode")
-OWN_KERNELS = ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel", "partial_sum_kernel",
-               "quad_build_kernel", "quad_fold_kernel")
+OWN_KERNELS = ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel", "pack_stream_kernel",
+               "partial_sum_kernel", "quad_build_kernel", "quad_fold_kernel")
 TRAIN_RAYS, TRAIN_STEPS = 4096, 10
 BENCH_ITERS = 5
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
@@ -119,6 +122,7 @@ TRAIN_RANGES = ("train:forward", "render:march", "render:field",
 # 2^-6 of its max (an entry rounded to the neighbouring bf16 value).
 TRAIN_REF_TOL = {"loss_rtol": 1e-3, "rtol": 1e-2, "atol": 2e-3,
                  "table_atol": 2.0 ** -6}
+COPY_ROUNDS = 3  # P2 and clone() timed in turns
 
 
 def log(phase: str, msg: str) -> None:
@@ -204,6 +208,7 @@ def kernel_phase(cfg, levels, device):
     from nersemble_tpu_torch.utils.timing import bound_ms, cuda_time_ms
 
     gen = torch.Generator(device=device).manual_seed(SEED)
+    n_parts = torch.cuda.get_device_properties(device).multi_processor_count
     hc = cfg.hash_ensemble.hash_encoding
     width = cfg.hash_ensemble.n_hash_encodings * hc.n_features_per_level
     results = {}
@@ -285,20 +290,31 @@ def kernel_phase(cfg, levels, device):
         p_ms = cuda_time_ms(lambda: fused_mlp.fused_mlp_bwd_plain(
             params, x, g, act, torch.bfloat16, skips))
         gflop = 6 * macs * MLP_ROWS / 1e9  # forward recompute, dW, dh
-        # reads x, g and the weights, writes dx and every dW and db; the
-        # recomputed forward on the bf16 tensor cores, dW and dh in f32
-        bwd_bound = bound_ms(MLP_ROWS * (2 * d_in + d_out) * 4 + 2 * weight_bytes,
-                          bf16_flops=2 * macs * MLP_ROWS,
-                          f32_flops=4 * macs * MLP_ROWS)
+        # reads x, g and the weights, writes dx and every dW and db; every
+        # product of the bf16 split on the tensor cores (the bound); the
+        # same with the per-block partials' traffic; the f32-product route
+        work = fused_mlp.bwd_work(params, MLP_ROWS, n_parts)
+        bwd_bound = bound_ms(work["bytes"], bf16_flops=work["bf16_flops"])
+        with_parts = bound_ms(work["bytes"] + work["partial_bytes"],
+                              bf16_flops=work["bf16_flops"])
+        f32_route = bound_ms(work["bytes"], bf16_flops=work["fwd_flops"],
+                             f32_flops=work["f32_flops"])
         log("kernels", f"B2 {name} [{MLP_ROWS}, {d_in}] <- [{MLP_ROWS}, {d_out}] "
                        f"(positive_): max abs err {e['max_abs']:.3e} "
                        f"({e['max_rel']:.3e} of max |plain|, tol "
                        f"{fused_mlp.BWD_MAX_ERR_REL:g}), mean abs err "
                        f"{e['mean_abs']:.3e} (tol {fused_mlp.BWD_MEAN_ERR_REL:g} "
-                       f"of mean |plain|), worst of dx, dW, db; kernel "
-                       f"{k_ms:.3f} ms ({gflop / k_ms:.0f} TFLOP/s over "
-                       f"{gflop:.1f} GFLOP; bound {bwd_bound[0]:.3f} ms, "
-                       f"{bwd_bound[1]}), plain {p_ms:.3f} ms")
+                       f"of mean |plain|), worst of dx, dW, db, using "
+                       f"{e['max_share']:.3g} / {e['mean_share']:.3g} of the "
+                       f"tolerances; kernel {k_ms:.3f} ms ({gflop / k_ms:.0f} "
+                       f"TFLOP/s over {gflop:.1f} GFLOP of the function, "
+                       f"{work['bf16_flops'] / k_ms / 1e9:.0f} bf16 TFLOP/s run); "
+                       f"bound {bwd_bound[0]:.3f} ms "
+                       f"({bwd_bound[1]}; the split's "
+                       f"{work['bf16_flops'] / 1e9:.0f} bf16 GFLOP), "
+                       f"{with_parts[0]:.3f} ms with the partials' "
+                       f"{work['partial_bytes'] / 1e9:.2f} GB, f32-product route "
+                       f"{f32_route[0]:.3f} ms; plain {p_ms:.3f} ms")
         bwd = [max(bwd[0], e["max_abs"]), bwd[1] + k_ms, bwd[2] + p_ms,
                bwd[3] + [bwd_bound]]
         del params, x, g, out, ref, outs, refs
@@ -529,6 +545,16 @@ def copy_kernel_phase(levels, device):
     note = f"{tuple(x.shape)} bf16, block {ck.BLOCK} rows"
     check("copy", note, lambda: ck.copy_cuda(x), lambda: ck.copy_plain(x),
           lambda: x.clone(), 2 * x_bytes)
+    # P2 and clone() in turns, on the same input after the same allocations:
+    # the copy's numbers (a time taken first after empty_cache() reads slow)
+    rounds = []
+    for r in range(COPY_ROUNDS):
+        rounds.append((cuda_time_ms(lambda: ck.copy_cuda(x)),
+                       cuda_time_ms(lambda: x.clone())))
+        log("copy kernels", f"copy round {r}: kernel {rounds[-1][0]:.3f} ms, clone "
+                            f"{rounds[-1][1]:.3f} ms ({100 * (rounds[-1][0] / rounds[-1][1] - 1):+.1f}%)")
+    results["copy"]["ms"] = sum(k for k, _ in rounds) / COPY_ROUNDS
+    results["copy"]["library_ms"] = sum(l for _, l in rounds) / COPY_ROUNDS
     check("bcast_quarters", note, lambda: ck.bcast_quarters_cuda(x),
           lambda: ck.bcast_quarters_plain(x), lambda: x.repeat(1, 4), 5 * x_bytes)
     check("fetch7", note, lambda: ck.fetch7_cuda(*seven),

@@ -11,8 +11,9 @@ tensors and raises on any other, and ``*_plain`` is the same function in
 plain PyTorch. All four are copies: each kernel is bit-exact against its
 plain version.
 
-``block`` (rows per thread block) stands for the Pallas ``BlockSpec``
-block of the ladder; the default is the JAX package's 2048 rows.
+``block`` stands for the Pallas ``BlockSpec`` block of the ladder, rows
+per work unit: a thread block's rows in P3 and P4, a unit of P2's grid
+stride; the default is the JAX package's 2048 rows.
 """
 
 import torch

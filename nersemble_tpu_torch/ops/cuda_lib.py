@@ -31,9 +31,10 @@ _LL_P = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     # x, out, wt, bias, meta, n_rows, stream
     "fused_mlp_fwd": (_VOID_P, _VOID_P, _VOID_P, _VOID_P, _LL_P, _LL, _VOID_P),
-    # x, g, dx, wt, bias, wf, partials, total, meta, n_rows, n_parts, stream
+    # x, g, dx, wt, bias, wf, wstream, partials, total, meta, n_rows, n_parts,
+    # stream
     "fused_mlp_bwd": (_VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,
-                      _VOID_P, _VOID_P, _LL_P, _LL, _LL, _VOID_P),
+                      _VOID_P, _VOID_P, _VOID_P, _LL_P, _LL, _LL, _VOID_P),
     # table, out, n_rows, row_bytes, meta, stream
     "quad_build": (_VOID_P, _VOID_P, _LL, _LL, _LL_P, _VOID_P),
     # g, out, n_rows, quarter_bytes, elem_bytes, meta, stream

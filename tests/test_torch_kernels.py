@@ -62,7 +62,7 @@ def test_fused_mlp_kernel_matches_plain(cuda, d_in, d_out, n_layers, width,
 
 @pytest.mark.parametrize("d_in,d_out,n_layers,width,skips,bias,out_act",
                          MLP_SHAPES)
-@pytest.mark.parametrize("rows", [1, 1000, 4096, 98304])
+@pytest.mark.parametrize("rows", [1, 65, 1000, 4096, 98303, 98304])
 def test_fused_mlp_bwd_kernel_matches_plain(cuda, d_in, d_out, n_layers, width,
                                             skips, bias, out_act, rows):
     """B2 against fused_mlp_bwd_plain within ops/fused_mlp.py's stated
@@ -82,6 +82,26 @@ def test_fused_mlp_bwd_kernel_matches_plain(cuda, d_in, d_out, n_layers, width,
     assert out[0].shape == (rows, d_in)
     assert [tuple(w.shape) for w in out[1]] == [tuple(w.shape) for w in ref[1]]
     tfm.compare_bwd_to_plain(out, ref)
+
+
+@pytest.mark.parametrize("d_in,d_out,n_layers,width,skips,bias,out_act",
+                         MLP_SHAPES[:3])
+@pytest.mark.parametrize("rows", [65, 98304])
+def test_fused_mlp_bwd_kernel_is_deterministic(cuda, d_in, d_out, n_layers, width,
+                                               skips, bias, out_act, rows):
+    """Two B2 launches on the same inputs give bitwise-equal dx, dW and db
+    (per-block partials summed in a fixed order, no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    params = tfm.positive_(ParamTree(init_mlp(g, d_in, d_out, n_layers, width,
+                                              skips, bias)), g)
+    x = tfm.positive_input(rows, d_in, g)
+    gy = tfm.positive_input(rows, d_out, g)
+    first = tfm.fused_mlp_bwd_cuda(params, x, gy, out_act, skips)
+    second = tfm.fused_mlp_bwd_cuda(params, x, gy, out_act, skips)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+    assert all(torch.equal(a, b) for a, b in zip(first[2] or (), second[2] or ()))
 
 
 def test_fused_mlp_autograd_launches_both_kernels(cuda):
@@ -262,6 +282,8 @@ def test_gather_rows_kernel_reads_past_2_gib(cuda):
     (100, 64, 32, torch.bfloat16),      # small blocks, ragged last block
     (77, 12, 10, torch.float32),        # 3 chunks per row, ragged
     (5, 8, 8, torch.bfloat16),          # 1 chunk per row, one block
+    (100003, 64, 2048, torch.bfloat16), # 49 blocks, ragged: P2's grid stride
+    (70001, 8, 3, torch.bfloat16),      # 23,334 three-row blocks
 ])
 def test_copy_ladder_kernels_are_bit_exact(cuda, rows, width, block, dtype):
     g = torch.Generator(device=cuda).manual_seed(6)
@@ -278,6 +300,20 @@ def test_copy_ladder_kernels_are_bit_exact(cuda, rows, width, block, dtype):
     after = copy_kernels.counts()
     assert [after[k] - before[k] for k in ("copy", "bcast_quarters", "fetch7")] \
         == [1, 1, 1]
+
+
+def test_copy_kernel_copies_past_2_gib(cuda):
+    """A [E, 64] bf16 table over 2^31 bytes with a ragged last block
+    (64-bit offsets in the persistent copy's grid stride)."""
+    rows = (2 ** 31) // 128 + 2048 + 7
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(rows, 64, generator=g, device=cuda).to(torch.bfloat16)
+    before = copy_kernels.COPY_LAUNCHES
+    out = copy_kernels.copy_cuda(x)
+    torch.cuda.synchronize()
+    assert copy_kernels.COPY_LAUNCHES == before + 1
+    assert x.numel() * x.element_size() > 2 ** 31
+    assert torch.equal(out, x)
 
 
 def test_bcast_quarters_kernel_writes_past_2_gib(cuda):
