@@ -15,7 +15,11 @@ Phases, each printing its own lines:
                   MLP forward (B1-fwd) on the stem, base and head at 98,304
                   rows within ops/fused_mlp.py's forward bound (max error
                   under half a bf16 ulp of the largest output, mean error
-                  under 1e-5 of the mean output); the fused MLP backward (B2)
+                  under 1e-5 of the mean output), each timed by its device
+                  time under torch.profiler (CUDA events beside it) with its
+                  TFLOP/s, GB/s and share of its bound, and, for information,
+                  the stem as six unfused bf16 torch.matmul calls with bias,
+                  relu and concat; the fused MLP backward (B2)
                   on the same shapes, on fused_mlp.positive_ weights and
                   inputs (no relu sign depends on rounding, no sum cancels),
                   within its bound (max error under 1e-3 of the largest
@@ -42,7 +46,8 @@ Phases, each printing its own lines:
                   distance 8, 60 degree vertical view; outputs must be
                   finite, rays must hit, the three timesteps must give three
                   different frames, and the forward kernels' launch counters
-                  must grow during this phase;
+                  must grow during this phase; B1-fwd's launches by MLP are
+                  printed as a histogram of rows per launch;
   5. profile   -- one more 550x802 frame under torch.profiler: device busy
                   share, the render path's ranges and the top kernels;
   6. train     -- the flagship training step as bench.py runs it (4096 rays
@@ -54,7 +59,8 @@ Phases, each printing its own lines:
                   be finite and fall, the timed steps must make no
                   synchronizing call (torch.cuda.set_sync_debug_mode), and
                   all four kernels' launch counters must grow during this
-                  phase;
+                  phase; B1-fwd's rows-per-launch histograms of the timed
+                  steps and of the occupancy update;
   7. train profile -- one more step under torch.profiler: device busy
                   share, the step's ranges (march, field forward, encode
                   backward, Adam), the port's four kernels by name (the MLP
@@ -81,6 +87,7 @@ the bound and the library call's time), and the last line
 and the last line is not printed. Without a CUDA device nothing runs.
 """
 
+import collections
 import contextlib
 import copy
 import io
@@ -196,6 +203,65 @@ def mlp_shapes(cfg):
     }
 
 
+def kernel_device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Mean device time per launch of ``kernel`` over ``iters`` calls of
+    ``fn`` under torch.profiler: the kernel's own time. CUDA events around
+    the calls time the host instead wherever one call's Python (~25 us for
+    the fused MLP's wrapper) outlasts its kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    own = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and e.key.removeprefix("void ").startswith((kernel + "(", kernel + "<"))]
+    if sum(e.count for e in own) != iters:
+        raise AssertionError(f"the profiler saw {[e.count for e in own]} launches of "
+                             f"{kernel}, not {iters}")
+    return sum(e.self_device_time_total for e in own) / iters / 1e3
+
+
+def unfused_chain(params, x, out_activation, skips):
+    """The MLP as separate bf16 PyTorch calls (x cast, then per layer
+    matmul, bias, relu, the skip's concat): a yardstick for the fusion,
+    used nowhere in the port."""
+    import torch
+    x_in = x.to(torch.bfloat16)
+    h = x_in
+    layers = params.layers
+    for i, layer in enumerate(layers):
+        if i in skips and i > 0:
+            h = torch.cat([h, x_in], dim=-1)
+        h = torch.matmul(h, layer.w.to(torch.bfloat16))
+        if "b" in layer:
+            h = h + layer.b.to(torch.bfloat16)
+        if i < len(layers) - 1 or out_activation == "relu":
+            h = torch.relu(h)
+    return h
+
+
+def rows_histogram(phase: str, cfg, counts) -> None:
+    """Print B1-fwd's launches on a path by MLP, bucketed by rows per launch
+    (``fused_mlp.ROWS``: (d_in, d_out, rows) -> launches)."""
+    edges = (64, 1024, 16384, 65536, math.inf)
+    for name, (d_in, d_out, *_) in mlp_shapes(cfg).items():
+        mine = {rows: n for (a, b, rows), n in counts.items() if (a, b) == (d_in, d_out)}
+        buckets, lo = [], 1
+        for hi in edges:
+            n = sum(c for rows, c in mine.items() if lo <= rows <= hi)
+            label = f">={lo}" if hi == math.inf else f"{lo}-{hi}"
+            buckets.append(f"{label}: {n}")
+            lo = hi + 1
+        log(phase, f"B1-fwd {name}: {sum(mine.values())} launches, "
+                   f"{sum(r * n for r, n in mine.items())} rows; rows per launch "
+                   + ", ".join(buckets))
+
+
 def kernel_phase(cfg, levels, device):
     """Every kernel of the train and render paths vs its plain version at
     the flagship shapes; returns {kernel: kernel_entry(...)}. No single
@@ -265,17 +331,29 @@ def kernel_phase(cfg, levels, device):
         e = fused_mlp.compare_to_plain(out, ref)
         macs = sum(layer.w.numel() for layer in params.layers)
         weight_bytes = 4 * sum(p.numel() for p in params.parameters())
-        fwd_bound = bound_ms(MLP_ROWS * (d_in + d_out) * 4 + weight_bytes,
-                          bf16_flops=2 * macs * MLP_ROWS)
-        k_ms = cuda_time_ms(lambda: fused_mlp.fused_mlp_cuda(params, x, act, skips))
+        fwd_bytes = MLP_ROWS * (d_in + d_out) * 4 + weight_bytes
+        fwd_flops = 2 * macs * MLP_ROWS
+        fwd_bound = bound_ms(fwd_bytes, bf16_flops=fwd_flops)
+        run = lambda: fused_mlp.fused_mlp_cuda(params, x, act, skips)  # noqa: E731
+        e_ms = cuda_time_ms(run)
+        k_ms = kernel_device_ms(run, "fused_mlp_fwd_kernel")
         p_ms = cuda_time_ms(lambda: fused_mlp.fused_mlp_plain(
             params, x, act, torch.bfloat16, skips))
         log("kernels", f"B1-fwd {name} [{MLP_ROWS}, {d_in}] -> [{MLP_ROWS}, {d_out}]: "
                        f"max abs err {e['max_abs']:.3e} (tol {e['max_tol']:.3e}; "
                        f"{e['max_rel']:.3e} of max |plain|), "
                        f"mean abs err {e['mean_abs']:.3e} (tol {e['mean_tol']:.3e}); "
-                       f"kernel {k_ms:.3f} ms (bound {fwd_bound[0]:.3f} ms, "
-                       f"{fwd_bound[1]}), plain {p_ms:.3f} ms")
+                       f"kernel {k_ms:.4f} ms on the device ({fwd_flops / k_ms / 1e9:.1f} "
+                       f"TFLOP/s, {fwd_bytes / k_ms / 1e6:.0f} GB/s; bound "
+                       f"{fwd_bound[0]:.4f} ms, {fwd_bound[1]}, "
+                       f"{100 * fwd_bound[0] / k_ms:.1f}% of it), {e_ms:.4f} ms per "
+                       f"call by CUDA events; plain {p_ms:.3f} ms")
+        if name == "stem":  # for information: does fusing pay on this card?
+            u_ms = cuda_time_ms(lambda: unfused_chain(params, x, act, skips))
+            log("kernels", f"B1-fwd stem for information: six bf16 torch.matmul "
+                           f"products with bias, relu and concat, unfused, "
+                           f"{u_ms:.4f} ms ({fwd_flops / u_ms / 1e9:.1f} TFLOP/s); "
+                           f"the kernel takes {k_ms / u_ms:.2f}x its time")
         fwd = [max(fwd[0], e["max_abs"]), fwd[1] + k_ms, fwd[2] + p_ms,
                fwd[3] + [fwd_bound]]
 
@@ -366,6 +444,7 @@ def train_phase(cfg, device):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - start
     totals, auxes = [], []
+    fused_mlp.ROWS = collections.Counter()
     with warnings.catch_warnings(record=True) as syncs:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -378,11 +457,13 @@ def train_phase(cfg, device):
         elapsed = time.perf_counter() - start
         torch.cuda.set_sync_debug_mode("default")
     syncs = [w for w in syncs if "called a synchronizing" in str(w.message)]
+    step_rows, fused_mlp.ROWS = fused_mlp.ROWS, collections.Counter()
     start = time.perf_counter()
     occ_step = step0 - 1 + 16
     trainer.maybe_update_occupancy(occ_step)
     torch.cuda.synchronize()
     occ_ms = (time.perf_counter() - start) * 1e3
+    occ_rows, fused_mlp.ROWS = fused_mlp.ROWS, None
     launches = {"fused_mlp_fwd": fused_mlp.LAUNCHES,
                 "fused_mlp_bwd": fused_mlp.BWD_LAUNCHES,
                 "quad_build": quad_kernel.LAUNCHES,
@@ -406,6 +487,8 @@ def train_phase(cfg, device):
         raise AssertionError(f"{len(syncs)} synchronizing operations in the timed steps")
     log("train", f"occupancy update (sampled, step {occ_step}): {occ_ms:.1f} ms; "
                  f"grid fill {float(trainer.model.binaries(trainer.grid_occs).float().mean()):.4f}")
+    rows_histogram(f"train: {TRAIN_STEPS} timed steps", cfg, step_rows)
+    rows_histogram("train: occupancy update", cfg, occ_rows)
     log("train", f"loss per step {[round(v, 6) for v in values]}; last step {losses}; "
                  f"psnr {float(auxes[-1]['psnr']):.3f}; launches {launches}")
     if not all(math.isfinite(v) for v in values + list(losses.values())):
@@ -685,10 +768,12 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     fused_mlp.LAUNCHES = 0
     quad_kernel.LAUNCHES = 0
+    fused_mlp.ROWS = collections.Counter()
     start = time.perf_counter()
     images = [renderer.render_image(frame, step, chunk=CHUNK) for frame in frames]
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
+    render_rows, fused_mlp.ROWS = fused_mlp.ROWS, None
     render_launches = {"fused_mlp_fwd": fused_mlp.LAUNCHES,
                        "quad_build": quad_kernel.LAUNCHES}
 
@@ -723,6 +808,7 @@ def main() -> None:
                   f"ms/frame, hit fraction {hit_fraction:.4f}, "
                   f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
                   f"launches {render_launches}")
+    rows_histogram(f"render: {len(frames)} frames", cfg, render_rows)
 
     # ---- 5. profile -------------------------------------------------------------
     profile_run("profile", lambda: renderer.render_image(frames[1], step, chunk=CHUNK),

@@ -9,6 +9,8 @@ tensors it launches ``csrc/fused_mlp_fwd.cu`` / ``csrc/fused_mlp_bwd.cu``
 what bounds it and how) or raises. There is no fallback.
 """
 
+import functools
+from collections import Counter
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -18,10 +20,17 @@ from nersemble_tpu_torch.ops import cuda_lib
 from nersemble_tpu_torch.ops.mlp import activate, round_to
 
 MAX_LAYERS = 8      # csrc/fused_mlp_fwd.cu MLP_MAX_LAYERS
-MAX_WIDTH = 128     # widest layer one warp's accumulators hold
-_PAD = 8            # shared-memory row padding (elements)
-_TILE_ROWS = 128
+MAX_WIDTH = 128     # widest layer one warpgroup's accumulators hold
+_PAD = 8            # B2's shared-memory row padding (elements)
 _SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use (H100)
+# csrc/fused_mlp_fwd.cu: the wgmma widths it is built for (a layer runs at
+# the next one up, zero-padded), rows per consumer warpgroup, consumers,
+# ring stages, x staging blocks per consumer, chunks per tile; a chunk is
+# one [N][64] K block of 128-byte rows
+_FWD_WIDTHS = (16, 32, 64, 128)
+_FWD_ROWS, _FWD_CONSUMERS, _FWD_MAX_STAGES, _FWD_MAX_X_STAGES = 64, 2, 8, 8
+_FWD_MAX_CHUNKS = 64
+_FWD_KBLOCK = 64
 _ACTIVATIONS = {None: 0, "none": 0, "relu": 1, "sigmoid": 2}
 # csrc/fused_mlp_bwd.cu BT, KC, NC, PASS, MAX_CHUNKS: rows per tile, staged
 # K columns of the forward weights, staged out columns of dh's weight terms,
@@ -43,6 +52,9 @@ _BWD_ROWS, _BWD_KC, _BWD_NC, _BWD_PASS, _BWD_MAX_CHUNKS = 64, 64, 32, 128, 96
 _BWD_G_TERMS, _BWD_W_TERMS, _BWD_MAX_ORDER = 3, 3, 2
 
 LAUNCHES = 0      # B1-fwd launches since the last reset (chip_smoke.py reads it)
+# B1-fwd launches by (d_in, d_out, rows) while a caller holds a Counter here
+# (chip_smoke.py's rows-per-launch histograms); None: not recorded
+ROWS: Optional[Counter] = None
 BWD_LAUNCHES = 0  # B2 launches since the last reset
 
 # B2 vs plain tolerance, per output (dx, every dW and db), held on
@@ -280,15 +292,103 @@ def _packed_weights(params, d_in: int, skip_connections: Sequence[int]):
     return cached[1]
 
 
-def smem_bytes(per_layer, kx: int, h_stride: int) -> int:
-    w_max = max(per_layer[5 * i] * (per_layer[5 * i + 1] + per_layer[5 * i + 2] + _PAD)
-                for i in range(len(per_layer) // 5))
-    return 2 * (_TILE_ROWS * (kx + _PAD) + _TILE_ROWS * h_stride + w_max)
+def fwd_layout(per_layer, d_in: int, kx: int) -> Dict:
+    """B1-fwd's plan from ``pack_weights``' per-layer list: per layer (N, KH,
+    KX, packed width, packed bias offset, shared bias offset), with N the
+    wgmma width the layer runs at and KH = the N of the layer before (its
+    hidden input, from registers); the weight chunks as (layer, byte offset
+    in the image, bytes), each a swizzled [N][64] K block; and the shared
+    memory: a ring of ``stages`` chunk stages (``resident``: one per chunk,
+    loaded once per launch), each consumer's bf16 x tile and its
+    ``x_stages`` f32 x staging blocks (more where the weights are resident:
+    more x copies in flight), the bias, the mbarriers. Raises ValueError
+    when it does not fit."""
+    layers, chunks = [], []
+    off = sb = prev = 0
+    for i in range(len(per_layer) // 5):
+        n, _, kxl, _, b_off = per_layer[5 * i:5 * i + 5]
+        width = next(w for w in _FWD_WIDTHS if w >= n)
+        layers.append((width, prev, kxl, n, b_off, sb))
+        for _ in range(-(-(prev + kxl) // _FWD_KBLOCK)):
+            chunks.append((i, off, width * 2 * _FWD_KBLOCK))
+            off += width * 2 * _FWD_KBLOCK
+        sb += width
+        prev = width
+    if len(chunks) > _FWD_MAX_CHUNKS:
+        raise ValueError(f"fused MLP streams {len(chunks)} weight chunks > {_FWD_MAX_CHUNKS}")
+    stage_bytes = max(c[2] for c in chunks)
+    xa = _FWD_CONSUMERS * -(-kx // _FWD_KBLOCK) * _FWD_ROWS * 2 * _FWD_KBLOCK
+    x_block = _FWD_CONSUMERS * _FWD_ROWS * d_in * 4  # one block per consumer
+    bias = -(-sb // 4) * 16
+    bars = 8 * (2 * _FWD_MAX_STAGES + 2 * _FWD_CONSUMERS * _FWD_MAX_X_STAGES)
+    room = _SMEM_LIMIT - 1024 - xa - bias - bars
+    fit = min(_FWD_MAX_STAGES, (room - x_block) // stage_bytes)
+    resident = len(chunks) <= fit
+    stages = len(chunks) if resident else fit
+    if stages < 2 and not resident:
+        raise ValueError(f"fused MLP's weight ring fits {stages} stage(s) of "
+                         f"{stage_bytes} B next to its x tiles")
+    x_stages = (min(_FWD_MAX_X_STAGES, (room - stages * stage_bytes) // x_block)
+                if resident else 1)
+    off_xa = stages * stage_bytes
+    off_bias = off_xa + xa + x_stages * x_block
+    return {"layers": layers, "chunks": chunks, "image_bytes": off,
+            "stages": stages, "resident": resident, "stage_bytes": stage_bytes,
+            "x_stages": x_stages, "off_xa": off_xa, "off_xraw": off_xa + xa,
+            "off_bias": off_bias, "off_bars": off_bias + bias,
+            "smem_bytes": off_bias + bias + bars}
+
+
+def fwd_weight_image(wt: torch.Tensor, per_layer, layout: Dict) -> torch.Tensor:
+    """B1-fwd's weight image from ``pack_weights``' W^T blocks, on their
+    device, in a few tensor ops (no host copy): per layer W^T zero-padded to
+    [N][KH + KX] (the hidden columns, padded to KH, then the x columns) and
+    to whole 64-column K blocks, each block stored as [N][64] bf16 rows of
+    128 bytes whose 16-byte groups are swizzled: group g of row r at
+    position g ^ (r % 8), the layout wgmma reads in its 128-byte swizzle."""
+    parts = []
+    for i, (width, kh_k, kxl, n, _, _) in enumerate(layout["layers"]):
+        _, kh, _, w_off, _ = per_layer[5 * i:5 * i + 5]
+        w = wt[w_off:w_off + n * (kh + kxl)].view(n, kh + kxl)
+        k_pad = -(-(kh_k + kxl) // _FWD_KBLOCK) * _FWD_KBLOCK
+        full = torch.zeros(width, k_pad, dtype=torch.bfloat16, device=wt.device)
+        full[:n, :kh] = w[:, :kh]
+        full[:n, kh_k:kh_k + kxl] = w[:, kh:]
+        blocks = full.view(width, k_pad // _FWD_KBLOCK, 8, 8)
+        rows = torch.arange(width, device=wt.device)
+        src = torch.arange(8, device=wt.device)[None, :] ^ (rows[:, None] & 7)
+        swizzled = torch.gather(blocks, 2, src[:, None, :, None].expand(blocks.shape))
+        parts.append(swizzled.transpose(0, 1).reshape(-1))
+    return torch.cat(parts)
+
+
+def _fwd_operands(params, d_in: int, skip_connections: Sequence[int]):
+    """B1-fwd's (image, bias, layout, kx, d_out, has_bias, {(activation,
+    x aligned): meta}), cached on the MLP module like ``_packed_weights``
+    (training rebuilds it every step); a render launches each MLP hundreds
+    of times per frame with the same weights, so the meta arrays are kept."""
+    key = (d_in, tuple(skip_connections),
+           tuple((t.data_ptr(), t._version) for t in params.parameters()))
+    cached = getattr(params, "_fused_mlp_fwd_image", None)
+    if cached is None or cached[0] != key:
+        wt, bias, per_layer, kx, _, d_out, has_bias = _packed_weights(
+            params, d_in, skip_connections)
+        layout = fwd_layout(per_layer, d_in, kx)
+        image = fwd_weight_image(wt, per_layer, layout)
+        cached = (key, (image, bias, layout, kx, d_out, has_bias, {}))
+        params._fused_mlp_fwd_image = cached
+    return cached[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fused_mlp_cuda(params, x: torch.Tensor, out_activation: Optional[str] = None,
                    skip_connections: Sequence[int] = ()) -> torch.Tensor:
-    """Launch kernel B1-fwd on a CUDA tensor ``x [N, d_in]`` float32."""
+    """Launch kernel B1-fwd on a CUDA tensor ``x [N, d_in]`` float32 (any
+    alignment: x not 16-byte aligned is read without bulk copies)."""
     global LAUNCHES
     if not x.is_cuda:
         raise ValueError("fused_mlp_cuda takes a CUDA tensor")
@@ -297,19 +397,25 @@ def fused_mlp_cuda(params, x: torch.Tensor, out_activation: Optional[str] = None
                          f"{x.dtype} {tuple(x.shape)}")
     if out_activation not in _ACTIVATIONS:
         raise ValueError(f"unknown activation {out_activation!r}")
-    wt, bias, per_layer, kx, h_stride, d_out, has_bias = _packed_weights(
+    image, bias, layout, kx, d_out, has_bias, metas = _fwd_operands(
         params, x.shape[1], skip_connections)
-    if wt.device != x.device:
-        raise ValueError(f"weights on {wt.device}, input on {x.device}")
-    smem = smem_bytes(per_layer, kx, h_stride)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"fused MLP needs {smem} B of shared memory > {_SMEM_LIMIT}")
+    if image.device != x.device:
+        raise ValueError(f"weights on {image.device}, input on {x.device}")
     out = torch.empty(x.shape[0], d_out, dtype=torch.float32, device=x.device)
-    meta = cuda_lib.int64_array(
-        [len(per_layer) // 5, x.shape[1], kx, d_out,
-         _ACTIVATIONS[out_activation], h_stride, int(has_bias), *per_layer])
+    if ROWS is not None:
+        ROWS[(x.shape[1], d_out, x.shape[0])] += 1
+    aligned = x.data_ptr() % 16 == 0
+    meta = metas.get((out_activation, aligned))
+    if meta is None:
+        meta = metas[(out_activation, aligned)] = cuda_lib.int64_array(
+            [len(layout["layers"]), x.shape[1], kx, d_out, _ACTIVATIONS[out_activation],
+             int(has_bias), layout["stages"], int(layout["resident"]),
+             layout["stage_bytes"], int(aligned), _sm_count(x.device),
+             layout["smem_bytes"], layout["off_xa"], layout["off_xraw"],
+             layout["off_bias"], layout["off_bars"], layout["image_bytes"],
+             layout["x_stages"], *(v for entry in layout["layers"] for v in entry)])
     status = cuda_lib.library().fused_mlp_fwd(
-        x.data_ptr(), out.data_ptr(), wt.data_ptr(), bias.data_ptr(), meta,
+        x.data_ptr(), out.data_ptr(), image.data_ptr(), bias.data_ptr(), meta,
         x.shape[0], torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check(status, "fused_mlp_fwd")
     LAUNCHES += 1

@@ -45,7 +45,11 @@ MLP_SHAPES = [
 
 @pytest.mark.parametrize("d_in,d_out,n_layers,width,skips,bias,out_act",
                          MLP_SHAPES)
-@pytest.mark.parametrize("rows", [1, 1000, 4096])
+# B1-fwd takes 64-row blocks, two to a 128-row tile, one persistent block
+# per SM: 1 and 63 rows are one ragged block, 64 one whole block (bulk-copied
+# x), 65 a whole and a ragged one, 191 / 193 one and a half tiles, 1000 and
+# 4096 fewer tiles than SMs
+@pytest.mark.parametrize("rows", [1, 63, 64, 65, 191, 193, 1000, 4096])
 def test_fused_mlp_kernel_matches_plain(cuda, d_in, d_out, n_layers, width,
                                         skips, bias, out_act, rows):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -58,6 +62,69 @@ def test_fused_mlp_kernel_matches_plain(cuda, d_in, d_out, n_layers, width,
     ref = tfm.fused_mlp_plain(params, x, out_act, torch.bfloat16, skips)
     assert out.shape == (rows, d_out) and out.dtype == torch.float32
     tfm.compare_to_plain(out, ref)  # the tolerance stated in ops/fused_mlp.py
+
+
+@pytest.mark.parametrize("rows", [73728, 98304 + 17])
+def test_fused_mlp_kernel_stem_at_chunk_sizes(cuda, rows):
+    """The flagship stem at the train step's budget and past the chunk cap
+    with a ragged block: many tiles per block of the persistent grid, the
+    weight ring cycling through every stage."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    params = ParamTree(init_mlp(g, 173, 128, 6, 128, (4,), True))
+    x = torch.randn(rows, 173, generator=g, device=cuda)
+    out = tfm.fused_mlp_cuda(params, x, "relu", (4,))
+    tfm.compare_to_plain(out, tfm.fused_mlp_plain(params, x, "relu",
+                                                  torch.bfloat16, (4,)))
+
+
+@pytest.mark.parametrize("d_in,d_out,n_layers,width,skips,bias,out_act",
+                         [MLP_SHAPES[1], MLP_SHAPES[2]])
+@pytest.mark.parametrize("rows", [65, 5000])
+def test_fused_mlp_kernel_takes_misaligned_x(cuda, d_in, d_out, n_layers, width,
+                                             skips, bias, out_act, rows):
+    """x = big[1:] starts 72 or 692 bytes into its storage, not on 16
+    bytes: the kernel reads it without bulk copies, bit for bit as it reads
+    an aligned copy through them. On ``positive_`` weights and inputs: at 65
+    random rows one hidden activation rounded to its neighbouring bf16 value
+    can exceed the mean bound on its own (the earlier mma.sync kernel's
+    outputs differ from the plain version's by the same amount on such
+    inputs)."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    params = tfm.positive_(ParamTree(init_mlp(g, d_in, d_out, n_layers, width,
+                                              skips, bias)), g)
+    big = tfm.positive_input(rows + 1, d_in, g)
+    x = big[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    out = tfm.fused_mlp_cuda(params, x, out_act, skips)
+    assert torch.equal(out, tfm.fused_mlp_cuda(params, x.clone(), out_act, skips))
+    tfm.compare_to_plain(out, tfm.fused_mlp_plain(params, x, out_act,
+                                                  torch.bfloat16, skips))
+
+
+@pytest.mark.parametrize("d_in,d_out,n_layers,width,skips,bias,out_act",
+                         MLP_SHAPES[:3])
+def test_fused_mlp_kernel_is_deterministic(cuda, d_in, d_out, n_layers, width,
+                                           skips, bias, out_act):
+    """Two B1-fwd launches at 98,304 rows give bitwise-equal outputs."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    params = ParamTree(init_mlp(g, d_in, d_out, n_layers, width, skips, bias))
+    x = torch.randn(98304, d_in, generator=g, device=cuda)
+    first = tfm.fused_mlp_cuda(params, x, out_act, skips)
+    assert torch.equal(first, tfm.fused_mlp_cuda(params, x, out_act, skips))
+
+
+@pytest.mark.parametrize("d_in,d_out,bias,out_act", [
+    (32, 16, True, None), (18, 64, False, "relu"), (173, 128, True, "sigmoid"),
+    (21, 100, False, None)])  # a width the kernel runs padded to 128
+@pytest.mark.parametrize("rows", [1, 65, 4096])
+def test_fused_mlp_kernel_one_layer(cuda, d_in, d_out, bias, out_act, rows):
+    """A single layer of each wgmma width: one product from the x tile,
+    where a transposed fragment or descriptor shows at 1 and 65 rows."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    params = ParamTree(init_mlp(g, d_in, d_out, 1, d_out, (), bias))
+    x = torch.randn(rows, d_in, generator=g, device=cuda)
+    out = tfm.fused_mlp_cuda(params, x, out_act)
+    tfm.compare_to_plain(out, tfm.fused_mlp_plain(params, x, out_act, torch.bfloat16))
 
 
 @pytest.mark.parametrize("d_in,d_out,n_layers,width,skips,bias,out_act",
