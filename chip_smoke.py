@@ -80,7 +80,26 @@ Phases, each printing its own lines:
                   and its default mode (the alternative builds and folds
                   equal to the plain ones, B3/B4 bit-exact), gather_probe at
                   2^18 rows (P1 at every depth) and profile_step --iters 3;
-                  P1-P4's launch counters must grow here.
+                  P1-P4's launch counters must grow here;
+ 12. sequence  -- the sequence-training path: a synthetic 16-camera capture
+                  with 3 timesteps written to a temporary directory at
+                  550x802 (downscale 2 of 1100x1604; images, alpha maps,
+                  16-bit depth maps, colour corrections, camera_params.json,
+                  utils/synthetic_capture.py), then the port's train CLI
+                  (scripts/train_nersemble.main) at the flagship defaults for
+                  49 steps with the schedule windows compressed into the run
+                  and eval batch / eval image / all eval images at steps 16 /
+                  32 / 48, then resumed to step 53. Losses must be finite and
+                  fall, the eval PSNR and SSIM finite (SSIM in [0, 1]), the
+                  four train-path kernels' counters grow, metrics.jsonl hold
+                  the JAX loop's keys at every step, the run hold exactly one
+                  checkpoint and a config.yml that reads back equal, the
+                  resumed run start at step 49 with the saved budget, and
+                  steps 41-47 (no log, eval, save or device read) run under
+                  torch.cuda.set_sync_debug_mode("error"). Prints the loop's
+                  ms/step over those steps beside the train phase's, the
+                  batch wait and copy seconds, the budget, each eval kind's
+                  seconds, checkpoint save and load seconds and peak memory.
 Then one JSON line with the eight kernels (launches on their path, times,
 the bound and the library call's time), and the last line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
@@ -130,6 +149,40 @@ TRAIN_RANGES = ("train:forward", "render:march", "render:field",
 TRAIN_REF_TOL = {"loss_rtol": 1e-3, "rtol": 1e-2, "atol": 2e-3,
                  "table_atol": 2.0 ** -6}
 COPY_ROUNDS = 3  # P2 and clone() timed in turns
+# the sequence phase: the train CLI at its flagship defaults on a synthetic
+# capture, 49 steps with the schedule windows inside the run, resumed to 53
+SEQ_NAME, SEQ_PARTICIPANT, SEQ_SEQUENCE = "seq", 30, "SYN-SEQ"
+SEQ_STEPS, SEQ_RESUMED_STEPS = 49, 53
+SEQ_ORIGINAL_SIZE = (1100, 1604)  # stored at downscale 2: 550x802
+SEQ_CADENCE = {"log": 10, "eval_batch": 16, "eval_image": 32, "eval_all": 48}
+SEQ_ARGS = [str(SEQ_PARTICIPANT), SEQ_SEQUENCE,
+            "--window-deform-end", "24", "--window-hash-encodings-begin", "8",
+            "--window-hash-encodings-end", "40",
+            "--steps-per-eval-batch", str(SEQ_CADENCE["eval_batch"]),
+            "--steps-per-eval-image", str(SEQ_CADENCE["eval_image"]),
+            "--steps-per-eval-all-images", str(SEQ_CADENCE["eval_all"]),
+            "--steps-per-save", "1000"]
+SEQ_QUIET = (41, 47)  # steps off every cadence: log, evals, save, budget, grid
+SEQ_EVALS = ("_eval_batch", "_eval_image", "_train_image", "_eval_all_images",
+             "save_run_checkpoint")
+# the keys the JAX trainer's loop writes (nersemble_tpu/engine/trainer.py
+# :562-602, 620-927), by cadence
+SEQ_LOG_KEYS = {"train_loss", "train_psnr", "rays_per_sec", "samples_per_batch",
+                "dropped_samples_per_batch", "budget_dropped_per_batch",
+                "loss/rgb_loss", "loss/alpha_loss", "loss/empty_loss",
+                "loss/near_loss", "loss/depth_loss", "loss/dist_loss",
+                "lr/fields", "lr/deformation_field", "lr/embeddings",
+                "window_param/window_deform", "window_param/window_hash",
+                "window_param/eps_depth", "memory/gib_in_use",
+                "memory/peak_gib_in_use", "memory/gib_limit"}
+SEQ_PARAM_KEYS = {"params/field", "params/deformation", "params/time_embedding",
+                  "params/time_embedding_deformation", "params/total"}
+SEQ_EVAL_IMAGE_KEYS = {f"eval_image_{k}{m}" for k in ("psnr", "ssim", "mse")
+                       for m in ("", "_masked")} | {"train_image_psnr"}
+SEQ_EVAL_ALL_KEYS = ({"eval_all_psnr", "eval_all_ssim", "eval_all_psnr_masked",
+                      "eval_all_ssim_masked", "eval_all_mse_masked"}
+                     | {f"eval_cam{c}_psnr" for c in (3, 6, 11, 15)}
+                     | {f"eval_t{t}_psnr" for t in range(3)})
 
 
 def log(phase: str, msg: str) -> None:
@@ -709,6 +762,212 @@ def diagnostics_phase() -> dict:
     return launches
 
 
+def seq_expected_keys(step: int, first: int, last: int) -> set:
+    """The metrics.jsonl keys of ``step`` in a run of steps [first, last]
+    with SEQ_ARGS' cadences (a budget change may add sample_budget)."""
+    keys = set(SEQ_PARAM_KEYS) if step == first else set()
+    if step % SEQ_CADENCE["log"] == 0 or step == last:
+        keys |= SEQ_LOG_KEYS
+    if step > 0 and step % SEQ_CADENCE["eval_batch"] == 0:
+        keys |= {"eval_psnr", "eval_mse"}
+    if step > 0 and step % SEQ_CADENCE["eval_image"] == 0:
+        keys |= SEQ_EVAL_IMAGE_KEYS
+    if step > 0 and step % SEQ_CADENCE["eval_all"] == 0:
+        keys |= SEQ_EVAL_ALL_KEYS
+    if step == last:
+        keys.add("checkpoint_save_seconds")
+    return keys
+
+
+class SeqMonitor:
+    """The train CLI's step hook: records the run's first step, config and
+    budget per step, times each eval kind and the checkpoint saves (with a
+    synchronize before, outside the quiet window), and runs the quiet steps
+    under torch.cuda.set_sync_debug_mode("error") between two synchronizes."""
+
+    def __init__(self):
+        self.trainer = None
+        self.first_step = self.start_budget = None
+        self.budgets = {}
+        self.seconds = collections.defaultdict(list)
+        self.quiet_ms = None
+        self.batch_wait = None
+
+    def _timed(self, name, fn):
+        import torch
+
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[name].append(time.perf_counter() - start)
+            return out
+        return run
+
+    def __call__(self, trainer, step: int, phase: str) -> None:
+        import torch
+        if self.trainer is None:
+            self.trainer, self.first_step = trainer, step
+            self.start_budget = trainer._budget
+            for name in SEQ_EVALS:
+                setattr(trainer, name, self._timed(name, getattr(trainer, name)))
+        if phase == "begin":
+            self.budgets[step] = trainer._budget
+        if phase == "begin" and step == SEQ_QUIET[0]:
+            torch.cuda.synchronize()
+            self._quiet = (time.perf_counter(), trainer.batches.wait_s,
+                           trainer.batches.copy_s)
+            torch.cuda.set_sync_debug_mode("error")
+        if phase == "end" and step == SEQ_QUIET[1]:
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            start, wait_s, copy_s = self._quiet
+            n = SEQ_QUIET[1] - SEQ_QUIET[0] + 1
+            self.quiet_ms = (time.perf_counter() - start) * 1e3 / n
+            self.batch_wait = (trainer.batches.wait_s - wait_s,
+                               trainer.batches.copy_s - copy_s)
+
+
+def read_metrics(path) -> dict:
+    """metrics.jsonl -> {step: {key: value}} (a step's records merged)."""
+    steps = collections.defaultdict(dict)
+    for line in path.read_text().splitlines():
+        record = json.loads(line)
+        steps[record.pop("step")].update(record)
+    return steps
+
+
+def sequence_phase(train_step_ms: float) -> None:
+    """The sequence-training path through the train CLI (phase 12)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from nersemble_tpu_torch import env
+    from nersemble_tpu_torch.config import TrainConfig
+    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+    from nersemble_tpu_torch.scripts import train_nersemble
+    from nersemble_tpu_torch.utils.synthetic_capture import write_capture
+
+    root = Path(tempfile.mkdtemp(prefix="nersemble_sequence_"))
+    saved_env = (env.NERSEMBLE_DATA_PATH, env.NERSEMBLE_MODELS_PATH)
+    try:
+        start = time.perf_counter()
+        meta = write_capture(root / "data", SEQ_PARTICIPANT, SEQ_SEQUENCE,
+                             n_timesteps=3, original_size=SEQ_ORIGINAL_SIZE)
+        log("sequence", f"synthetic capture: 16 cameras x 3 timesteps at "
+                        f"{meta['image_size'][0]}x{meta['image_size'][1]} written "
+                        f"in {time.perf_counter() - start:.1f} s")
+        env.NERSEMBLE_DATA_PATH = str(root / "data")
+        env.NERSEMBLE_MODELS_PATH = str(root / "models")
+        run_dir = root / "models" / "nersemble" / f"NERS-001-{SEQ_NAME}"
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fused_mlp.LAUNCHES = fused_mlp.BWD_LAUNCHES = 0
+        quad_kernel.LAUNCHES = quad_kernel.FOLD_LAUNCHES = 0
+        monitor = SeqMonitor()
+        start = time.perf_counter()
+        train_nersemble.main(SEQ_ARGS + ["--name", SEQ_NAME, "--max-num-iterations",
+                                         str(SEQ_STEPS)], step_hook=monitor)
+        run_s = time.perf_counter() - start
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {"fused_mlp_fwd": fused_mlp.LAUNCHES,
+                    "fused_mlp_bwd": fused_mlp.BWD_LAUNCHES,
+                    "quad_build": quad_kernel.LAUNCHES,
+                    "quad_fold": quad_kernel.FOLD_LAUNCHES}
+        trainer = monitor.trainer
+        metrics = read_metrics(run_dir / "metrics.jsonl")
+        ckpts = sorted((run_dir / "checkpoints").glob("step-*.ckpt"))
+        saved_config = TrainConfig.load(run_dir / "config.yml")
+        config_equal = saved_config.to_dict() == trainer.train_config.to_dict()
+        with np.load(ckpts[-1]) as ckpt:
+            saved_budget = int(ckpt["extra/sample_budget"])
+        budget_changes = [(s, b) for s, b in sorted(monitor.budgets.items())
+                          if s > monitor.first_step and b != monitor.budgets[s - 1]]
+        losses = [(s, m["train_loss"]) for s, m in sorted(metrics.items())
+                  if "train_loss" in m]
+        wait_s, copy_s = monitor.batch_wait
+        log("sequence", f"{SEQ_STEPS} steps through the train CLI in {run_s:.1f} s: "
+                        f"loop {monitor.quiet_ms:.1f} ms/step over steps "
+                        f"{SEQ_QUIET[0]}-{SEQ_QUIET[1]} (no log, eval, save or "
+                        f"device read; train phase {train_step_ms:.1f} ms/step "
+                        f"through run_step at budget 73,728), batch wait "
+                        f"{wait_s:.4f} s and copy {copy_s:.4f} s over those steps "
+                        f"({trainer.batches.wait_s:.3f} s / "
+                        f"{trainer.batches.copy_s:.3f} s over the run)")
+        log("sequence", f"budget {monitor.start_budget} at step {monitor.first_step}, "
+                        f"{trainer._budget} at the end, changes {budget_changes}; "
+                        f"chunk cap {trainer.config.max_n_samples_per_batch}; "
+                        f"peak memory {peak_gib:.2f} GiB; launches {launches}")
+        for name in SEQ_EVALS:
+            log("sequence", f"{name}: seconds {[round(x, 3) for x in monitor.seconds[name]]}")
+        log("sequence", f"train_loss by logged step {[(s, round(v, 6)) for s, v in losses]}; "
+                        f"eval_all psnr {metrics[48]['eval_all_psnr']:.3f} ssim "
+                        f"{metrics[48]['eval_all_ssim']:.4f}; checkpoints "
+                        f"{[p.name for p in ckpts]} ({ckpts[-1].stat().st_size / 2**30:.2f} "
+                        f"GiB), config.yml reads back equal: {config_equal}")
+        if not all(math.isfinite(v) for _, v in losses) or not losses[-1][1] < losses[0][1]:
+            raise AssertionError(f"losses not finite or not falling: {losses}")
+        psnr, ssim = metrics[48]["eval_all_psnr"], metrics[48]["eval_all_ssim"]
+        if not (math.isfinite(psnr) and 0.0 <= ssim <= 1.0):
+            raise AssertionError(f"eval_all psnr {psnr}, ssim {ssim}")
+        for kernel, count in launches.items():
+            if count <= 0:
+                raise AssertionError(f"the sequence path never launched {kernel}")
+        for step in range(SEQ_STEPS):
+            keys = set(metrics.get(step, {})) - {"wall", "sample_budget"}
+            want = seq_expected_keys(step, 0, SEQ_STEPS - 1)
+            if keys != want:
+                raise AssertionError(f"metrics.jsonl step {step}: missing "
+                                     f"{sorted(want - keys)}, extra {sorted(keys - want)}")
+        if [p.name for p in ckpts] != [f"step-{SEQ_STEPS - 1:09d}.ckpt"]:
+            raise AssertionError(f"checkpoints {ckpts}")
+        if not config_equal:
+            raise AssertionError("config.yml does not read back equal")
+        if monitor.quiet_ms is None:
+            raise AssertionError("the quiet steps never ran")
+        del trainer, monitor
+        torch.cuda.empty_cache()
+
+        fused_mlp.LAUNCHES = fused_mlp.BWD_LAUNCHES = 0
+        quad_kernel.LAUNCHES = quad_kernel.FOLD_LAUNCHES = 0
+        resumed = SeqMonitor()
+        start = time.perf_counter()
+        train_nersemble.main(SEQ_ARGS[:2] + ["--resume-run", f"NERS-001-{SEQ_NAME}",
+                                             "--max-num-iterations", str(SEQ_RESUMED_STEPS)],
+                             step_hook=resumed)
+        metrics = read_metrics(run_dir / "metrics.jsonl")
+        ckpts = sorted((run_dir / "checkpoints").glob("step-*.ckpt"))
+        log("sequence", f"resumed at step {resumed.first_step} with budget "
+                        f"{resumed.start_budget} (saved {saved_budget}) to step "
+                        f"{SEQ_RESUMED_STEPS - 1} in {time.perf_counter() - start:.1f} s; "
+                        f"checkpoint save {metrics[SEQ_STEPS - 1]['checkpoint_save_seconds']:.1f} s "
+                        f"({resumed.seconds['save_run_checkpoint']}), load "
+                        f"{resumed.trainer.checkpoint_load_s:.1f} s; train_loss "
+                        f"{[(s, round(metrics[s]['train_loss'], 6)) for s in (50, 52)]}; "
+                        f"checkpoints {[p.name for p in ckpts]}; launches "
+                        f"{fused_mlp.LAUNCHES, fused_mlp.BWD_LAUNCHES, quad_kernel.LAUNCHES, quad_kernel.FOLD_LAUNCHES}")
+        if resumed.first_step != SEQ_STEPS or resumed.start_budget != saved_budget:
+            raise AssertionError(f"resumed at step {resumed.first_step} with budget "
+                                 f"{resumed.start_budget}, saved {saved_budget}")
+        for step in range(SEQ_STEPS, SEQ_RESUMED_STEPS):
+            keys = set(metrics.get(step, {})) - {"wall", "sample_budget"}
+            want = seq_expected_keys(step, SEQ_STEPS, SEQ_RESUMED_STEPS - 1)
+            if keys != want:
+                raise AssertionError(f"resumed metrics.jsonl step {step}: missing "
+                                     f"{sorted(want - keys)}, extra {sorted(keys - want)}")
+        if [p.name for p in ckpts] != [f"step-{SEQ_RESUMED_STEPS - 1:09d}.ckpt"]:
+            raise AssertionError(f"checkpoints after the resume {ckpts}")
+    finally:
+        env.NERSEMBLE_DATA_PATH, env.NERSEMBLE_MODELS_PATH = saved_env
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -850,6 +1109,9 @@ def main() -> None:
 
     # ---- 11. diagnostics: the measurement scripts --------------------------------
     launches = {**train_launches, **diagnostics_phase()}
+
+    # ---- 12. sequence: the train CLI on a capture on disk -------------------------
+    sequence_phase(train_step_ms)
 
     sources = {
         "fused_mlp_fwd": ("fused_mlp_fwd.cu", "nersemble_tpu/ops/fused_mlp.py:71"),

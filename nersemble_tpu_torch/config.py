@@ -1,20 +1,303 @@
-"""Model and optimizer configuration dataclasses (subset of nersemble_tpu.config).
+"""Configuration dataclasses with a YAML round trip (port of
+nersemble_tpu/config.py).
 
 Same class names, field names and defaults as the JAX package's
 ``nersemble_tpu/config.py`` so a config can be carried across field by field
-(tests/test_torch_imports.py checks the defaults). No YAML: the port's
-package must import without ``yaml``. The reasoning behind each sampling
-lever is documented once, in the JAX config.
+(tests/test_torch_imports.py checks the defaults), and the same
+``config.yml`` files: ``ConfigBase.to_yaml`` writes the block subset that
+``yaml.safe_dump(sort_keys=False)`` writes for these dataclasses (nested
+mappings, block sequences, null, booleans, ints, floats, quoted strings,
+``__config__``) and ``from_yaml`` reads it back, without PyYAML. PyYAML
+follows YAML 1.1, which reads ``1e-15`` as a string, so every float is
+written with a ``.`` (``1.0e-15``), as PyYAML writes it. The reasoning
+behind each sampling lever is documented once, in the JAX config.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import math
+import re
+import typing
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# YAML: the block subset of yaml.safe_dump, both ways
+# ---------------------------------------------------------------------------
+
+# YAML 1.1's core resolvers, as PyYAML applies them to plain scalars
+_NULL = {"", "~", "null", "Null", "NULL"}
+_TRUE = {"yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"}
+_FALSE = {"no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF"}
+_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|\.[0-9_]+(?:[eE][-+][0-9]+)?"
+                    r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
+
+
+def _yaml_scalar(value) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if math.isnan(value):
+            return ".nan"
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value).lower()
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e")
+        return text
+    if isinstance(value, str):
+        if "\n" in value:
+            raise ValueError(f"multi-line string {value!r}")
+        return "'" + value.replace("'", "''") + "'"
+    raise TypeError(f"no YAML form for {type(value).__name__} {value!r}")
+
+
+def _yaml_lines(node, indent: int) -> List[str]:
+    """Block lines of a mapping or a sequence: a mapping's sequences sit at
+    the mapping's indent and nested collections start on their ``- `` line,
+    as PyYAML writes them."""
+    pad = " " * indent
+    lines = []
+    items = node.items() if isinstance(node, dict) else [(None, v) for v in node]
+    for key, value in items:
+        lead = f"{pad}- " if key is None else f"{pad}{key}:"
+        if isinstance(value, (dict, list)) and value:
+            if key is None:  # the child's first line shares the "- " line
+                child = _yaml_lines(value, indent + 2)
+                lines.append(lead + child[0].lstrip(" "))
+                lines.extend(child[1:])
+            else:
+                lines.append(lead)
+                lines.extend(_yaml_lines(value, indent + (2 if isinstance(value, dict) else 0)))
+        else:
+            text = ("{}" if isinstance(value, dict) else "[]") \
+                if isinstance(value, (dict, list)) else _yaml_scalar(value)
+            lines.append(lead + ("" if key is None else " ") + text)
+    return lines
+
+
+def dump_yaml(data: dict) -> str:
+    return "\n".join(_yaml_lines(data, 0)) + "\n"
+
+
+def _resolve_scalar(text: str):
+    if text[:1] == "'":
+        return text[1:-1].replace("''", "'")
+    if text[:1] == '"':
+        return json.loads(text)
+    if text in _NULL:
+        return None
+    if text in _TRUE:
+        return True
+    if text in _FALSE:
+        return False
+    if _INT.match(text):
+        return int(text.replace("_", ""))
+    if _FLOAT.match(text):
+        low = text.lower().replace("_", "")
+        if low.endswith("inf"):
+            return -math.inf if low.startswith("-") else math.inf
+        return math.nan if low.endswith("nan") else float(low)
+    if text == "{}":
+        return {}
+    if text == "[]":
+        return []
+    return text
+
+
+def _split_key(content: str):
+    """``key: rest`` -> (key, rest), or None when the line is no mapping entry."""
+    if content[:1] in "'\"":
+        end = content.index(content[0], 1)
+        key, tail = _resolve_scalar(content[:end + 1]), content[end + 1:]
+    else:
+        match = re.match(r"([^:#]*?):(?:\s|$)", content)
+        if not match:
+            return None
+        key, tail = match.group(1), content[len(match.group(1)):]
+    if not tail.startswith(":") or (len(tail) > 1 and tail[1] != " "):
+        return None
+    return key, tail[1:].strip()
+
+
+class _YamlReader:
+    def __init__(self, text: str):
+        self.lines = []
+        for raw in text.splitlines():
+            stripped = raw.strip()
+            if not stripped or stripped.startswith("#") or stripped in ("---", "..."):
+                continue
+            self.lines.append([len(raw) - len(raw.lstrip(" ")), stripped])
+        self.i = 0
+
+    def _is_item(self, i: int, indent: int) -> bool:
+        ind, content = self.lines[i]
+        return ind == indent and (content == "-" or content.startswith("- "))
+
+    def node(self, indent: int):
+        if self._is_item(self.i, indent):
+            return self.sequence(indent)
+        return self.mapping(indent)
+
+    def _scalar(self, text: str, indent: int):
+        """``text`` plus the continuation lines deeper than ``indent`` (a
+        long scalar folded by the writer)."""
+        parts = [text]
+        while self.i < len(self.lines) and self.lines[self.i][0] > indent:
+            parts.append(self.lines[self.i][1])
+            self.i += 1
+        return _resolve_scalar(" ".join(parts))
+
+    def _nested(self, indent: int, rest: str):
+        """The value of an entry whose own line held ``rest``."""
+        if rest:
+            return self._scalar(rest, indent)
+        if self.i < len(self.lines):
+            ind = self.lines[self.i][0]
+            if ind > indent or self._is_item(self.i, indent):
+                return self.node(ind)
+        return None
+
+    def sequence(self, indent: int):
+        out = []
+        while self.i < len(self.lines) and self._is_item(self.i, indent):
+            content = self.lines[self.i][1]
+            rest = content[1:].lstrip(" ")
+            if not rest:
+                self.i += 1
+                out.append(self._nested(indent, ""))
+            elif rest.startswith("- ") or rest == "-" or _split_key(rest):
+                # a collection opened on the "- " line: re-read the rest as
+                # a line of its own at the column where it starts
+                self.lines[self.i] = [indent + len(content) - len(rest), rest]
+                out.append(self.node(self.lines[self.i][0]))
+            else:
+                self.i += 1
+                out.append(self._scalar(rest, indent))
+        return out
+
+    def mapping(self, indent: int):
+        out = {}
+        while self.i < len(self.lines) and self.lines[self.i][0] == indent \
+                and not self._is_item(self.i, indent):
+            entry = _split_key(self.lines[self.i][1])
+            if entry is None:
+                raise ValueError(f"YAML line {self.lines[self.i][1]!r} is not "
+                                 f"a mapping entry")
+            key, rest = entry
+            self.i += 1
+            out[key] = self._nested(indent, rest)
+        return out
+
+
+def load_yaml(text: str):
+    reader = _YamlReader(text)
+    if not reader.lines:
+        return None
+    data = reader.node(reader.lines[0][0])
+    if reader.i != len(reader.lines):
+        raise ValueError(f"YAML line {reader.lines[reader.i][1]!r} is out of place")
+    return data
+
+
+# ---------------------------------------------------------------------------
+# dataclass <-> dict (nersemble_tpu/config.py:21-102)
+# ---------------------------------------------------------------------------
+
+def _unwrap_optional(tp):
+    origin = typing.get_origin(tp)
+    if origin is typing.Union:
+        args = [a for a in typing.get_args(tp) if a is not type(None)]
+        if len(args) == 1:
+            return args[0], True
+    return tp, False
+
+
+def _encode(value):
+    if dataclasses.is_dataclass(value):
+        return {f.name: _encode(getattr(value, f.name)) for f in dataclasses.fields(value)}
+    if isinstance(value, dict):
+        return {k: _encode(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_encode(v) for v in value]
+    if isinstance(value, Path):
+        return str(value)
+    return value
+
+
+def _decode(tp, value):
+    tp, _ = _unwrap_optional(tp)
+    if value is None:
+        return None
+    if dataclasses.is_dataclass(tp):
+        kwargs = {}
+        hints = typing.get_type_hints(tp)
+        for f in dataclasses.fields(tp):
+            if f.name in value:
+                kwargs[f.name] = _decode(hints[f.name], value[f.name])
+        return tp(**kwargs)
+    origin = typing.get_origin(tp)
+    if origin in (list, List):
+        (item_tp,) = typing.get_args(tp) or (typing.Any,)
+        return [_decode(item_tp, v) for v in value]
+    if origin in (tuple, Tuple):
+        args = typing.get_args(tp)
+        if len(args) == 2 and args[1] is Ellipsis:
+            return tuple(_decode(args[0], v) for v in value)
+        if args:
+            return tuple(_decode(a, v) for a, v in zip(args, value))
+        return tuple(value)
+    if origin in (dict, Dict):
+        args = typing.get_args(tp)
+        val_tp = args[1] if len(args) == 2 else typing.Any
+        return {k: _decode(val_tp, v) for k, v in value.items()}
+    if tp is Path:
+        return Path(value)
+    return value
+
+
+class ConfigBase:
+    """Mixin giving dataclass configs dict/YAML round-trip."""
+
+    def to_dict(self) -> dict:
+        return _encode(self)
+
+    @classmethod
+    def from_dict(cls, data: dict):
+        return _decode(cls, data)
+
+    def to_yaml(self) -> str:
+        return dump_yaml({"__config__": type(self).__name__, **self.to_dict()})
+
+    @classmethod
+    def from_yaml(cls, text: str):
+        data = load_yaml(text)
+        data.pop("__config__", None)
+        return cls.from_dict(data)
+
+    def save(self, path) -> None:
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text(self.to_yaml())
+
+    @classmethod
+    def load(cls, path):
+        return cls.from_yaml(Path(path).read_text())
+
+    def replace(self, **kwargs):
+        return dataclasses.replace(self, **kwargs)
 
 
 @dataclass
-class HashEncodingConfig:
+class HashEncodingConfig(ConfigBase):
     """One multiresolution hash encoding."""
 
     n_levels: int = 16
@@ -26,7 +309,7 @@ class HashEncodingConfig:
 
 
 @dataclass
-class HashEnsembleConfig:
+class HashEnsembleConfig(ConfigBase):
     """Ensemble of hash encodings blended by a per-timestep latent code."""
 
     n_hash_encodings: int = 32
@@ -36,7 +319,7 @@ class HashEnsembleConfig:
 
 
 @dataclass
-class SE3DeformationFieldConfig:
+class SE3DeformationFieldConfig(ConfigBase):
     """SE(3) warp field."""
 
     n_freq_pos: int = 7
@@ -47,7 +330,7 @@ class SE3DeformationFieldConfig:
 
 
 @dataclass
-class SamplingConfig:
+class SamplingConfig(ConfigBase):
     """Fixed-shape occupancy-grid ray marching and its eval levers."""
 
     max_samples_per_ray: int = 256
@@ -68,7 +351,7 @@ class SamplingConfig:
 
 
 @dataclass
-class ModelConfig:
+class ModelConfig(ConfigBase):
     """Dynamic-NeRF model config."""
 
     n_timesteps: int = 1
@@ -145,7 +428,7 @@ class ModelConfig:
 
 
 @dataclass
-class OptimizerConfig:
+class OptimizerConfig(ConfigBase):
     """Adam + StepLR of one parameter group."""
 
     lr: float = 5e-3
@@ -162,6 +445,78 @@ def default_optimizers() -> Dict[str, OptimizerConfig]:
         "deformation_field": OptimizerConfig(lr=1e-3, scheduler_gamma=0.5),
         "embeddings": OptimizerConfig(lr=5e-3, scheduler_gamma=0.8),
     }
+
+
+@dataclass
+class DataConfig(ConfigBase):
+    """Dataset + ray batching config."""
+
+    participant_id: int = -1
+    sequence_name: str = ""
+    n_timesteps: int = 1
+    n_cameras: int = 12
+    skip_timesteps: int = 1
+    start_timestep: int = 0
+    max_eval_timesteps: int = 3
+    downscale_factor: int = 2
+    scale_factor: float = 1.0
+
+    foreground_only: bool = True
+    use_view_frustum_culling: bool = True
+    use_depth_maps: bool = False
+    use_color_correction: bool = True
+    use_alpha_maps: bool = False
+    alpha_channel_color: str = "white"
+
+    train_num_rays_per_batch: int = 4096
+    eval_num_rays_per_batch: int = 1024
+    train_num_images_to_sample_from: int = 24
+    train_num_times_to_repeat_images: int = 20
+    max_cached_items: int = 10000
+    use_cache_compression: bool = False
+
+
+@dataclass
+class ParallelConfig(ConfigBase):
+    """Device-mesh layout of the JAX package. The port runs on one device:
+    only ``data_axis_size`` -1 or 1 is accepted (ROADMAP A6); the sharding
+    fields are kept so that a ``config.yml`` reads back equal."""
+
+    data_axis_size: int = -1
+    shard_hash_tables: bool = False
+    shard_table_optimizer: bool = True
+    shard_table_params: bool = True
+
+
+@dataclass
+class TrainConfig(ConfigBase):
+    """Top-level training config (the ``config.yml`` of a run folder)."""
+
+    run_name: str = ""
+    experiment_name: str = ""
+    method_name: str = "nersemble"
+    project_name: str = "nersemble"
+    output_dir: str = ""
+
+    max_num_iterations: int = 300001
+    steps_per_save: int = 50000
+    steps_per_eval_batch: int = 500
+    steps_per_eval_image: int = 20000
+    steps_per_eval_all_images: int = 50000
+    steps_per_log: int = 10
+    save_only_latest_checkpoint: bool = True
+    seed: int = 19980801
+    vis: str = "csv"  # csv | tensorboard | none (viewer: not ported yet)
+    viewer_port: int = 7007
+
+    data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optimizers: Dict[str, OptimizerConfig] = field(default_factory=default_optimizers)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+
+    # Resume
+    load_dir: Optional[str] = None
+    load_step: Optional[int] = None
 
 
 def flagship_model_config(tiny: bool = False) -> ModelConfig:

@@ -123,9 +123,11 @@ def save_checkpoint(path, step: int, params: ParamTree, opt_state: AdamState,
     os.replace(tmp, path)
 
 
-def _read(path) -> Dict[str, np.ndarray]:
+def _read(path, skip: Optional[str] = None) -> Dict[str, np.ndarray]:
+    """The arrays of a checkpoint, but those under the prefix ``skip``."""
     with np.load(Path(path), allow_pickle=False) as data:
-        return {k: data[k] for k in data.files}
+        return {k: data[k] for k in data.files
+                if skip is None or not k.startswith(skip)}
 
 
 def _extra(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -133,16 +135,19 @@ def _extra(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
             if k.startswith("extra/") and "__" not in k}
 
 
-def load_checkpoint(path, device="cuda") -> Tuple[int, ParamTree, AdamState,
-                                                  torch.Tensor, Dict]:
+def load_checkpoint(path, device="cuda", load_opt: bool = True
+                    ) -> Tuple[int, ParamTree, Optional[AdamState],
+                               torch.Tensor, Dict]:
     """A checkpoint of either package -> (step, params, opt_state,
-    grid_occs, extra)."""
+    grid_occs, extra); ``opt_state`` is None unless ``load_opt`` (an
+    evaluation never reads the Adam moments)."""
     device = resolve_device(device)
-    flat = _read(path)
+    flat = _read(path, skip=None if load_opt else "opt_state/")
     grid_occs = torch.from_numpy(
         np.asarray(flat["grid_occs"], np.float32)).to(device)
-    return (int(flat["step"]), params_from_numpy(flat, device),
-            opt_state_from_numpy(flat, device), grid_occs, _extra(flat))
+    opt_state = opt_state_from_numpy(flat, device) if load_opt else None
+    return (int(flat["step"]), params_from_numpy(flat, device), opt_state,
+            grid_occs, _extra(flat))
 
 
 def load_jax_checkpoint(path, device="cuda") -> Tuple[ParamTree, torch.Tensor, Dict]:
@@ -153,3 +158,14 @@ def load_jax_checkpoint(path, device="cuda") -> Tuple[ParamTree, torch.Tensor, D
     grid_occs = torch.from_numpy(
         np.asarray(flat["grid_occs"], np.float32)).to(device)
     return params_from_numpy(flat, device), grid_occs, _extra(flat)
+
+
+def prune_old_checkpoints(folder, keep_step: int) -> None:
+    """Delete every ``step-*.ckpt`` in ``folder`` but ``keep_step``'s
+    (``save_only_latest_checkpoint``)."""
+    folder = Path(folder)
+    if not folder.exists():
+        return
+    for p in folder.glob("step-*.ckpt"):
+        if int(p.stem.split("-")[1]) != keep_step:
+            p.unlink()

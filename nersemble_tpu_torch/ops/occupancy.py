@@ -11,10 +11,14 @@ jittered inside its cell and evaluated at a random timestep, and
 
 The random draws (``OccupancyDraws``) can be passed in, so tests can feed
 the JAX package's draws; otherwise a ``torch.Generator`` makes them.
+
+``frustum_culling_grid`` is the host-side precompute of the mask that the
+trainer passes to ``binaries`` as its frustum grid.
 """
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -116,3 +120,21 @@ def update_occupancy_grid(occs: torch.Tensor, occ_eval_fn: Callable,
     candidates = torch.maximum(occs[idx] * ema_decay, occ_new)
     return occs.scatter_reduce(0, idx, candidates, reduce="amax",
                                include_self=False)
+
+
+def frustum_culling_grid(camera_frustums, resolution: int,
+                         aabb_min: np.ndarray, aabb_max: np.ndarray,
+                         min_cameras: int) -> np.ndarray:
+    """[G, G, G] bool, True where a voxel corner point (linspace over the
+    box, as the reference's sampler does) is inside at least ``min_cameras``
+    training-camera view frustums (``data.cameras.Frustum``)."""
+    g = resolution
+    xs = np.linspace(aabb_min[0], aabb_max[0], g)
+    ys = np.linspace(aabb_min[1], aabb_max[1], g)
+    zs = np.linspace(aabb_min[2], aabb_max[2], g)
+    gx, gy, gz = np.meshgrid(xs, ys, zs, indexing="ij")
+    points = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
+    count = np.zeros(points.shape[0], dtype=np.int32)
+    for frustum in camera_frustums:
+        count += frustum.contains_points(points).astype(np.int32)
+    return (count >= min_cameras).reshape(g, g, g)

@@ -1,2 +1,3 @@
-"""Measurement scripts of the port: each is a module run as
-``python -m nersemble_tpu_torch.scripts.<name>`` on the GPU."""
+"""Scripts of the port, each a module run as
+``python -m nersemble_tpu_torch.scripts.<name>``: the train CLI
+(``train_nersemble``) and the measurement scripts (on the GPU)."""

@@ -1,13 +1,16 @@
-"""The port imports without JAX or YAML, its configs equal the JAX ones, and
+"""The port imports without JAX, YAML or the imaging and plotting packages
+(the card's Python has none of them), its configs equal the JAX ones, and
 structural rules hold in its sources (no bitcast carriers, no host syncs in
-the training step)."""
+the training step and in the loop's steps outside its cadences)."""
 
+import ast
 import dataclasses
 import inspect
 import pkgutil
 import re
 import subprocess
 import sys
+import textwrap
 
 import pytest
 from torch_parity import REPO
@@ -26,12 +29,17 @@ def _submodules():
         nersemble_tpu_torch.__path__, "nersemble_tpu_torch."))
 
 
+# packages the JAX package uses that the card's Python does not have
+BLOCKED = ("jax", "yaml", "imageio", "PIL", "matplotlib", "cv2")
+
+
 def test_imports_without_jax_and_yaml():
     names = _submodules()
     assert "nersemble_tpu_torch.models.nersemble" in names
+    assert "nersemble_tpu_torch.scripts.train_nersemble" in names
     code = ("import sys\n"
-            "sys.modules['jax'] = None\n"
-            "sys.modules['yaml'] = None\n"
+            f"for blocked in {BLOCKED!r}:\n"
+            "    sys.modules[blocked] = None\n"
             "import importlib\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
@@ -46,8 +54,8 @@ def test_imports_without_jax_and_yaml():
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|yaml|nersemble_tpu)\b",
-                         re.MULTILINE)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|yaml|imageio|PIL|matplotlib|cv2"
+                         r"|nersemble_tpu)\b", re.MULTILINE)
     offenders = [str(p) for p in PACKAGE.rglob("*.py")
                  if pattern.search(p.read_text())]
     assert offenders == []
@@ -115,7 +123,8 @@ TRAIN_PATH = ["models/nersemble.py", "models/field.py", "models/deformation.py",
               "ops/sampling.py", "ops/occupancy.py", "ops/rendering.py",
               "ops/losses.py", "ops/distortion.py", "ops/trunc_exp.py",
               "ops/sh.py", "engine/optimizers.py", "utils/se3.py",
-              "utils/windows.py", "utils/metrics.py", "utils/device.py"]
+              "utils/windows.py", "utils/metrics.py", "utils/device.py",
+              "data/ray_batcher.py"]
 HOST_SYNC = re.compile(r"\.(item|cpu|numpy)\(")
 
 
@@ -133,3 +142,43 @@ def test_no_host_sync_in_the_train_step():
         assert not HOST_SYNC.search(source), method
         assert not re.search(r"\b(float|int|bool)\(", source), method
     assert "float(aux" in inspect.getsource(NeRSembleTrainer._maybe_adapt_budget)
+
+
+# the loop's methods that read device values; ``train`` may call them only
+# inside a cadence branch (an ``if`` on ``step % ...``) or after the loop
+CADENCE_READERS = {"_log", "_eval_batch", "_eval_image", "_train_image",
+                   "_eval_all_images", "save_run_checkpoint"}
+
+
+def test_no_host_sync_in_the_loop_outside_its_cadences():
+    """The loop's steps that log, evaluate and save nothing make no
+    synchronizing call: the batch arrives through page-locked memory
+    (``DeviceBatches.__next__``), host draws through ``_on_device``, and
+    ``train`` reads device values only through CADENCE_READERS, each
+    called inside a cadence branch."""
+    from nersemble_tpu_torch.data.ray_batcher import DeviceBatches
+    from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
+    for fn in (DeviceBatches.__next__, NeRSembleTrainer._on_device,
+               NeRSembleTrainer.train):
+        source = inspect.getsource(fn)
+        assert not HOST_SYNC.search(source), fn.__name__
+        assert not re.search(r"\b(float|int|bool)\(", source), fn.__name__
+    assert "non_blocking=True" in inspect.getsource(DeviceBatches.__next__)
+    assert "pin_memory" in inspect.getsource(NeRSembleTrainer._on_device)
+
+    tree = ast.parse(textwrap.dedent(inspect.getsource(NeRSembleTrainer.train)))
+    (loop,) = [node for node in ast.walk(tree) if isinstance(node, ast.For)]
+    found = set()
+
+    def visit(node, in_cadence):
+        if isinstance(node, ast.If):
+            in_cadence = in_cadence or any(isinstance(n, ast.Mod) for n in ast.walk(node.test))
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) \
+                and node.func.attr in CADENCE_READERS:
+            assert in_cadence, f"{node.func.attr} outside a cadence branch"
+            found.add(node.func.attr)
+        for child in ast.iter_child_nodes(node):
+            visit(child, in_cadence)
+
+    visit(loop, False)
+    assert found == CADENCE_READERS

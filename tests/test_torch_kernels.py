@@ -5,6 +5,8 @@ and nvcc, and skips without them (the decision is made inside the fixture,
 never at import). On the card: ``python -m pytest -m cuda tests/``.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -412,3 +414,79 @@ def test_copy_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         copy_kernels.gather_rows_cuda(torch.randn(8, 128, device=cuda),  # 512 B rows
                                       torch.zeros(4, dtype=torch.int32, device=cuda))
+
+
+# the train CLI's tiny flags (tests/test_cli.py's smoke run)
+TINY_CLI = ["30", "SYN-1", "--n-train-rays", "64", "--num-levels", "4",
+            "--log2-hashmap-size", "9", "--max-res", "32", "--grid-resolution", "16",
+            "--n-hash-encodings", "4", "--latent-dim-time", "4",
+            "--latent-dim-time-deform", "8", "--mlp-num-layers", "2",
+            "--mlp-layer-width", "16", "--max-samples-per-ray", "24",
+            "--max-candidates-per-ray", "64", "--window-deform-end", "4",
+            "--window-hash-encodings-begin", "4", "--window-hash-encodings-end", "8",
+            "--steps-per-eval-image", "0", "--max-num-iterations", "8"]
+
+
+@pytest.fixture
+def capture(tmp_path, monkeypatch):
+    """A tiny synthetic capture, and the port's data and model roots in
+    ``tmp_path``."""
+    from nersemble_tpu_torch import env
+    from nersemble_tpu_torch.utils.synthetic_capture import write_capture
+    write_capture(tmp_path / "data", 30, "SYN-1", n_timesteps=3, original_size=(64, 88))
+    monkeypatch.setattr(env, "NERSEMBLE_DATA_PATH", str(tmp_path / "data"))
+    monkeypatch.setattr(env, "NERSEMBLE_MODELS_PATH", str(tmp_path / "models"))
+    return tmp_path
+
+
+def test_train_cli_on_cuda_matches_cpu(cuda, capture):
+    """The tiny train CLI run, 8 steps, on the card and on the CPU: the same
+    host draws, so the logged losses agree to chip_smoke.TRAIN_REF_TOL's
+    loss tolerance; the four train-path kernels launch on the card."""
+    from nersemble_tpu_torch.scripts import train_nersemble
+    cpu = train_nersemble.main(TINY_CLI + ["--device", "cpu", "--name", "cpu"])
+    before = (tfm.LAUNCHES, tfm.BWD_LAUNCHES, quad_kernel.LAUNCHES,
+              quad_kernel.FOLD_LAUNCHES)
+    gpu = train_nersemble.main(TINY_CLI + ["--name", "gpu"])
+    after = (tfm.LAUNCHES, tfm.BWD_LAUNCHES, quad_kernel.LAUNCHES,
+             quad_kernel.FOLD_LAUNCHES)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    losses = {}
+    for name in ("cpu", "gpu"):
+        path = capture / "models" / "nersemble" / f"NERS-00{1 + (name == 'gpu')}-{name}"
+        records = [json.loads(line) for line in (path / "metrics.jsonl").read_text().splitlines()]
+        losses[name] = {r["step"]: r["train_loss"] for r in records if "train_loss" in r}
+    assert set(losses["gpu"]) == set(losses["cpu"]) == {0, 7}
+    for step, ref in losses["cpu"].items():
+        assert losses["gpu"][step] == pytest.approx(
+            ref, rel=chip_smoke.TRAIN_REF_TOL["loss_rtol"]), (step, losses)
+    assert gpu["loss"] == pytest.approx(cpu["loss"], rel=chip_smoke.TRAIN_REF_TOL["loss_rtol"])
+
+
+def test_device_batches_through_pinned_slots(cuda, capture):
+    """More steps than the ring has slots: every batch on the card equals
+    ``batch_for_step`` after the slots were refilled under it."""
+    from nersemble_tpu_torch.config import DataConfig
+    from nersemble_tpu_torch.data.dataparser import NeRSembleDataParser
+    from nersemble_tpu_torch.data.dataset import NeRSembleDataset
+    from nersemble_tpu_torch.data.ray_batcher import DeviceBatches, RayBatcher
+    config = DataConfig(participant_id=30, sequence_name="SYN-1", n_timesteps=3,
+                        scale_factor=9.0, use_depth_maps=True,
+                        train_num_rays_per_batch=4096,
+                        train_num_times_to_repeat_images=3)
+    outputs = NeRSembleDataParser(config).generate_outputs("train")
+    batcher = RayBatcher(NeRSembleDataset(outputs, config), config, seed=5)
+    batches = DeviceBatches(batcher, 2, cuda)
+    try:
+        got = [next(batches) for _ in range(12)]
+    finally:
+        batches.close()
+    assert len(batches._slots) == 4
+    torch.cuda.synchronize()
+    for i, batch in enumerate(got):
+        want = batcher.batch_for_step(2 + i)
+        assert set(batch) == {"origins", "directions", "rgb", "timesteps",
+                              "camera_indices", "alpha", "depth"}
+        for key, value in batch.items():
+            assert value.device.type == "cuda"
+            assert np.array_equal(value.cpu().numpy(), want[key]), (i, key)

@@ -133,22 +133,22 @@ def _assert_same_state(a: NeRSembleTrainer, b: NeRSembleTrainer):
 def test_resume_from_a_checkpoint_is_bitwise(tmp_path):
     _, _, params, _, _, _ = _setup("float32")
     whole = _trainer(params)
-    whole.train(_batch, 18)
+    whole.train_batches(_batch, 18)
     assert whole._budget != _trainer(params)._budget  # the budget adapted
     first = _trainer(params)
-    first.train(_batch, 10)
+    first.train_batches(_batch, 10)
     first.save_checkpoint(tmp_path / "step-000000009.ckpt", 9)
     resumed = _trainer(params)
     resumed.load_checkpoint(tmp_path / "step-000000009.ckpt")
     assert resumed.start_step == 10
-    resumed.train(_batch, 18)
+    resumed.train_batches(_batch, 18)
     _assert_same_state(whole, resumed)
 
 
 def test_port_checkpoint_loads_in_jax(tmp_path):
     _, jm, params, _, _, _ = _setup("float32")
     trainer = _trainer(params)
-    trainer.train(_batch, 3)
+    trainer.train_batches(_batch, 3)
     path = tmp_path / "step-000000002.ckpt"
     trainer.save_checkpoint(path, 2)
     template = jm.init_params(jax.random.PRNGKey(1))
