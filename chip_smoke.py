@@ -99,9 +99,42 @@ Phases, each printing its own lines:
                   torch.cuda.set_sync_debug_mode("error"). Prints the loop's
                   ms/step over those steps beside the train phase's, the
                   batch wait and copy seconds, the budget, each eval kind's
-                  seconds, checkpoint save and load seconds and peak memory.
-Then one JSON line with the eight kernels (launches on their path, times,
-the bound and the library call's time), and the last line
+                  seconds, checkpoint save and load seconds and peak memory;
+ 13. serve     -- the serving CLIs on phase 12's run (step 52), each frame
+                  they render timed and run under
+                  torch.cuda.set_sync_debug_mode("warn"): a frame may wait
+                  on the device only in engine/renderer.py's named reads
+                  (the packed hit indices, the auto budget's probe and drop
+                  counts, the frame's final copy) and in the per-grid-state
+                  occupied-cell AABB. (a) the evaluate CLI, --max-eval-
+                  timesteps 3 --n-rays-eval 8192 with the occupancy filter,
+                  LPIPS on synthetic VGG-16-shaped weights and the vendored
+                  JOD: 12 PNGs, finite PSNR and JOD, SSIM in [0, 1], and one
+                  image's LPIPS on the card equal to the CPU's (rel
+                  LPIPS_RTOL); when the filter kept no cell (no frame
+                  hits), the CLI again on 4 views without it; (b) the
+                  render CLI, --seconds 1 --fps 8
+                  --downscale-factor 2 --n-rays 8192 with depth and
+                  deformation: 8 frames of 550x802 per channel; (c) the view
+                  CLI on a free local port, max_requests=3, a thread asking
+                  for rgb, depth and deformation at width 256: each reply a
+                  [H, 256, 3] PNG, the rgb frame hitting; (d) one eval view
+                  with budget=None and "auto" on the run's warm-up grid
+                  (printed: there None drops samples the probed budget
+                  keeps) and on a 0.1% random grid (a carved scene's few
+                  samples per ray), where the probed budget must stay
+                  within the default and "auto" (probe, then cached) must
+                  equal None within REF_TOL. A CLI whose frames hit
+                  must launch B1-fwd and B3, and the phase must launch both
+                  (the render CLI's orbit, the reference's head position,
+                  may miss the synthetic sphere: its hit fraction is
+                  printed, not held).
+                  Prints seconds and launches per image / frame / request,
+                  hit fractions, the filter's kept cells, JOD seconds, the
+                  probed budget, ms for None vs auto and peak memory per CLI.
+Then one JSON line with the eight kernels (launches on the training path
+for B1-B4 and on the measurement path for P1-P4, times, the bound and the
+library call's time), and the last line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
 and the last line is not printed. Without a CUDA device nothing runs.
 """
@@ -183,6 +216,22 @@ SEQ_EVAL_ALL_KEYS = ({"eval_all_psnr", "eval_all_ssim", "eval_all_psnr_masked",
                       "eval_all_ssim_masked", "eval_all_mse_masked"}
                      | {f"eval_cam{c}_psnr" for c in (3, 6, 11, 15)}
                      | {f"eval_t{t}_psnr" for t in range(3)})
+# the serve phase: the serving CLIs on the sequence phase's run
+SERVE_EVAL_ARGS = ["--max-eval-timesteps", "3", "--n-rays-eval", str(CHUNK)]
+SERVE_RENDER_ARGS = ["--seconds", "1", "--fps", "8", "--downscale-factor", "2",
+                     "--n-rays", str(CHUNK), "--render-depth", "--render-deformations"]
+SERVE_VIEW_WIDTH = 256
+SERVE_CHANNELS = ("rgb", "depth", "deformation")
+# LPIPS of one 550x802 image on the card vs the CPU, both float32 with
+# cuDNN's TF32 off: 13 convolutions summed in other orders
+LPIPS_RTOL = 1e-4
+# where a served frame may wait on the device: the renderer's named reads
+# and the occupied-cell AABB (once per grid state)
+SERVE_SYNC_FILES = {"renderer.py", "sampling.py"}
+# (d)'s sparse grid: the eval march dilates it 27-fold, and a ray still
+# crosses only ~3 occupied cells, ~10 samples (a carved scene's count), so
+# the default budget (32 samples per ray) drops none
+SERVE_SPARSE_FILL = 0.001
 
 
 def log(phase: str, msg: str) -> None:
@@ -273,10 +322,14 @@ def kernel_device_ms(fn, kernel: str, iters: int = 20) -> float:
         torch.cuda.synchronize()
     own = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
            and e.key.removeprefix("void ").startswith((kernel + "(", kernel + "<"))]
-    if sum(e.count for e in own) != iters:
+    # the mean over the launches the profiler recorded: a series of
+    # back-to-back profiles can lose one kernel record (19 of 20 seen once
+    # on an H100); more than were launched would mean a wrong attribution
+    seen = sum(e.count for e in own)
+    if not iters // 2 <= seen <= iters:
         raise AssertionError(f"the profiler saw {[e.count for e in own]} launches of "
                              f"{kernel}, not {iters}")
-    return sum(e.self_device_time_total for e in own) / iters / 1e3
+    return sum(e.self_device_time_total for e in own) / seen / 1e3
 
 
 def unfused_chain(params, x, out_activation, skips):
@@ -962,9 +1015,365 @@ def sequence_phase(train_step_ms: float) -> None:
                                      f"{sorted(want - keys)}, extra {sorted(keys - want)}")
         if [p.name for p in ckpts] != [f"step-{SEQ_RESUMED_STEPS - 1:09d}.ckpt"]:
             raise AssertionError(f"checkpoints after the resume {ckpts}")
+        del resumed
+
+        # ---- 13. serve: the serving CLIs on this run ----------------------------
+        serve_phase(root, f"NERS-001-{SEQ_NAME}")
     finally:
         env.NERSEMBLE_DATA_PATH, env.NERSEMBLE_MODELS_PATH = saved_env
         shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+class RenderLog:
+    """Wraps NeRSembleTrainer.render_image while the serving CLIs run: each
+    frame's milliseconds (it ends in the frame's copy to the host), the
+    share of its rays that can hit an occupied cell, its B1-fwd and B3
+    launches, the auto budget after it, and the synchronizing calls made
+    inside it (torch.cuda.set_sync_debug_mode("warn")) by file:line. Keeps
+    the last trainer it saw."""
+
+    def __init__(self):
+        self.frames = []
+        self.trainer = None
+
+    def __enter__(self):
+        from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
+        self._original = NeRSembleTrainer.render_image
+        log = self
+
+        def render_image(trainer, image_rays, step, chunk=None, budget=None):
+            return log.record(trainer, image_rays, step, chunk, budget)
+
+        NeRSembleTrainer.render_image = render_image
+        return self
+
+    def __exit__(self, *exc):
+        from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
+        NeRSembleTrainer.render_image = self._original
+
+    def take(self):
+        """The frames recorded since the last take."""
+        frames, self.frames = self.frames, []
+        return frames
+
+    def record(self, trainer, image_rays, step, chunk, budget):
+        import os
+
+        import torch
+        from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+
+        self.trainer = trainer
+        torch.cuda.synchronize()
+        before = (fused_mlp.LAUNCHES, quad_kernel.LAUNCHES)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            start = time.perf_counter()
+            try:
+                out = self._original(trainer, image_rays, step, chunk, budget)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            ms = (time.perf_counter() - start) * 1e3
+        hit = trainer.renderer().render_hit_mask(
+            torch.from_numpy(np.asarray(image_rays["origins"])).to(trainer.device),
+            torch.from_numpy(np.asarray(image_rays["directions"])).to(trainer.device))
+        self.frames.append({
+            "ms": ms, "hit": float(hit.float().mean()),
+            "fwd": fused_mlp.LAUNCHES - before[0], "build": quad_kernel.LAUNCHES - before[1],
+            "budget": trainer.renderer().auto_budget,
+            "syncs": [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                      if "called a synchronizing" in str(w.message)]})
+        return out
+
+
+def summarize_frames(phase: str, what: str, frames) -> dict:
+    """Print a CLI's frames (ms, hit fraction, launches, syncs) and check
+    that a frame waited on the device only where SERVE_SYNC_FILES allow and
+    that hitting frames launched both kernels; returns the totals."""
+    ms = [f["ms"] for f in frames]
+    syncs = collections.Counter(s for f in frames for s in f["syncs"])
+    totals = {"frames": len(frames), "fwd": sum(f["fwd"] for f in frames),
+              "build": sum(f["build"] for f in frames),
+              "hit": max((f["hit"] for f in frames), default=0.0)}
+    log(phase, f"{len(frames)} {what}: ms {[round(x, 1) for x in ms]} "
+               f"(mean {sum(ms) / max(len(ms), 1):.1f}); hit fraction "
+               f"{[round(f['hit'], 4) for f in frames]}; B1-fwd launches "
+               f"{[f['fwd'] for f in frames]}, B3 {[f['build'] for f in frames]}; "
+               f"host waits per frame {[len(f['syncs']) for f in frames]} at "
+               f"{dict(syncs)}")
+    stray = [s for s in syncs if s.split(":")[0] not in SERVE_SYNC_FILES]
+    if stray:
+        raise AssertionError(f"{what}: synchronizing calls outside the renderer's "
+                             f"reads: {stray}")
+    if totals["hit"] > 0 and (totals["fwd"] <= 0 or totals["build"] <= 0):
+        raise AssertionError(f"{what} hit the grid but launched B1-fwd "
+                             f"{totals['fwd']} / B3 {totals['build']} times")
+    return totals
+
+
+def synthetic_vgg_weights(seed: int) -> dict:
+    """Random VGG-16-shaped conv weights and LPIPS heads (small scale so
+    the activations stay finite): what LPIPS computes on, not a trained
+    network."""
+    rng = np.random.default_rng(seed)
+    convs = {0: (64, 3), 2: (64, 64), 5: (128, 64), 7: (128, 128),
+             10: (256, 128), 12: (256, 256), 14: (256, 256), 17: (512, 256),
+             19: (512, 512), 21: (512, 512), 24: (512, 512), 26: (512, 512),
+             28: (512, 512)}
+    weights = {}
+    for i, (o, c) in convs.items():
+        weights[f"features.{i}.weight"] = rng.normal(0, 0.05, (o, c, 3, 3)).astype(np.float32)
+        weights[f"features.{i}.bias"] = rng.normal(0, 0.01, (o,)).astype(np.float32)
+    for k, c in enumerate((64, 128, 256, 512, 512)):
+        weights[f"lin{k}.model.1.weight"] = rng.uniform(0, 0.1, (1, c, 1, 1)).astype(np.float32)
+    return weights
+
+
+def view_client(port: int, replies: dict) -> None:
+    """The viewer's browser: one request per channel at SERVE_VIEW_WIDTH,
+    each waiting for the CLI's server to come up."""
+    import urllib.error
+    import urllib.request
+
+    for channel in SERVE_CHANNELS:
+        url = (f"http://127.0.0.1:{port}/render?channel={channel}"
+               f"&width={SERVE_VIEW_WIDTH}&az=0.6&el=0.2&t=0.5")
+        deadline = time.time() + 300
+        while True:
+            start = time.perf_counter()
+            try:
+                with urllib.request.urlopen(url, timeout=300) as reply:
+                    replies[channel] = (reply.status, reply.read(),
+                                        1e3 * (time.perf_counter() - start))
+                break
+            except urllib.error.URLError:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.2)
+
+
+def auto_vs_none(trainer, rays, step: int, grid: str, hold: bool) -> None:
+    """Render ``rays`` with budget=None, then "auto" (its probe, then, when
+    ``hold``, with the cached budget), print ms, peak memory and the probed
+    budget, and (``hold``) hold every auto render to the None one within
+    REF_TOL."""
+    import torch
+
+    renderer = trainer.renderer()
+    renderer.auto_budget = None
+    kinds = [("none", None), ("auto probe", "auto")] + ([("auto cached", "auto")] if hold else [])
+    times, images = {}, {}
+    for kind, budget in kinds:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        images[kind] = trainer.render_image(rays, step, chunk=CHUNK, budget=budget)
+        times[kind] = (round((time.perf_counter() - start) * 1e3, 1),
+                       round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+    scfg = trainer.config.sampling
+    default = -(-int(CHUNK * scfg.max_samples_per_ray * scfg.global_budget_fraction) // 128) * 128
+    errs = {key: float(np.abs(images["auto probe"][key] - images["none"][key]).max())
+            for key in images["none"]}
+    log("serve", f"eval view {rays['width']}x{rays['height']} on {grid}, chunk {CHUNK}: "
+                 f"ms and peak GiB {times}; probed budget {renderer.auto_budget} "
+                 f"(budget=None: {default} per chunk); auto vs None max abs diff {errs}"
+                 + (f" (tol {REF_TOL})" if hold else " (not held)"))
+    if hold:
+        # a budget no larger than the default, grown over every chunk that
+        # overflowed, means no chunk had more valid samples than the
+        # default budget holds: None dropped none, and auto must equal it
+        if not renderer.auto_budget <= default:
+            raise AssertionError(f"{grid}: probed budget {renderer.auto_budget} > "
+                                 f"{default}: budget=None drops samples here")
+        for kind in images:
+            for key in images["none"]:
+                np.testing.assert_allclose(images[kind][key], images["none"][key],
+                                           **REF_TOL, err_msg=f"{kind} {key}")
+
+
+def fresh_memory(phase: str) -> None:
+    """Free what earlier work left (cycles included), print what stays
+    allocated and start a new peak."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(phase, f"device memory allocated before the next CLI "
+               f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+
+
+def serve_phase(root, run_name: str) -> None:
+    """The evaluate, render and view CLIs on phase 12's run (phase 13)."""
+    import os
+    import socket
+    import threading
+    from pathlib import Path
+
+    import torch
+    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+    from nersemble_tpu_torch.scripts import (
+        evaluate_nersemble,
+        render_nersemble,
+        view_nersemble,
+    )
+    from nersemble_tpu_torch.utils import lpips, png
+
+    run_dir = root / "models" / "nersemble" / run_name
+    weights = root / "synthetic_vgg16.npz"
+    np.savez(weights, **synthetic_vgg_weights(SEED))
+    saved_lpips = os.environ.get("NERSEMBLE_LPIPS_WEIGHTS")
+    os.environ["NERSEMBLE_LPIPS_WEIGHTS"] = str(weights)
+    lpips.reset_lpips_cache()
+    fused_mlp.LAUNCHES = quad_kernel.LAUNCHES = 0
+    try:
+        with RenderLog() as renders:
+            # (a) evaluate, with the occupancy filter, LPIPS and the vendored JOD
+            fresh_memory("serve")
+            start = time.perf_counter()
+            result = evaluate_nersemble.main([run_name] + SERVE_EVAL_ARGS)
+            eval_s = time.perf_counter() - start
+            eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            trainer = renders.trainer
+            evals = summarize_frames("serve", "eval images", renders.take())
+            pngs = sorted((run_dir / "evaluation").rglob("cam_*.png"))
+            mean = result.mean
+            log("serve", f"evaluate: {eval_s:.1f} s with set-up (checkpoint load "
+                         f"{trainer.checkpoint_load_s:.1f} s), peak memory "
+                         f"{eval_peak:.2f} GiB; {len(pngs)} PNGs; psnr "
+                         f"{mean.regular.psnr:.3f} / masked {mean.masked.psnr:.3f}, "
+                         f"ssim {mean.regular.ssim:.4f}, lpips {mean.regular.lpips}, "
+                         f"jod {mean.regular.jod} / masked {mean.masked.jod}; grid "
+                         f"cells after the filter "
+                         f"{int(trainer.model.binaries(trainer.grid_occs, trainer.grid_mask).sum())}")
+            if len(pngs) != 12:
+                raise AssertionError(f"the evaluate CLI wrote {len(pngs)} PNGs, not 12")
+            for bundle in (mean.regular, mean.masked):
+                if not (math.isfinite(bundle.psnr) and 0.0 <= bundle.ssim <= 1.0
+                        and bundle.jod is not None and math.isfinite(bundle.jod)
+                        and bundle.lpips is not None and math.isfinite(bundle.lpips)):
+                    raise AssertionError(f"evaluation metrics {bundle}")
+            rays = trainer.eval_loader.image_rays(0)
+            entry = rays["entry"]
+            pred = png.imread(pngs[0].parent.parent / f"frame_{entry.original_timestep:05d}"
+                              / f"cam_{entry.cam_id}.png").astype(np.float32) / 255
+            start = time.perf_counter()
+            on_card = lpips.lpips_or_none(pred, rays["gt_rgb"], "cuda")
+            card_s = time.perf_counter() - start
+            start = time.perf_counter()
+            on_cpu = lpips.lpips_or_none(pred, rays["gt_rgb"], "cpu")
+            cpu_s = time.perf_counter() - start
+            rel = abs(on_card - on_cpu) / abs(on_cpu)
+            log("serve", f"LPIPS of cam {entry.cam_id} frame {entry.original_timestep} "
+                         f"{pred.shape}: card {on_card:.8f} ({card_s:.2f} s with the "
+                         f"weights' copy), CPU {on_cpu:.8f} ({cpu_s:.2f} s), rel err "
+                         f"{rel:.2e} (tol {LPIPS_RTOL:g})")
+            if not rel <= LPIPS_RTOL:
+                raise AssertionError(f"LPIPS on the card {on_card} vs CPU {on_cpu}")
+            del trainer, rays
+            renders.trainer = None
+            if evals["hit"] == 0:
+                # the filter kept no cell (a run still in its occupancy
+                # warm-up): the CLI again without it, so that its frames hit
+                fresh_memory("serve")
+                start = time.perf_counter()
+                evaluate_nersemble.main([run_name, "--max-eval-timesteps", "1",
+                                         "--n-rays-eval", str(CHUNK),
+                                         "--no-use-occupancy-grid-filtering"])
+                log("serve", f"evaluate without the filter: "
+                             f"{time.perf_counter() - start:.1f} s with set-up, peak "
+                             f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+                unfiltered = summarize_frames("serve", "eval images without the filter",
+                                              renders.take())
+                renders.trainer = None
+                if unfiltered["hit"] == 0:
+                    raise AssertionError("no eval image hits the grid without the filter")
+                evals = unfiltered
+
+            # (b) the render CLI's orbit video
+            fresh_memory("serve")
+            start = time.perf_counter()
+            outputs = render_nersemble.main([run_name] + SERVE_RENDER_ARGS,
+                                            renders_path=str(root / "renders"))
+            render_s = time.perf_counter() - start
+            render_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            video = summarize_frames("serve", "video frames", renders.take())
+            shapes = {channel: sorted({png.imread(f).shape for f in Path(path).iterdir()})
+                      for channel, path in outputs.items()}
+            counts = {channel: len(list(Path(path).iterdir()))
+                      for channel, path in outputs.items()}
+            log("serve", f"render: {render_s:.1f} s with set-up, peak memory "
+                         f"{render_peak:.2f} GiB; frames {counts}, shapes {shapes}")
+            renders.trainer = None
+            if set(outputs) != set(SERVE_CHANNELS) or set(counts.values()) != {8} \
+                    or any(s != [(FRAME_H, FRAME_W, 3)] for s in shapes.values()):
+                raise AssertionError(f"render CLI outputs {counts} {shapes}")
+
+            # (c) the view CLI, three requests from a thread
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            replies = {}
+            client = threading.Thread(target=view_client, args=(port, replies),
+                                      daemon=True)
+            fresh_memory("serve")
+            client.start()
+            served = view_nersemble.main([run_name, "--port", str(port)], max_requests=3)
+            client.join(timeout=60)
+            view_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            trainer = renders.trainer
+            requests = renders.take()
+            view = summarize_frames("serve", "viewer requests", requests)
+            decoded = {}
+            for channel, (status, body, _) in replies.items():
+                decoded[channel] = png.decode(body) if status == 200 else None
+            log("serve", f"view: {served} requests served, round trips "
+                         f"{ {c: round(r[2], 1) for c, r in replies.items()} } ms, "
+                         f"frames {({c: None if d is None else d.shape for c, d in decoded.items()})}, "
+                         f"auto budget per request {[f['budget'] for f in requests]}, "
+                         f"peak memory {view_peak:.2f} GiB")
+            if served != 3 or client.is_alive() or set(decoded) != set(SERVE_CHANNELS):
+                raise AssertionError(f"the viewer served {served}: {sorted(replies)}")
+            for channel, frame in decoded.items():
+                if frame is None or frame.ndim != 3 or frame.shape[1:] != (SERVE_VIEW_WIDTH, 3):
+                    raise AssertionError(f"viewer {channel} reply {replies[channel][:1]}")
+            if not requests[0]["hit"] > 0:
+                raise AssertionError("the viewer's rgb frame hits no occupied cell")
+
+        # (d) one eval view: budget="auto" (probe, then cached) vs None, on the
+        # run's warm-up grid, where the default budget drops samples that
+        # the probed budget keeps, and on a sparse grid with a carved
+        # scene's few samples per ray, where it drops none and the two must
+        # agree
+        step = trainer.start_step - 1
+        rays = trainer.eval_loader.image_rays(0)
+        auto_vs_none(trainer, rays, step, "the run's grid", hold=False)
+        g = trainer.config.grid_resolution
+        sparse = np.random.default_rng(SEED).uniform(size=g ** 3) < SERVE_SPARSE_FILL
+        trainer.grid_occs = torch.from_numpy(sparse.astype(np.float32)).to(trainer.device)
+        trainer._renderer = None
+        auto_vs_none(trainer, rays, step, f"a {SERVE_SPARSE_FILL:.1%} random grid", hold=True)
+        del trainer, rays
+        launches = {"fused_mlp_fwd": fused_mlp.LAUNCHES, "quad_build": quad_kernel.LAUNCHES}
+        log("serve", f"launches in the phase {launches}; per eval image B1-fwd "
+                     f"{evals['fwd'] / max(evals['frames'], 1):.1f} / B3 "
+                     f"{evals['build'] / max(evals['frames'], 1):.2f}, per video frame "
+                     f"{video['fwd'] / max(video['frames'], 1):.1f} / "
+                     f"{video['build'] / max(video['frames'], 1):.2f}, per viewer request "
+                     f"{view['fwd'] / max(view['frames'], 1):.1f} / "
+                     f"{view['build'] / max(view['frames'], 1):.2f}")
+        for kernel, count in launches.items():
+            if count <= 0:
+                raise AssertionError(f"the serving path never launched {kernel}")
+    finally:
+        if saved_lpips is None:
+            os.environ.pop("NERSEMBLE_LPIPS_WEIGHTS", None)
+        else:
+            os.environ["NERSEMBLE_LPIPS_WEIGHTS"] = saved_lpips
+        lpips.reset_lpips_cache()
         torch.cuda.empty_cache()
 
 

@@ -1,9 +1,10 @@
 """PyTorch + CUDA port of ``nersemble_tpu`` for NVIDIA Hopper (H100).
 
 Mirrors the JAX package's layout (``config``, ``utils/``, ``ops/``,
-``models/``, ``engine/``) so each module's counterpart is easy to find. The
-port imports ``torch`` and ``numpy`` only — never ``jax``, ``yaml`` or the
-JAX package — and keeps the JAX parameter layouts at its public boundary, so
+``models/``, ``engine/``, ``viewer/``) so each module's counterpart is easy
+to find. The port imports ``torch`` and ``numpy`` (``scipy`` inside the
+evaluation's host-side functions) — never ``jax``, ``yaml`` or the JAX
+package — and keeps the JAX parameter layouts at its public boundary, so
 checkpoints interchange (``engine/checkpoints.py``).
 
 The Pallas TPU kernels on the render path are hand-written CUDA kernels

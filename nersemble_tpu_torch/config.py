@@ -506,7 +506,7 @@ class TrainConfig(ConfigBase):
     steps_per_log: int = 10
     save_only_latest_checkpoint: bool = True
     seed: int = 19980801
-    vis: str = "csv"  # csv | tensorboard | none (viewer: not ported yet)
+    vis: str = "csv"  # csv | tensorboard | none | viewer (live web viewer)
     viewer_port: int = 7007
 
     data: DataConfig = field(default_factory=DataConfig)

@@ -1,6 +1,5 @@
 """Camera pose/intrinsics math and ray generation (host-side numpy; the
-port's copy of nersemble_tpu/data/cameras.py without the render CLI's
-circular trajectories).
+port's copy of nersemble_tpu/data/cameras.py).
 
 Absorbs the dreifus Pose/Intrinsics functionality the reference depends on
 (reference: nersemble_dataparser.py:187-298, dreifus usage documented in
@@ -104,6 +103,44 @@ def generate_image_rays(c2w: np.ndarray, intrinsics: CameraIntrinsics,
     ys, xs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
     pixels = np.stack([ys.reshape(-1), xs.reshape(-1)], axis=-1)
     return generate_pixel_rays(c2w, intrinsics, pixels)
+
+
+def circle_around_axis(n_poses: int, axis: np.ndarray, up: np.ndarray,
+                       move: np.ndarray, distance: float) -> np.ndarray:
+    """Camera trajectory on a circle, looking at the circle center.
+
+    Absorbed from dreifus ``circle_around_axis`` as used by the render CLI
+    (reference: scripts/render/render_nersemble.py:64-72): cameras orbit
+    ``move`` at ``distance`` in the plane orthogonal to ``axis``; returns
+    [n, 4, 4] OpenCV cam_2_world poses.
+    """
+    axis = np.asarray(axis, np.float64)
+    axis = axis / np.linalg.norm(axis)
+    up = np.asarray(up, np.float64)
+    move = np.asarray(move, np.float64)
+    # orthonormal basis of the circle plane
+    u = np.cross(up, axis)
+    if np.linalg.norm(u) < 1e-6:
+        u = np.cross(np.array([1.0, 0.0, 0.0]), axis)
+    u /= np.linalg.norm(u)
+    v = np.cross(axis, u)
+
+    poses = []
+    for i in range(n_poses):
+        angle = 2 * np.pi * i / n_poses
+        position = move + distance * (np.cos(angle) * u + np.sin(angle) * v)
+        forward = move - position
+        forward /= np.linalg.norm(forward)
+        right = np.cross(forward, up)
+        right /= np.linalg.norm(right)
+        down = np.cross(forward, right)
+        pose = np.eye(4)
+        pose[:3, 0] = right
+        pose[:3, 1] = down
+        pose[:3, 2] = forward
+        pose[:3, 3] = position
+        poses.append(pose)
+    return np.stack(poses)
 
 
 class Frustum:

@@ -7,7 +7,14 @@ frame's rays are packed (rays that provably miss every occupied cell are
 composited as background without evaluating anything), cut into chunks,
 rendered with ``render_rays(train=False)`` and scattered back. The xz-quad
 gather operand is built once per parameter state and reused across chunks
-and frames.
+and frames, and so is the probed budget of ``budget="auto"`` per grid
+state.
+
+The frame's rays reach the device by non-blocking copies from page-locked
+memory, and the chunk loop reads nothing back: the host waits on the device
+only for the packed hit indices, the auto budget's probe (once per grid
+state) and drop counts (once per frame, one stacked read), and the final
+copy of the frame.
 """
 
 from typing import Dict, Optional
@@ -17,10 +24,21 @@ import torch
 
 from nersemble_tpu_torch.models.nersemble import NeRSembleModel
 from nersemble_tpu_torch.ops.sampling import occupied_world_aabb, ray_aabb_intersect
+from nersemble_tpu_torch.utils.device import to_device
 from nersemble_tpu_torch.utils.params import ParamTree
 from nersemble_tpu_torch.utils.windows import sched_values
 
 RAY_KEYS = ("origins", "directions", "timesteps")
+AUTO_BUDGET_QUANTUM = 8192
+
+
+def quantize_auto_budget(n_valid: float, chunk: int, samples_per_ray: int) -> int:
+    """The auto render budget for a chunk with ``n_valid`` valid samples:
+    x1.5 headroom, rounded up to the quantum, within [quantum, chunk * S]
+    (JAX ``render_image``'s ``quantize``)."""
+    b = int(n_valid * 1.5)
+    q = AUTO_BUDGET_QUANTUM
+    return min(max(-(-b // q) * q, q), chunk * samples_per_ray)
 
 
 class Renderer:
@@ -36,6 +54,21 @@ class Renderer:
         self.device = grid_occs.device
         self._fparams = None   # (params, table version, prepared field)
         self._packing = None   # (grid_occs, grid_mask, lo, hi, any_occ)
+        self._auto = None      # (grid_occs, grid_mask, probed budget)
+
+    @property
+    def auto_budget(self) -> Optional[int]:
+        """The budget ``budget="auto"`` probed on the current grid state
+        (None until the next auto render probes it)."""
+        cache = self._auto
+        if (cache is None or cache[0] is not self.grid_occs
+                or cache[1] is not self.grid_mask):
+            return None
+        return cache[2]
+
+    @auto_budget.setter
+    def auto_budget(self, value: Optional[int]) -> None:
+        self._auto = (self.grid_occs, self.grid_mask, value)
 
     def fparams(self) -> Dict:
         """The prepared field (quad table) for the current parameters,
@@ -56,9 +89,12 @@ class Renderer:
                                      fparams=self.fparams())
         cols = [out["rgb"], out["depth"], out["accumulation"],
                 out.get("deformation", torch.zeros_like(out["rgb"]))]
+        dropped = out["num_budget_dropped"]
+        if not isinstance(dropped, torch.Tensor):  # every slot evaluated
+            dropped = torch.zeros((), dtype=torch.int64, device=self.device)
         return {"_packed": torch.cat(cols, dim=1),
                 "_n_valid": out["num_samples_per_ray"].sum(),
-                "_n_budget_dropped": out["num_budget_dropped"]}
+                "_n_budget_dropped": dropped}
 
     def render_hit_mask(self, origins: torch.Tensor,
                         directions: torch.Tensor) -> torch.Tensor:
@@ -87,16 +123,19 @@ class Renderer:
                      budget: Optional[int] = None) -> Dict[str, np.ndarray]:
         """Render a frame: ``image_rays`` holds ``height``, ``width`` and
         per-pixel ``origins``, ``directions``, ``timesteps`` (numpy or
-        tensors). ``budget``: None (R * S * fraction per chunk) or a fixed
-        int; the JAX package's ``"auto"`` probe is not ported yet.
+        tensors). ``budget``: None (R * S * fraction per chunk), a fixed
+        int, or ``"auto"``: the first chunk on a grid state renders with
+        None as a probe, its valid-sample count sets ``auto_budget``
+        (``quantize_auto_budget``) for every later chunk, and every chunk
+        that dropped samples under it is rendered again with None after
+        all chunks were issued, growing ``auto_budget`` to cover it.
         Returns [H, W, C] numpy arrays."""
-        if budget is not None and not isinstance(budget, int):
-            raise NotImplementedError(f"budget={budget!r} is not ported yet")
+        if not (budget is None or budget == "auto" or isinstance(budget, int)):
+            raise ValueError(f"budget={budget!r}: None, an int or 'auto'")
         cfg = self.model.config
         H, W = image_rays["height"], image_rays["width"]
         n = H * W
-        rays = {key: torch.as_tensor(image_rays[key], device=self.device)
-                for key in RAY_KEYS}
+        rays = {key: to_device(image_rays[key], self.device) for key in RAY_KEYS}
         pack_idx = None
         if cfg.sampling.eval_ray_packing and not cfg.disable_occupancy_grid:
             hit = self.render_hit_mask(rays["origins"], rays["directions"])
@@ -104,8 +143,11 @@ class Renderer:
             rays = {key: arr[pack_idx] for key, arr in rays.items()}
         n_render = n if pack_idx is None else int(pack_idx.numel())
         sched = sched_values(cfg, step)
+        S = cfg.sampling.max_samples_per_ray
+        if cfg.sampling.eval_max_samples_per_ray > 0:
+            S = min(S, cfg.sampling.eval_max_samples_per_ray)
 
-        parts = []
+        results = []  # [lo, hi, out, budget used, batch]
         for lo in range(0, n_render, chunk):
             hi = min(lo + chunk, n_render)
             batch = {}
@@ -117,9 +159,29 @@ class Renderer:
                     arr = torch.cat([arr, arr[-1:].expand(chunk - (hi - lo),
                                                           *arr.shape[1:])])
                 batch[key] = arr
-            out = self.render_chunk(batch, sched, budget)
-            parts.append(out["_packed"][:hi - lo])
+            use = self.auto_budget if budget == "auto" else budget
+            out = self.render_chunk(batch, sched, use)
+            if budget == "auto" and use is None:  # the probe chunk
+                self.auto_budget = quantize_auto_budget(
+                    float(out["_n_valid"]), chunk, S)
+            results.append([lo, hi, out, use, batch])
 
+        if budget == "auto":
+            # overflow safety net: the drop counts are read once, after
+            # every chunk was issued, so the queue stays full
+            budgeted = [rec for rec in results if rec[3] is not None]
+            dropped = torch.stack([rec[2]["_n_budget_dropped"]
+                                   for rec in budgeted]).tolist() if budgeted else []
+            redo = [rec for rec, d in zip(budgeted, dropped) if d > 0]
+            for rec in redo:
+                rec[2] = self.render_chunk(rec[4], sched, None)
+            if redo:
+                valid = torch.stack([rec[2]["_n_valid"] for rec in redo]).tolist()
+                self.auto_budget = max(
+                    [self.auto_budget or 0]
+                    + [quantize_auto_budget(v, chunk, S) for v in valid])
+
+        parts = [out["_packed"][:hi - lo] for lo, hi, out, _, _ in results]
         packed = torch.zeros(n, 8, dtype=torch.float32, device=self.device)
         if pack_idx is None:
             if parts:

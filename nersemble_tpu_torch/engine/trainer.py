@@ -15,10 +15,13 @@ origins, directions, timesteps, rgb and optional alpha and depth.
 ``NeRSembleTrainer.from_train_config(config, ...)`` builds a run from a
 ``TrainConfig`` (what the train CLI does): the capture's dataparser,
 datasets and step-indexed ray batcher, the scene box and timestep count,
-the frustum mask of the training cameras, the metrics writer and the run
-folder; ``train()`` then runs the JAX trainer's loop: ``run_step`` per
-step, metrics every ``steps_per_log`` steps, eval renders and checkpoints
-on their cadences, and a final checkpoint.
+the frustum mask of the training cameras, the metrics writer, the run
+folder and, with ``vis="viewer"``, the live viewer's server; ``train()``
+then runs the JAX trainer's loop: ``run_step`` per step, viewer requests
+served between steps, metrics every ``steps_per_log`` steps, eval renders
+and checkpoints on their cadences, and a final checkpoint. The serving CLIs
+(evaluate, render, view) build an ``eval_only`` trainer from a run folder
+and render through ``render_image`` and ``viewer_render``.
 
 The initial parameters, the jitter of step ``k`` and the occupancy draws of
 an update at step ``k`` come from host generators seeded by (seed, k): a
@@ -75,7 +78,7 @@ from nersemble_tpu_torch.ops.occupancy import (
 from nersemble_tpu_torch.ops.sampling import quantized_budget
 from nersemble_tpu_torch.utils import colormaps as C
 from nersemble_tpu_torch.utils import metrics as M
-from nersemble_tpu_torch.utils.device import resolve_device
+from nersemble_tpu_torch.utils.device import resolve_device, to_device
 from nersemble_tpu_torch.utils.metrics import psnr
 from nersemble_tpu_torch.utils.params import ParamTree
 from nersemble_tpu_torch.utils.windows import lr_values, sched_values
@@ -90,7 +93,10 @@ class NeRSembleTrainer:
                  seed: int = 19980801, device="cuda",
                  params: Optional[ParamTree] = None,
                  grid_occs: Optional[torch.Tensor] = None,
-                 grid_mask: Optional[torch.Tensor] = None):
+                 grid_mask: Optional[torch.Tensor] = None,
+                 eval_only: bool = False):
+        """``eval_only``: a trainer that renders and never trains holds no
+        Adam moments (3.35 GB at the flagship size)."""
         self.device = resolve_device(device)
         self.model = NeRSembleModel(model_config, self.device)
         self.config = self.model.config
@@ -100,7 +106,7 @@ class NeRSembleTrainer:
         if params is None:  # drawn on the host: the same on every device
             params = self.model.init_params(torch.Generator().manual_seed(seed))
         self._set_params(params.to(self.device))
-        self.opt_state = init_adam(self.params)
+        self.opt_state = None if eval_only else init_adam(self.params)
         self.grid_occs = grid_occs if grid_occs is not None \
             else self.model.init_grid_occs()
         # [G, G, G] bool ANDed into the sampling binaries (frustum culling)
@@ -108,7 +114,7 @@ class NeRSembleTrainer:
         self.start_step = 0
         self.writer: Optional[MetricsWriter] = None
         self.train_config: Optional[TrainConfig] = None
-        self._eval_only = False
+        self._eval_only = eval_only
 
         scfg = self.config.sampling
         R, S = n_rays, scfg.max_samples_per_ray
@@ -135,13 +141,6 @@ class NeRSembleTrainer:
         the same run on the CPU."""
         return torch.Generator().manual_seed(((2 * self.seed + stream) << 32) + step)
 
-    def _on_device(self, t: torch.Tensor) -> torch.Tensor:
-        """A host tensor on the trainer's device through page-locked memory:
-        a copy from pageable memory would wait for the GPU's queue."""
-        if self.device.type == "cpu":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
-
     # -- schedules (host side) -------------------------------------------------
 
     def sched_values(self, step: int) -> Dict[str, float]:
@@ -162,8 +161,9 @@ class NeRSembleTrainer:
         sched, lrs = self.sched_values(step), self.lr_values(step)
         binaries = model.binaries(self.grid_occs, self.grid_mask)
         if jitter is None:
-            jitter = self._on_device(torch.rand(
-                batch["origins"].shape[0], generator=self._generator(step, _JITTER)))
+            jitter = to_device(torch.rand(
+                batch["origins"].shape[0], generator=self._generator(step, _JITTER)),
+                self.device)
         with record_function("train:forward"):
             outputs = model.render_rays(self.params, batch, binaries, sched,
                                         train=True, budget=self._budget,
@@ -195,7 +195,7 @@ class NeRSembleTrainer:
         warmup = step < cfg.occupancy_grid_warmup_steps
         draws = draw_occupancy(self.grid_occs.shape[0], cfg.n_timesteps, warmup,
                                self._generator(step, _OCCUPANCY))
-        draws = OccupancyDraws(*(None if d is None else self._on_device(d)
+        draws = OccupancyDraws(*(None if d is None else to_device(d, self.device)
                                  for d in draws))
         self.grid_occs = self.model.occupancy_grid_update(
             self.params, self.grid_occs, self.sched_values(step),
@@ -294,11 +294,9 @@ class NeRSembleTrainer:
         (``load_step``, else the latest). Fills ``config.model``'s
         ``n_timesteps``, ``scene_box``, ``num_images`` and the auto-sized
         candidate count, as the JAX trainer does, so the ``config.yml`` saved
-        afterwards equals the JAX package's. ``eval_only``: the checkpoint's
-        Adam moments are not read, and ``train`` raises."""
+        afterwards equals the JAX package's. ``eval_only``: no Adam moments
+        are made or read from the checkpoint, and ``train`` raises."""
         device = resolve_device(device)
-        if config.vis == "viewer":
-            raise NotImplementedError("the live viewer is not ported yet (ROADMAP A5)")
         if config.parallel.data_axis_size not in (-1, 1):
             raise NotImplementedError(
                 f"data_axis_size={config.parallel.data_axis_size}: the port "
@@ -320,7 +318,7 @@ class NeRSembleTrainer:
                 config.model.view_frustum_culling)).to(device)
         self = cls(config.model, n_rays=config.data.train_num_rays_per_batch,
                    optimizers=config.optimizers, seed=config.seed,
-                   device=device, grid_mask=grid_mask)
+                   device=device, grid_mask=grid_mask, eval_only=eval_only)
         config.model.sampling.max_candidates_per_ray = \
             self.config.sampling.max_candidates_per_ray
         self.train_config = config
@@ -335,7 +333,6 @@ class NeRSembleTrainer:
         self._train_image_loader = EvalImageLoader(self.train_dataset)
         self._eval_batch_iter = None
         self._renderer: Optional[Renderer] = None
-        self._eval_only = eval_only
         self.step_hook: Optional[Callable] = None
         self.batches: Optional[DeviceBatches] = None
         self.checkpoint_load_s = None
@@ -343,14 +340,50 @@ class NeRSembleTrainer:
             self._load_checkpoint()
         self.batcher = RayBatcher(self.train_dataset, config.data,
                                   num_rays=self.n_rays, seed=config.seed)
+        # "viewer" serves the live web viewer between steps, with csv metrics
+        # (reference: nerfstudio --vis viewer, train_nersemble.py:56)
         self.writer = MetricsWriter(self.run_dir, enabled=config.vis != "none",
-                                    mode=config.vis)
+                                    mode="csv" if config.vis == "viewer"
+                                    else config.vis)
+        self.viewer = None
+        if config.vis == "viewer":
+            from nersemble_tpu_torch.viewer import ViewerServer
+            _, distance = self.viewer_defaults()
+            self.viewer = ViewerServer(state={
+                "run_name": config.run_name,
+                "n_timesteps": config.data.n_timesteps,
+                "step": self.start_step,
+                "distance": distance,
+            }, port=config.viewer_port)
+            print(f"[nersemble-torch] viewer: {self.viewer.url}")
         counts = param_count_summary(self.params)
         print("[nersemble-torch] parameters: "
               + "  ".join(f"{k}={v:,}" for k, v in counts.items()))
         self.writer.put_scalars(self.start_step,
                                 {f"params/{k}": v for k, v in counts.items()})
         return self
+
+    def viewer_defaults(self):
+        """(orbit center, default distance) in UNSCALED (calibration) units
+        — the same units the render CLI's circle trajectory uses before the
+        x scale_factor. Derived from the scene box so the orbit frames
+        whatever scene is loaded (the real capture's head box or the
+        synthetic sphere) instead of hardcoding the head position."""
+        box = np.asarray(self.config.scene_box, np.float64) \
+            / self.train_config.data.scale_factor
+        center = box.mean(axis=0)
+        half_diag = float(np.linalg.norm(box[1] - box[0])) / 2.0
+        return center, max(0.75 * half_diag, 1e-3)
+
+    def apply_grid_mask(self, mask: np.ndarray) -> None:
+        """AND an extra [G, G, G] bool mask (e.g. the eval-time largest-
+        connected-component filter) into the sampling binaries. The result
+        is a new tensor: the renderer keys its caches on the mask's
+        identity. The renderer goes with the old mask, and with it the
+        auto budget probed on it."""
+        mask = torch.from_numpy(np.asarray(mask, bool)).to(self.device)
+        self.grid_mask = mask if self.grid_mask is None else self.grid_mask & mask
+        self._renderer = None
 
     def save_dataparser_transforms(self) -> None:
         """``dataparser_transforms.json`` (nerfstudio's artifact): the world
@@ -404,6 +437,7 @@ class NeRSembleTrainer:
                     self.step_hook(self, step, "begin")
                 total, aux = self.run_step(step, next(batches))
                 rays_since_log += self.n_rays
+                self._service_viewer(step)
 
                 if step % cfg.steps_per_log == 0 or step == max_steps - 1:
                     last = self._log(step, total, aux, rays_since_log,
@@ -466,15 +500,74 @@ class NeRSembleTrainer:
 
     def renderer(self) -> Renderer:
         """The renderer of the current parameters and grid, kept for the rest
-        of the step so that its eval renders share one quad table."""
+        of the step so that its eval renders share one quad table (an
+        ``eval_only`` trainer keeps it, and its auto budget, across
+        images)."""
         if self._renderer is None:
             self._renderer = Renderer(self.model, self.params, self.grid_occs,
                                       self.grid_mask)
         return self._renderer
 
-    def render_image(self, image_rays: Dict, step: int) -> Dict[str, np.ndarray]:
+    def render_image(self, image_rays: Dict, step: int, chunk: Optional[int] = None,
+                     budget=None) -> Dict[str, np.ndarray]:
+        """A whole frame in chunks of ``chunk`` rays (default the run's
+        ``eval_num_rays_per_batch``); ``budget`` as in
+        ``Renderer.render_image`` (None, an int or ``"auto"``)."""
         return self.renderer().render_image(
-            image_rays, step, chunk=self.train_config.data.eval_num_rays_per_batch)
+            image_rays, step,
+            chunk=chunk or self.train_config.data.eval_num_rays_per_batch,
+            budget=budget)
+
+    def viewer_render(self, params: Dict, step: int) -> np.ndarray:
+        """Render one live-viewer frame (orbit camera params from the web
+        UI) through the normal render path with the auto budget. Runs on
+        the thread that owns the trainer — see viewer/server.py."""
+        from nersemble_tpu_torch.data.cameras import generate_image_rays
+        from nersemble_tpu_torch.viewer import orbit_pose
+
+        if not hasattr(self, "_viewer_intr"):
+            self._viewer_intr = self.dataparser.data_manager \
+                .load_camera_params().intrinsics
+        data = self.train_config.data
+        scale = data.scale_factor
+        out = self.train_outputs
+        orig_w = out.image_width * data.downscale_factor
+        orig_h = out.image_height * data.downscale_factor
+        width = int(params["width"])
+        height = max(16, round(width * orig_h / orig_w))
+        intr = self._viewer_intr.rescale(width / orig_w)
+        # same OpenCV -> OpenGL/world-scale pose chain as the render CLI,
+        # orbiting the scene-box center (viewer_defaults)
+        center, _ = self.viewer_defaults()
+        pose = orbit_pose(params["az"], params["el"], params["dist"],
+                          center=center)
+        p = pose @ np.diag([1.0, -1.0, -1.0, 1.0])
+        p[:3, 3] *= scale
+        origins, dirs = generate_image_rays(p, intr, height, width)
+        t_idx = int(round(float(params["t"]) * max(data.n_timesteps - 1, 0)))
+        image_rays = {
+            "origins": origins, "directions": dirs,
+            "timesteps": np.full(origins.shape[0], t_idx, np.int32),
+            "height": height, "width": width,
+        }
+        rendered = self.render_image(image_rays, step=step, budget="auto")
+        channel = params.get("channel", "rgb")
+        if channel == "depth":
+            return C.apply_depth_colormap(
+                rendered["depth"], accumulation=rendered["accumulation"],
+                near=0.8 * scale, far=1.2 * scale)
+        if channel == "deformation" and "deformation" in rendered:
+            return C.apply_scene_flow_colormap(rendered["deformation"])
+        return rendered["rgb"]
+
+    def _service_viewer(self, step: int) -> None:
+        """Serve the viewer's pending requests on this thread (none waiting:
+        no device work and no read)."""
+        if self.viewer is None:
+            return
+        self.viewer.update_state(step=step)
+        while self.viewer.service(lambda p: self.viewer_render(p, step)):
+            pass
 
     def _eval_batch(self, step: int) -> None:
         """Eval-ray loss batch; one threadless batch generator is reused

@@ -4,8 +4,9 @@ defaults and config tree, plus ``--device``).
 Assembles the full TrainConfig tree, allocates a NERS-XXX run folder (or
 reopens one with ``--resume-run``: a run either package wrote), saves
 config.yml, and runs the trainer's loop on the GPU unless ``--device cpu``.
-Not ported: ``--vis viewer`` (ROADMAP A5) and ``--data-axis-size`` other
-than -1 or 1 (multi-GPU, ROADMAP A6) raise NotImplementedError.
+``--vis viewer`` serves the live viewer (``--viewer-port``) between steps.
+Not ported: ``--data-axis-size`` other than -1 or 1 (multi-GPU, ROADMAP A6)
+raises NotImplementedError.
 
 Usage:
     python -m nersemble_tpu_torch.scripts.train_nersemble <participant_id> <sequence_name> [flags]
@@ -260,9 +261,6 @@ def main(argv=None, step_hook=None):
     """Parse ``argv``, build or reopen the run, train. ``step_hook``:
     ``NeRSembleTrainer.step_hook`` of the run (for instrumentation)."""
     args = build_parser().parse_args(argv)
-    if args.vis == "viewer":
-        raise NotImplementedError("--vis viewer: the live viewer is not ported "
-                                  "yet (ROADMAP A5)")
     if args.data_axis_size not in (-1, 1):
         raise NotImplementedError(f"--data-axis-size {args.data_axis_size}: the "
                                   f"port trains on one device (ROADMAP A6)")
@@ -293,6 +291,8 @@ def main(argv=None, step_hook=None):
         result = trainer.train()
     finally:
         trainer.writer.close()
+        if trainer.viewer is not None:
+            trainer.viewer.close()
     print(f"[nersemble-torch] DONE step={result.get('step')} "
           f"loss={result.get('loss'):.4f} psnr={result.get('train_psnr', 0):.2f}")
     return result

@@ -18,6 +18,16 @@ def resolve_device(device="cuda") -> torch.device:
     return device
 
 
+def to_device(array, device: torch.device) -> torch.Tensor:
+    """A host array or tensor on ``device``. Host data reaches a GPU by a
+    non-blocking copy from page-locked memory: a copy from pageable memory
+    would wait for the GPU's queue to drain."""
+    t = torch.as_tensor(array)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 @functools.lru_cache(maxsize=64)
 def device_constant(values: Tuple[float, ...], dtype: torch.dtype,
                     device) -> torch.Tensor:

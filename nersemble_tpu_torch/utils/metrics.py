@@ -6,17 +6,18 @@ sigma 1.5, k1=0.01, k2=0.03, data_range=1.0, per channel (a depthwise valid
 convolution) then averaged, with the moments projected back to the
 feasible set where the f32 ``mu_xx - mu_x**2`` cancellation breaks them.
 
-LPIPS needs pretrained VGG weights; ``lpips_or_none`` returns None without
-them, as the JAX package does, and raises when ``NERSEMBLE_LPIPS_WEIGHTS``
-names a weights file, since the port has no LPIPS network yet (ROADMAP A5).
+LPIPS needs pretrained VGG weights (``NERSEMBLE_LPIPS_WEIGHTS``, see
+utils/lpips.py); without them it is None, as in the JAX package. The metrics
+run on the device the caller names: the card unless the caller asks for the
+CPU (``utils/device.resolve_device``).
 """
-
-import os
-from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from nersemble_tpu_torch.utils.device import resolve_device
+from nersemble_tpu_torch.utils.lpips import lpips_or_none
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -68,17 +69,6 @@ def ssim(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0,
     return torch.mean(num / den)
 
 
-def lpips_or_none(pred: np.ndarray, target: np.ndarray) -> Optional[float]:
-    """None: LPIPS without weights, as in the JAX package. With weights
-    (``NERSEMBLE_LPIPS_WEIGHTS`` naming a file) the JAX package computes it;
-    the port cannot yet, so it raises instead of returning None."""
-    path = os.environ.get("NERSEMBLE_LPIPS_WEIGHTS")
-    if path and os.path.exists(path):
-        raise NotImplementedError("LPIPS is not ported yet (ROADMAP A5); unset "
-                                  "NERSEMBLE_LPIPS_WEIGHTS to evaluate without it")
-    return None
-
-
 def apply_alpha_mask(image: np.ndarray, alpha: np.ndarray,
                      background: float = 1.0) -> np.ndarray:
     """Blend an [H, W, 3] float image against the background with [H, W]
@@ -87,11 +77,12 @@ def apply_alpha_mask(image: np.ndarray, alpha: np.ndarray,
     return a * image + (1 - a) * background
 
 
-def image_metrics(pred: np.ndarray, gt: np.ndarray, alpha=None, device="cpu"):
+def image_metrics(pred: np.ndarray, gt: np.ndarray, alpha=None, device="cuda"):
     """(regular, masked) dicts of psnr/ssim/mse/lpips for one [H, W, 3] pair,
-    computed on ``device``. The masked variants blend both images against
-    the background with the GT alpha map first; ``masked`` values are None
-    when ``alpha`` is None."""
+    computed on ``device`` (the card unless the caller names another). The
+    masked variants blend both images against the background with the GT
+    alpha map first; ``masked`` values are None when ``alpha`` is None."""
+    device = resolve_device(device)
 
     def bundle(p, g):
         pt = torch.as_tensor(np.asarray(p, np.float32), device=device)
@@ -100,7 +91,7 @@ def image_metrics(pred: np.ndarray, gt: np.ndarray, alpha=None, device="cpu"):
             "psnr": float(psnr(pt, gt_)),
             "ssim": float(ssim(pt, gt_)),
             "mse": float(mse(pt, gt_)),
-            "lpips": lpips_or_none(p, g),
+            "lpips": lpips_or_none(p, g, device),
         }
 
     regular = bundle(pred, gt)

@@ -1,0 +1,3 @@
+from nersemble_tpu_torch.viewer.server import ViewerServer, encode_image, orbit_pose
+
+__all__ = ["ViewerServer", "encode_image", "orbit_pose"]

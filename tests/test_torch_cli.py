@@ -246,8 +246,8 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(runs, monkeypatch):
         NeRSembleTrainer.from_train_config(config)
 
 
-@pytest.mark.parametrize("flags,match", [(["--vis", "viewer"], "viewer"),
-                                         (["--data-axis-size", "2"], "one device")])
+@pytest.mark.parametrize("flags,match", [(["--data-axis-size", "2"], "one device")])
 def test_parts_not_ported_raise(flags, match):
+    """``--vis viewer`` is ported: tests/test_torch_viewer.py trains with it."""
     with pytest.raises(NotImplementedError, match=match):
         tcli.main(SEQ + TINY + CPU + flags)

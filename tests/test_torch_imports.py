@@ -1,5 +1,6 @@
 """The port imports without JAX, YAML or the imaging and plotting packages
-(the card's Python has none of them), its configs equal the JAX ones, and
+(the card's Python has none of them) and without scipy until a function
+needs it, its configs equal the JAX ones, and
 structural rules hold in its sources (no bitcast carriers, no host syncs in
 the training step and in the loop's steps outside its cadences)."""
 
@@ -31,14 +32,25 @@ def _submodules():
 
 # packages the JAX package uses that the card's Python does not have
 BLOCKED = ("jax", "yaml", "imageio", "PIL", "matplotlib", "cv2")
+# imported only inside the functions that need them (the host-side filter
+# and JOD of the evaluate CLI)
+LAZY = ("scipy",)
 
 
 def test_imports_without_jax_and_yaml():
     names = _submodules()
-    assert "nersemble_tpu_torch.models.nersemble" in names
-    assert "nersemble_tpu_torch.scripts.train_nersemble" in names
+    assert {"nersemble_tpu_torch.models.nersemble",
+            "nersemble_tpu_torch.scripts.train_nersemble",
+            "nersemble_tpu_torch.scripts.evaluate_nersemble",
+            "nersemble_tpu_torch.scripts.render_nersemble",
+            "nersemble_tpu_torch.scripts.view_nersemble",
+            "nersemble_tpu_torch.viewer.server",
+            "nersemble_tpu_torch.utils.connected_components",
+            "nersemble_tpu_torch.utils.fvvdp", "nersemble_tpu_torch.utils.jod",
+            "nersemble_tpu_torch.utils.lpips",
+            "nersemble_tpu_torch.utils.videoio"} <= set(names)
     code = ("import sys\n"
-            f"for blocked in {BLOCKED!r}:\n"
+            f"for blocked in {BLOCKED + LAZY!r}:\n"
             "    sys.modules[blocked] = None\n"
             "import importlib\n"
             f"for name in {names!r}:\n"
@@ -153,18 +165,20 @@ CADENCE_READERS = {"_log", "_eval_batch", "_eval_image", "_train_image",
 def test_no_host_sync_in_the_loop_outside_its_cadences():
     """The loop's steps that log, evaluate and save nothing make no
     synchronizing call: the batch arrives through page-locked memory
-    (``DeviceBatches.__next__``), host draws through ``_on_device``, and
+    (``DeviceBatches.__next__``), host draws through ``to_device``, and
     ``train`` reads device values only through CADENCE_READERS, each
     called inside a cadence branch."""
     from nersemble_tpu_torch.data.ray_batcher import DeviceBatches
     from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
-    for fn in (DeviceBatches.__next__, NeRSembleTrainer._on_device,
-               NeRSembleTrainer.train):
+    from nersemble_tpu_torch.utils.device import to_device
+    for fn in (DeviceBatches.__next__, to_device, NeRSembleTrainer.train):
         source = inspect.getsource(fn)
         assert not HOST_SYNC.search(source), fn.__name__
         assert not re.search(r"\b(float|int|bool)\(", source), fn.__name__
     assert "non_blocking=True" in inspect.getsource(DeviceBatches.__next__)
-    assert "pin_memory" in inspect.getsource(NeRSembleTrainer._on_device)
+    for fn in (NeRSembleTrainer.train_step, NeRSembleTrainer.maybe_update_occupancy):
+        assert "to_device(" in inspect.getsource(fn), fn.__name__
+    assert "pin_memory().to(device, non_blocking=True)" in inspect.getsource(to_device)
 
     tree = ast.parse(textwrap.dedent(inspect.getsource(NeRSembleTrainer.train)))
     (loop,) = [node for node in ast.walk(tree) if isinstance(node, ast.For)]

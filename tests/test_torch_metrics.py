@@ -2,7 +2,8 @@
 PSNR, SSIM and MSE within 1e-5 (identical images included; in the f32
 cancellation case of tests/test_metrics_golden.py both are held to SSIM's
 bound instead), the masked bundle, the uint8 alpha blend bit-exact, LPIPS
-absent without weights, and the colormap tables equal to matplotlib's."""
+absent without weights and computed with them (held to the JAX package in
+tests/test_torch_serve.py), and the colormap tables equal to matplotlib's."""
 
 import os
 
@@ -69,7 +70,7 @@ def test_image_metrics_bundle_matches(with_alpha):
     pred, gt = _pair(5)
     alpha = np.random.default_rng(6).uniform(size=gt.shape[:2]).astype(np.float32) \
         if with_alpha else None
-    ours = TM.image_metrics(pred, gt, alpha)
+    ours = TM.image_metrics(pred, gt, alpha, "cpu")
     theirs = JM.image_metrics(pred, gt, alpha)
     for o, t in zip(ours, theirs):
         assert o.keys() == t.keys()
@@ -92,15 +93,37 @@ def test_alpha_mask_and_blend_match():
 
 
 def test_lpips_is_none_without_weights_and_raises_with_them(tmp_path, monkeypatch):
+    """None without weights; with a weights file LPIPS is computed (it no
+    longer raises), on the device the caller names: here 0 for identical
+    images under one-tap weights, with the default device the card."""
+    from nersemble_tpu_torch.utils import lpips
     monkeypatch.delenv("NERSEMBLE_LPIPS_WEIGHTS", raising=False)
+    lpips.reset_lpips_cache()
     img = np.zeros((16, 16, 3), np.float32)
     assert TM.lpips_or_none(img, img) is None
     weights = tmp_path / "vgg.npz"
-    np.savez(weights, x=np.zeros(1))
+    rng = np.random.default_rng(0)
+    layers = {f"features.{i}.weight": rng.normal(0, 0.1, (8, c, 3, 3)).astype(np.float32)
+              for i, c in ((0, 3), (2, 8), (5, 8), (7, 8), (10, 8), (12, 8), (14, 8),
+                           (17, 8), (19, 8), (21, 8), (24, 8), (26, 8), (28, 8))}
+    layers.update({k.replace("weight", "bias"): np.zeros(8, np.float32) for k in list(layers)})
+    layers.update({f"lin{k}.model.1.weight": np.full((1, 8, 1, 1), 0.1, np.float32)
+                   for k in range(5)})
+    np.savez(weights, **layers)
     monkeypatch.setenv("NERSEMBLE_LPIPS_WEIGHTS", str(weights))
     assert os.path.exists(os.environ["NERSEMBLE_LPIPS_WEIGHTS"])
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        TM.image_metrics(img, img)
+    lpips.reset_lpips_cache()  # the weights are read once per process
+    try:
+        regular, _ = TM.image_metrics(img, img, None, "cpu")
+        assert regular["lpips"] == 0.0
+        other = np.full((16, 16, 3), 0.5, np.float32)
+        assert TM.lpips_or_none(img + rng.uniform(size=img.shape).astype(np.float32),
+                                other, "cpu") > 0
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TM.image_metrics(img, img)
+    finally:
+        lpips.reset_lpips_cache()
 
 
 @pytest.mark.parametrize("cmap", ["viridis", "turbo"])
