@@ -26,7 +26,14 @@ Phases, each printing its own lines:
                   output, mean error under 1e-5 of the mean output, for dx,
                   every dW and db), each MLP printed with its TFLOP/s, its
                   bound for the bf16 split it runs and the bound of the
-                  f32-product route;
+                  f32-product route; then B3 and B4 on narrow rows, the
+                  single-grid field's [6,184,960, 2] bf16 table (4-byte rows)
+                  and its [6,184,960, 8] gradient (4-byte quarters),
+                  bit-exact, timed beside their bound, and B1-fwd and B2 on
+                  the colour head at the other configurations' input widths
+                  31 (SH degree 4), 50 (appearance embedding) and 63 (both)
+                  at 98,304 rows, within the same bounds, with the share of
+                  their bound;
  3b. copy kernels -- the measurement path's kernels vs their plain versions,
                   bit-exact, with the time of the one PyTorch call that
                   computes the same function: the row gather (P1) at the
@@ -132,9 +139,31 @@ Phases, each printing its own lines:
                   Prints seconds and launches per image / frame / request,
                   hit fractions, the filter's kept cells, JOD seconds, the
                   probed budget, ms for None vs auto and peak memory per CLI.
+ 14. variants  -- the model's other configurations, on phase 12's capture:
+                  (a) the train CLI with --no-use-hash-ensemble --cone-angle
+                  0.004 --early-stop-eps 1e-4 at its other defaults, 24 steps
+                  with an eval image at 16 and one save; losses finite and
+                  falling, all four train-path kernels launching and every
+                  B3/B4 launch on narrow rows; then the evaluate CLI on 4
+                  views without the filter and 2 frames of the render CLI
+                  (each frame under set_sync_debug_mode("warn") as in phase
+                  13); (b) NeRSembleTrainer.from_train_config with the
+                  flagship model plus SH degree 4 and the appearance
+                  embedding, 10 steps with an eval image at 8; B1-fwd must
+                  launch on the colour head at d_in 63; then the appearance
+                  gather's backward timed beside the time codes' at the
+                  step's sample count. For (a) and (b): ms/step of quiet
+                  steps (under set_sync_debug_mode("error")), seconds per
+                  eval image, peak memory, launches. (c) every configuration
+                  of tests/test_torch_variants.py (TINY_VARIANTS): the tiny
+                  train step and a 32x24 frame on the GPU vs the port's CPU
+                  path within TRAIN_REF_TOL and REF_TOL; the cone variant's
+                  frame must take the two-phase prefilter.
 Then one JSON line with the eight kernels (launches on the training path
 for B1-B4 and on the measurement path for P1-P4, times, the bound and the
-library call's time), and the last line
+library call's time; B3/B4 also with their narrow-row time and bound, B1-fwd
+and B2 with the variant heads', and B1-B4 with their launches in phase
+14's runs (a) and (b)), and the last line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
 and the last line is not printed. Without a CUDA device nothing runs.
 """
@@ -164,7 +193,8 @@ REF_TOL = dict(rtol=0.0, atol=1e-4)
 PROFILE_RANGES = ("render:march", "render:sigma_probe", "render:field",
                   "field:hash_encode")
 OWN_KERNELS = ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel", "pack_stream_kernel",
-               "partial_sum_kernel", "quad_build_kernel", "quad_fold_kernel")
+               "partial_sum_kernel", "quad_build_kernel", "quad_fold_kernel",
+               "quad_build_narrow_kernel", "quad_fold_narrow_kernel")
 TRAIN_RAYS, TRAIN_STEPS = 4096, 10
 BENCH_ITERS = 5
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
@@ -232,10 +262,66 @@ SERVE_SYNC_FILES = {"renderer.py", "sampling.py"}
 # crosses only ~3 occupied cells, ~10 samples (a carved scene's count), so
 # the default budget (32 samples per ray) drops none
 SERVE_SPARSE_FILL = 0.001
+# the colour head's input width under the other configurations: direction
+# encoding (3, or 16 at SH degree 4) + 15 geo features (+ 32 appearance)
+VARIANT_HEAD_WIDTHS = {"SH 4": 31, "appearance": 50, "SH 4 + appearance": 63}
+# the variants phase on the sequence phase's capture: (a) the train CLI with
+# the single-grid field, nerfstudio's Instant-NGP cone angle and early stop,
+# at its other defaults; (b) the flagship with SH degree 4 and the
+# appearance embedding through NeRSembleTrainer.from_train_config
+VAR_A_NAME, VAR_A_STEPS, VAR_A_QUIET = "single", 24, (11, 15)
+VAR_A_FLAGS = ["--no-use-hash-ensemble", "--cone-angle", "0.004",
+               "--early-stop-eps", "1e-4", "--steps-per-eval-batch", "0",
+               "--steps-per-eval-image", "16", "--steps-per-eval-all-images", "0",
+               "--steps-per-save", "1000"]
+VAR_B_NAME, VAR_B_STEPS, VAR_B_QUIET = "shapp", 10, (2, 7)
+VAR_B_FLAGS = ["--steps-per-eval-batch", "0", "--steps-per-eval-image", "8",
+               "--steps-per-eval-all-images", "0", "--steps-per-save", "1000"]
+VAR_EVALS = ("_eval_image", "_train_image", "save_run_checkpoint")
+
+
+def _single_grid(cfg):
+    cfg.use_hash_ensemble, cfg.hash_ensemble = False, None
+    cfg.num_levels, cfg.log2_hashmap_size = 4, 10
+    cfg.base_resolution, cfg.max_res = 4, 32
+
+
+def _static(cfg):
+    cfg.use_deformation_field, cfg.deformation_field = False, None
+
+
+def _cone(cfg):
+    cfg.cone_angle, cfg.grid_levels = 0.004, 2
+    cfg.sampling.eval_fine_candidates = 256  # below the auto 512: two-phase
+
+
+def _early_stop(cfg):
+    cfg.early_stop_eps = 1e-4
+
+
+def _sh_appearance(cfg):
+    cfg.spherical_harmonics_degree = 4
+    cfg.use_appearance_embedding, cfg.num_images = True, 5
+
+
+# the other configurations as edits of the tiny flagship config (of either
+# package: tests/test_torch_variants.py holds the port to JAX on them)
+TINY_VARIANTS = {
+    "single_grid": (_single_grid,),
+    "single_grid_static": (_single_grid, _static),
+    "ensemble_static": (_static,),
+    "cone": (_cone,),
+    "early_stop": (_early_stop,),
+    "sh_appearance": (_sh_appearance,),
+}
+
+
+T0 = time.perf_counter()
 
 
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of a phase, with the seconds since the script started."""
+    print(f"[{phase} +{time.perf_counter() - T0:.0f}s] {msg}", flush=True)
 
 
 def kernel_entry(err: float, ms: float, plain_ms: float, bound, library_ms=None) -> dict:
@@ -305,6 +391,17 @@ def mlp_shapes(cfg):
     }
 
 
+def single_grid_levels():
+    """The table layout of the single-grid field at the train CLI's
+    defaults (16 levels, 2^19 rows, resolution 16 to 2048)."""
+    from nersemble_tpu_torch.models.field import build_levels
+    from nersemble_tpu_torch.scripts import train_nersemble
+
+    args = train_nersemble.build_parser().parse_args(
+        SEQ_ARGS[:2] + ["--no-use-hash-ensemble"])
+    return build_levels(train_nersemble.build_config(args, "levels", ".").model)
+
+
 def kernel_device_ms(fn, kernel: str, iters: int = 20) -> float:
     """Mean device time per launch of ``kernel`` over ``iters`` calls of
     ``fn`` under torch.profiler: the kernel's own time. CUDA events around
@@ -316,20 +413,27 @@ def kernel_device_ms(fn, kernel: str, iters: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    own = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-           and e.key.removeprefix("void ").startswith((kernel + "(", kernel + "<"))]
     # the mean over the launches the profiler recorded: a series of
-    # back-to-back profiles can lose one kernel record (19 of 20 seen once
-    # on an H100); more than were launched would mean a wrong attribution
-    seen = sum(e.count for e in own)
-    if not iters // 2 <= seen <= iters:
-        raise AssertionError(f"the profiler saw {[e.count for e in own]} launches of "
-                             f"{kernel}, not {iters}")
-    return sum(e.self_device_time_total for e in own) / seen / 1e3
+    # back-to-back profiles can lose kernel records (19 of 20 seen once on
+    # an H100, none of 20 in another run), so a short count profiles again,
+    # up to three times; more than were launched would mean a wrong
+    # attribution
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        own = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and e.key.removeprefix("void ").startswith((kernel + "(", kernel + "<"))]
+        seen = sum(e.count for e in own)
+        if seen > iters:
+            break
+        if iters // 2 <= seen:
+            return sum(e.self_device_time_total for e in own) / seen / 1e3
+        log("kernels", f"the profiler saw {seen} of {iters} launches of {kernel}; "
+                       f"profiling again")
+    raise AssertionError(f"the profiler saw {[e.count for e in own]} launches of "
+                         f"{kernel}, not {iters}")
 
 
 def unfused_chain(params, x, out_activation, skips):
@@ -425,11 +529,41 @@ def kernel_phase(cfg, levels, device):
     del grad
     torch.cuda.empty_cache()
 
-    # summed over the stem, base and head: max err, ms, plain ms, then the
-    # bound of each launch (the larger of bytes and operations) summed
-    fwd = [0.0, 0.0, 0.0, []]
-    bwd = [0.0, 0.0, 0.0, []]
-    for name, (d_in, d_out, n_layers, w, skips, bias, act) in mlp_shapes(cfg).items():
+    # the single-grid field's table: B3 on rows of 4 bytes (2 bf16 features)
+    # and B4 on its gradient's 4-byte quarters
+    sg_levels = single_grid_levels()
+    table = ((torch.rand(sg_levels.total_entries, 2, generator=gen,
+                         device=device) - 0.5) * 2e-4).to(torch.bfloat16)
+    grad = ((torch.rand(sg_levels.total_entries, 8, generator=gen,
+                        device=device) - 0.5) * 2e-3).to(torch.bfloat16)
+    for kernel, what, x, run, plain_fn in (
+            ("quad_build", "B3 quad_build", table, quad_kernel.quad_build_cuda,
+             quad_kernel.quad_build_plain),
+            ("quad_fold", "B4 quad_fold", grad, quad_kernel.quad_fold_cuda,
+             quad_kernel.quad_fold_plain)):
+        out, plain = run(x, sg_levels), plain_fn(x, sg_levels)
+        torch.cuda.synchronize()
+        if not torch.equal(out, plain):
+            raise AssertionError(f"{what} on narrow rows differs from its plain version")
+        shape = tuple(out.shape)
+        del out, plain
+        k_ms = cuda_time_ms(lambda: run(x, sg_levels))
+        p_ms = cuda_time_ms(lambda: plain_fn(x, sg_levels))
+        moved = x.numel() * x.element_size() * (5 if kernel == "quad_build" else 1.25)
+        bound = bound_ms(moved)
+        results[kernel].update(narrow_shape=list(x.shape), narrow_ms=k_ms,
+                               narrow_plain_ms=p_ms, narrow_bound_ms=bound[0])
+        log("kernels", f"{what} narrow rows {tuple(x.shape)} -> {shape} bf16: "
+                       f"bit-exact; kernel {k_ms:.4f} ms ({moved / k_ms / 1e6:.0f} GB/s, "
+                       f"bound {bound[0]:.4f} ms, {100 * bound[0] / k_ms:.1f}% of it), "
+                       f"plain {p_ms:.3f} ms")
+    del table, grad
+    torch.cuda.empty_cache()
+
+    def check_mlp(name, d_in, d_out, n_layers, w, skips, bias, act):
+        """B1-fwd and B2 on one MLP at MLP_ROWS rows against their plain
+        versions; returns ((err, ms, plain ms, bound) forward, the same
+        backward)."""
         params = ParamTree(init_mlp(gen, d_in, d_out, n_layers, w, skips, bias))
         x = torch.randn(MLP_ROWS, d_in, generator=gen, device=device)
         out = fused_mlp.fused_mlp_cuda(params, x, act, skips)
@@ -460,8 +594,7 @@ def kernel_phase(cfg, levels, device):
                            f"products with bias, relu and concat, unfused, "
                            f"{u_ms:.4f} ms ({fwd_flops / u_ms / 1e9:.1f} TFLOP/s); "
                            f"the kernel takes {k_ms / u_ms:.2f}x its time")
-        fwd = [max(fwd[0], e["max_abs"]), fwd[1] + k_ms, fwd[2] + p_ms,
-               fwd[3] + [fwd_bound]]
+        fwd = (e["max_abs"], k_ms, p_ms, fwd_bound)
 
         fused_mlp.positive_(params, gen)
         x = fused_mlp.positive_input(MLP_ROWS, d_in, gen)
@@ -499,14 +632,34 @@ def kernel_phase(cfg, levels, device):
                        f"{with_parts[0]:.3f} ms with the partials' "
                        f"{work['partial_bytes'] / 1e9:.2f} GB, f32-product route "
                        f"{f32_route[0]:.3f} ms; plain {p_ms:.3f} ms")
-        bwd = [max(bwd[0], e["max_abs"]), bwd[1] + k_ms, bwd[2] + p_ms,
-               bwd[3] + [bwd_bound]]
-        del params, x, g, out, ref, outs, refs
-    for name, (err, k_ms, p_ms, bounds) in (("fused_mlp_fwd", fwd),
-                                            ("fused_mlp_bwd", bwd)):
+        return fwd, (e["max_abs"], k_ms, p_ms, bwd_bound)
+
+    # summed over the stem, base and head: max err, ms, plain ms, then the
+    # bound of each launch (the larger of bytes and operations) summed
+    sums = {"fused_mlp_fwd": [], "fused_mlp_bwd": []}
+    for name, shape in mlp_shapes(cfg).items():
+        for kernel, entry in zip(sums, check_mlp(name, *shape)):
+            sums[kernel].append(entry)
+    for kernel, entries in sums.items():
+        bounds = [b for *_, b in entries]
         largest = max(bounds)  # the stem's: it names what bounds the sum
-        results[name] = kernel_entry(err, k_ms, p_ms,
-                                     (sum(b[0] for b in bounds), largest[1]))
+        results[kernel] = kernel_entry(max(e[0] for e in entries),
+                                       sum(e[1] for e in entries),
+                                       sum(e[2] for e in entries),
+                                       (sum(b[0] for b in bounds), largest[1]))
+    # the colour head at the other configurations' input widths
+    head = mlp_shapes(cfg)["head"]
+    for kernel in sums:
+        results[kernel]["variant_heads"] = []
+    for what, d_in in VARIANT_HEAD_WIDTHS.items():
+        for kernel, (err, k_ms, p_ms, bound) in zip(
+                sums, check_mlp(f"head ({what})", d_in, *head[1:])):
+            results[kernel]["variant_heads"].append(
+                {"d_in": d_in, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                 "bound_ms": bound[0], "bound_by": bound[1]})
+            log("kernels", f"{'B1-fwd' if kernel == 'fused_mlp_fwd' else 'B2'} head "
+                           f"at d_in {d_in} ({what}): {k_ms:.4f} ms, "
+                           f"{100 * bound[0] / k_ms:.1f}% of its bound {bound[0]:.4f} ms")
     torch.cuda.empty_cache()
     return results
 
@@ -621,7 +774,8 @@ def tiny_train_grads(cfg, params, device):
     for q in p.parameters():
         q.requires_grad_(True)
     rng = np.random.default_rng(0)
-    occ = torch.from_numpy((rng.uniform(size=16 ** 3) < 0.3).astype(np.float32))
+    n_cells = model.init_grid_occs().numel()
+    occ = torch.from_numpy((rng.uniform(size=n_cells) < 0.3).astype(np.float32))
     d = rng.normal(size=(256, 3)) * [0.05, 0.3, 0.3] + [1.0, 0.0, 0.0]
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     batch = {"origins": torch.tensor([[-8.0, 0.0, 0.0]]).repeat(256, 1),
@@ -630,18 +784,23 @@ def tiny_train_grads(cfg, params, device):
              "rgb": torch.from_numpy(rng.uniform(size=(256, 3)).astype(np.float32)),
              "alpha": torch.from_numpy(rng.uniform(size=256).astype(np.float32)),
              "depth": torch.from_numpy(rng.uniform(7.5, 9.5, 256).astype(np.float32))}
-    batch = {k: v.to(device) for k, v in batch.items()}
     jitter = torch.from_numpy(rng.uniform(size=256).astype(np.float32)).to(device)
+    batch["camera_indices"] = torch.from_numpy(rng.integers(0, max(cfg.num_images, 1), 256))
+    batch = {k: v.to(device) for k, v in batch.items()}
     sched = {"window_deform": 7.0, "window_hash": 8.0, "eps_depth": 0.3}
     out = model.render_rays(p, batch, model.binaries(occ.to(device)), sched,
                             train=True, budget=2048, jitter=jitter)
     losses = model.compute_losses(out, batch, sched, train=True)
     sum(losses.values()).backward()
     return ({k: float(v.detach()) for k, v in losses.items()},
-            {k: q.grad.cpu() for k, q in p.named_parameters()})
+            {k: torch.zeros(q.shape) if q.grad is None else q.grad.cpu()
+             for k, q in p.named_parameters()})
 
 
-def train_reference_phase(device) -> None:
+def tiny_config(variant=None):
+    """The tiny flagship config (training at half the slots' budget), with
+    the edits of ``TINY_VARIANTS[variant]``; and its contrast-scaled random
+    parameters on the CPU."""
     import torch
     from nersemble_tpu_torch.config import flagship_model_config
     from nersemble_tpu_torch.models.nersemble import NeRSembleModel
@@ -649,8 +808,16 @@ def train_reference_phase(device) -> None:
 
     cfg = flagship_model_config(tiny=True)
     cfg.sampling.global_budget_fraction = 0.5
+    for edit in TINY_VARIANTS.get(variant, ()):
+        edit(cfg)
     params = add_contrast(NeRSembleModel(cfg, "cpu").init_params(
         torch.Generator().manual_seed(SEED)))
+    return cfg, params
+
+
+def train_reference_phase(device, variant=None, phase="train reference") -> None:
+    """The tiny step on ``device`` vs the port's CPU path (TRAIN_REF_TOL)."""
+    cfg, params = tiny_config(variant)
     ref_losses, ref_grads = tiny_train_grads(cfg, params, "cpu")
     losses, grads = tiny_train_grads(cfg, params, device)
     loss_err = max(abs(losses[k] - ref_losses[k]) / max(abs(ref_losses[k]), 1e-30)
@@ -661,16 +828,49 @@ def train_reference_phase(device) -> None:
         atol = (TRAIN_REF_TOL["table_atol"] if k == "field.table"
                 else TRAIN_REF_TOL["atol"]) * scale
         excess = (grads[k] - ref).abs() - TRAIN_REF_TOL["rtol"] * ref.abs()
-        worst[k] = float(excess.max()) / atol if scale > 0 else math.inf
-    log("train reference", f"tiny step GPU vs CPU: losses max rel err {loss_err:.2e} "
-                           f"(tol {TRAIN_REF_TOL['loss_rtol']:g}); gradient leaves, "
-                           f"worst (|err| - rtol*|ref|) / atol: "
-                           f"{max(worst.values()):.3f} at {max(worst, key=worst.get)} "
-                           f"(pass <= 1)")
+        if scale > 0:
+            worst[k] = float(excess.max()) / atol
+        else:  # a leaf the loss does not reach
+            worst[k] = 0.0 if float(grads[k].abs().max()) == 0 else math.inf
+    log(phase, f"tiny step GPU vs CPU: losses max rel err {loss_err:.2e} "
+               f"(tol {TRAIN_REF_TOL['loss_rtol']:g}); gradient leaves, "
+               f"worst (|err| - rtol*|ref|) / atol: "
+               f"{max(worst.values()):.3f} at {max(worst, key=worst.get)} "
+               f"(pass <= 1)")
     if not loss_err <= TRAIN_REF_TOL["loss_rtol"]:
         raise AssertionError(f"GPU losses {losses} vs CPU {ref_losses}")
     if not max(worst.values()) <= 1.0:
         raise AssertionError(f"GPU gradients differ from the CPU path: {worst}")
+
+
+def frame_reference(device, variant=None, phase="variants") -> None:
+    """A REF_W x REF_H frame of the tiny config (with a variant's edits) on
+    ``device`` vs the port's CPU path, within REF_TOL."""
+    import torch
+    from nersemble_tpu_torch.engine.renderer import Renderer
+    from nersemble_tpu_torch.models.nersemble import NeRSembleModel
+    from nersemble_tpu_torch.utils.cameras import pinhole_frame, synthetic_occupancy
+
+    cfg, params = tiny_config(variant)
+    grid = torch.from_numpy(np.concatenate([
+        synthetic_occupancy(cfg.grid_resolution, 0.3, seed=level)
+        for level in range(cfg.grid_levels)]))
+    frame = pinhole_frame(REF_H, REF_W, TIMESTEPS[1])
+    images = {}
+    for dev in (device, "cpu"):
+        renderer = Renderer(NeRSembleModel(cfg, dev), copy.deepcopy(params).to(dev),
+                            grid.to(dev))
+        images[str(dev)] = renderer.render_image(frame, cfg.window_hash_encodings_end,
+                                                 chunk=REF_CHUNK)
+    ours, ref = images[str(device)], images["cpu"]
+    errs = {key: float(np.abs(ours[key] - ref[key]).max()) for key in ref}
+    log(phase, f"{REF_W}x{REF_H} frame GPU vs CPU max abs err {errs} (tol {REF_TOL}); "
+               f"accumulation max {ref['accumulation'].max():.4f}")
+    if not ref["accumulation"].max() > 0.01:
+        raise AssertionError(f"{variant}: the reference frame is empty")
+    for key in ref:
+        np.testing.assert_allclose(ours[key], ref[key], **REF_TOL,
+                                   err_msg=f"{variant} {key}")
 
 
 def copy_kernel_phase(levels, device):
@@ -838,7 +1038,8 @@ class SeqMonitor:
     synchronize before, outside the quiet window), and runs the quiet steps
     under torch.cuda.set_sync_debug_mode("error") between two synchronizes."""
 
-    def __init__(self):
+    def __init__(self, quiet=SEQ_QUIET, evals=SEQ_EVALS):
+        self.quiet, self.evals = quiet, evals
         self.trainer = None
         self.first_step = self.start_budget = None
         self.budgets = {}
@@ -863,20 +1064,20 @@ class SeqMonitor:
         if self.trainer is None:
             self.trainer, self.first_step = trainer, step
             self.start_budget = trainer._budget
-            for name in SEQ_EVALS:
+            for name in self.evals:
                 setattr(trainer, name, self._timed(name, getattr(trainer, name)))
         if phase == "begin":
             self.budgets[step] = trainer._budget
-        if phase == "begin" and step == SEQ_QUIET[0]:
+        if phase == "begin" and step == self.quiet[0]:
             torch.cuda.synchronize()
             self._quiet = (time.perf_counter(), trainer.batches.wait_s,
                            trainer.batches.copy_s)
             torch.cuda.set_sync_debug_mode("error")
-        if phase == "end" and step == SEQ_QUIET[1]:
+        if phase == "end" and step == self.quiet[1]:
             torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
             start, wait_s, copy_s = self._quiet
-            n = SEQ_QUIET[1] - SEQ_QUIET[0] + 1
+            n = self.quiet[1] - self.quiet[0] + 1
             self.quiet_ms = (time.perf_counter() - start) * 1e3 / n
             self.batch_wait = (trainer.batches.wait_s - wait_s,
                                trainer.batches.copy_s - copy_s)
@@ -891,8 +1092,9 @@ def read_metrics(path) -> dict:
     return steps
 
 
-def sequence_phase(train_step_ms: float) -> None:
-    """The sequence-training path through the train CLI (phase 12)."""
+def sequence_phase(train_step_ms: float) -> dict:
+    """The sequence-training path through the train CLI (phase 12), then
+    phases 13 and 14 on its capture; returns phase 14's launches."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -1019,6 +1221,9 @@ def sequence_phase(train_step_ms: float) -> None:
 
         # ---- 13. serve: the serving CLIs on this run ----------------------------
         serve_phase(root, f"NERS-001-{SEQ_NAME}")
+
+        # ---- 14. variants: the model's other configurations -------------------
+        return variants_phase(root, torch.device("cuda"))
     finally:
         env.NERSEMBLE_DATA_PATH, env.NERSEMBLE_MODELS_PATH = saved_env
         shutil.rmtree(root, ignore_errors=True)
@@ -1377,6 +1582,232 @@ def serve_phase(root, run_name: str) -> None:
         torch.cuda.empty_cache()
 
 
+def _reset_launches() -> None:
+    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+    fused_mlp.LAUNCHES = fused_mlp.BWD_LAUNCHES = 0
+    quad_kernel.LAUNCHES = quad_kernel.FOLD_LAUNCHES = 0
+    quad_kernel.NARROW_LAUNCHES = quad_kernel.NARROW_FOLD_LAUNCHES = 0
+
+
+def _train_launches() -> dict:
+    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+    return {"fused_mlp_fwd": fused_mlp.LAUNCHES, "fused_mlp_bwd": fused_mlp.BWD_LAUNCHES,
+            "quad_build": quad_kernel.LAUNCHES, "quad_fold": quad_kernel.FOLD_LAUNCHES,
+            "quad_build narrow": quad_kernel.NARROW_LAUNCHES,
+            "quad_fold narrow": quad_kernel.NARROW_FOLD_LAUNCHES}
+
+
+def variant_run(what: str, monitor, run_dir, steps: int, run_s: float) -> list:
+    """Print a variant run (quiet ms/step, eval and save seconds, peak
+    memory, budget, launches, logged losses) and hold it: losses finite, the
+    four train-path kernels launched, an eval image rendered, one
+    checkpoint at the last step. Returns the logged losses and the
+    launches."""
+    import torch
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = _train_launches()
+    metrics = read_metrics(run_dir / "metrics.jsonl")
+    losses = [(s, m["train_loss"]) for s, m in sorted(metrics.items())
+              if "train_loss" in m]
+    ckpts = sorted((run_dir / "checkpoints").glob("step-*.ckpt"))
+    trainer = monitor.trainer
+    log("variants", f"({what}) {steps} steps in {run_s:.1f} s: loop "
+                    f"{monitor.quiet_ms:.1f} ms/step over steps {monitor.quiet[0]}-"
+                    f"{monitor.quiet[1]}; eval image s "
+                    f"{[round(x, 3) for x in monitor.seconds['_eval_image']]}, train image s "
+                    f"{[round(x, 3) for x in monitor.seconds['_train_image']]}, save s "
+                    f"{[round(x, 3) for x in monitor.seconds['save_run_checkpoint']]}; "
+                    f"peak memory {peak_gib:.2f} GiB; table "
+                    f"{tuple(trainer.params.field.table.shape)}, candidates "
+                    f"{trainer.config.sampling.max_candidates_per_ray}, budget "
+                    f"{monitor.start_budget} -> {trainer._budget}; launches {launches}; "
+                    f"train_loss {[(s, round(v, 6)) for s, v in losses]}; checkpoints "
+                    f"{[p.name for p in ckpts]}")
+    if not losses or not all(math.isfinite(v) for _, v in losses):
+        raise AssertionError(f"({what}) losses not finite: {losses}")
+    for kernel in ("fused_mlp_fwd", "fused_mlp_bwd", "quad_build", "quad_fold"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"({what}) never launched {kernel}")
+    if not monitor.seconds["_eval_image"] or monitor.quiet_ms is None:
+        raise AssertionError(f"({what}) no eval image or no quiet steps")
+    if [p.name for p in ckpts] != [f"step-{steps - 1:09d}.ckpt"]:
+        raise AssertionError(f"({what}) checkpoints {ckpts}")
+    return losses, launches
+
+
+def variants_phase(root, device) -> dict:
+    """The model's other configurations (phase 14): (a) and (b) on phase
+    12's capture under ``root``, then (c) the tiny variants, GPU vs CPU.
+    Returns the train-path kernels' launches in (a) and (b)."""
+    from pathlib import Path
+
+    import torch
+    import torch.nn.functional as F
+    from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
+    from nersemble_tpu_torch.model_manager import NeRSembleModelFolder
+    from nersemble_tpu_torch.models import nersemble
+    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+    from nersemble_tpu_torch.scripts import (
+        evaluate_nersemble,
+        render_nersemble,
+        train_nersemble,
+    )
+    from nersemble_tpu_torch.utils import png
+    from nersemble_tpu_torch.utils.timing import cuda_time_ms
+
+    # count the two-phase prefilter's entry passes (eval marches only)
+    entry_calls = [0]
+    original_entry = nersemble.coarse_entry_steps
+
+    def counted_entry(*args, **kwargs):
+        entry_calls[0] += 1
+        return original_entry(*args, **kwargs)
+
+    nersemble.coarse_entry_steps = counted_entry
+    try:
+        # (a) the train CLI: single grid, cone angle, early stop
+        fresh_memory("variants")
+        _reset_launches()
+        monitor = SeqMonitor(VAR_A_QUIET, VAR_EVALS)
+        start = time.perf_counter()
+        train_nersemble.main(SEQ_ARGS[:2] + VAR_A_FLAGS + [
+            "--name", VAR_A_NAME, "--max-num-iterations", str(VAR_A_STEPS)],
+            step_hook=monitor)
+        run_dir = monitor.trainer.run_dir
+        run_name = run_dir.name
+        losses, launches_a = variant_run(
+            "a: single grid, cone 0.004, early stop 1e-4", monitor, run_dir,
+            VAR_A_STEPS, time.perf_counter() - start)
+        cfg = monitor.trainer.config
+        log("variants", f"(a) cone angle {cfg.cone_angle}, early_stop_eps "
+                        f"{cfg.early_stop_eps}, {cfg.grid_levels} grid level(s): "
+                        f"{cfg.sampling.max_candidates_per_ray} candidates against "
+                        f"{cfg.sampling.eval_fine_candidates} fine ones, two-phase entry "
+                        f"passes {entry_calls[0]}")
+        if not losses[-1][1] < losses[0][1]:
+            raise AssertionError(f"(a) the loss did not fall: {losses}")
+        if not (quad_kernel.NARROW_LAUNCHES == quad_kernel.LAUNCHES
+                and quad_kernel.NARROW_FOLD_LAUNCHES == quad_kernel.FOLD_LAUNCHES):
+            raise AssertionError(f"(a) B3/B4 ran on rows that are not narrow: "
+                                 f"{_train_launches()}")
+        del monitor, cfg
+
+        with RenderLog() as renders:
+            fresh_memory("variants")
+            start = time.perf_counter()
+            result = evaluate_nersemble.main([run_name, "--max-eval-timesteps", "1",
+                                              "--n-rays-eval", str(CHUNK),
+                                              "--no-use-occupancy-grid-filtering"])
+            eval_s = time.perf_counter() - start
+            evals = summarize_frames("variants", "(a) eval images", renders.take())
+            pngs = sorted((run_dir / "evaluation").rglob("cam_*.png"))
+            log("variants", f"(a) evaluate: {eval_s:.1f} s with set-up, peak memory "
+                            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+                            f"{len(pngs)} PNGs; psnr {result.mean.regular.psnr:.3f}, "
+                            f"ssim {result.mean.regular.ssim:.4f}")
+            renders.trainer = None
+            if len(pngs) != 4 or evals["hit"] == 0 or not (
+                    math.isfinite(result.mean.regular.psnr)
+                    and 0.0 <= result.mean.regular.ssim <= 1.0):
+                raise AssertionError(f"(a) evaluate: {len(pngs)} PNGs, hit "
+                                     f"{evals['hit']}, {result.mean.regular}")
+            fresh_memory("variants")
+            start = time.perf_counter()
+            outputs = render_nersemble.main(
+                [run_name, "--seconds", "1", "--fps", "2", "--downscale-factor", "2",
+                 "--n-rays", str(CHUNK)], renders_path=str(root / "renders"))
+            video = summarize_frames("variants", "(a) video frames", renders.take())
+            shapes = [png.imread(f).shape for f in sorted(Path(outputs["rgb"]).iterdir())]
+            log("variants", f"(a) render: {time.perf_counter() - start:.1f} s with "
+                            f"set-up; frames {shapes}")
+            renders.trainer = None
+            if video["frames"] != 2 or shapes != [(FRAME_H, FRAME_W, 3)] * 2:
+                raise AssertionError(f"(a) render CLI frames {shapes}")
+
+        # (b) the flagship with SH degree 4 and the appearance embedding
+        fresh_memory("variants")
+        _reset_launches()
+        fused_mlp.ROWS = collections.Counter()
+        folder = NeRSembleModelFolder()
+        manager = folder.new_run(name=VAR_B_NAME)
+        args = train_nersemble.build_parser().parse_args(
+            SEQ_ARGS[:2] + VAR_B_FLAGS + ["--max-num-iterations", str(VAR_B_STEPS)])
+        config = train_nersemble.build_config(args, manager.get_run_name(),
+                                              folder.get_location())
+        config.model.spherical_harmonics_degree = 4
+        config.model.use_appearance_embedding = True
+        start = time.perf_counter()
+        trainer = NeRSembleTrainer.from_train_config(config, model_manager=manager)
+        manager.save_config(config)
+        monitor = SeqMonitor(VAR_B_QUIET, VAR_EVALS)
+        trainer.step_hook = monitor
+        try:
+            trainer.train()
+        finally:
+            trainer.writer.close()
+        rows, fused_mlp.ROWS = fused_mlp.ROWS, None
+        _, launches_b = variant_run(
+            "b: flagship, SH 4 + appearance", monitor, Path(manager.get_location()),
+            VAR_B_STEPS, time.perf_counter() - start)
+        heads = {key: n for key, n in rows.items() if key[:2] == (63, 3)}
+        log("variants", f"(b) B1-fwd head launches at d_in 63: {sum(heads.values())} "
+                        f"over {sum(r * n for (_, _, r), n in heads.items())} rows; "
+                        f"appearance embedding "
+                        f"{tuple(trainer.params.field.appearance_embedding.shape)}")
+        if not heads:
+            raise AssertionError(f"(b) no head launch at d_in 63: {sorted(rows)[:8]}")
+        # the appearance gather's backward at the step's sample count: an
+        # embedding backward (segments summed in parallel), not the indexing
+        # backward the time codes take (one warp per run of an index)
+        emb = trainer.params.field.appearance_embedding.detach().clone().requires_grad_(True)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        n_rows = trainer._budget
+        cams = torch.randint(0, emb.shape[0], (n_rows,), generator=gen, device=device)
+        grad = torch.randn(n_rows, emb.shape[1], generator=gen, device=device)
+        timesteps = torch.randint(0, trainer.config.n_timesteps, (n_rows,),
+                                  generator=gen, device=device)
+        codes = trainer.params.time_embedding.detach().clone().requires_grad_(True)
+        code_grad = torch.randn(n_rows, codes.shape[1], generator=gen, device=device)
+        appearance_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            F.embedding(cams, emb), emb, grad))
+        indexing_ms = cuda_time_ms(lambda: torch.autograd.grad(emb[cams], emb, grad))
+        codes_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            codes[timesteps], codes, code_grad))
+        log("variants", f"(b) appearance gather backward at {n_rows} rows over "
+                        f"{emb.shape[0]} images: {appearance_ms:.4f} ms as an embedding "
+                        f"(the port's), {indexing_ms:.4f} ms by indexing; the time "
+                        f"codes' indexing backward over {codes.shape[0]} timesteps "
+                        f"{codes_ms:.4f} ms")
+        del trainer, monitor, emb, cams, grad, codes, code_grad, timesteps
+        torch.cuda.empty_cache()
+    finally:
+        nersemble.coarse_entry_steps = original_entry
+        fused_mlp.ROWS = None
+
+    # (c) every configuration of tests/test_torch_variants.py: a tiny train
+    # step and a small frame on the GPU vs the port's CPU path
+    entry_calls[0] = 0
+    nersemble.coarse_entry_steps = counted_entry
+    try:
+        for variant in TINY_VARIANTS:
+            _reset_launches()
+            train_reference_phase(device, variant, phase=f"variants (c) {variant}")
+            frame_reference(device, variant, phase=f"variants (c) {variant}")
+            launches = _train_launches()
+            if min(launches[k] for k in ("fused_mlp_fwd", "fused_mlp_bwd", "quad_build",
+                                         "quad_fold")) <= 0:
+                raise AssertionError(f"(c) {variant}: launches {launches}")
+            if variant.startswith("single_grid") and launches["quad_build narrow"] <= 0:
+                raise AssertionError(f"(c) {variant}: no narrow B3 launch")
+    finally:
+        nersemble.coarse_entry_steps = original_entry
+    log("variants", f"(c) two-phase entry passes over the tiny variants {entry_calls[0]}")
+    if entry_calls[0] <= 0:
+        raise AssertionError("(c) the cone variant's frame never took the two-phase "
+                             "prefilter")
+    return {"a": launches_a, "b": launches_b}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1519,8 +1950,8 @@ def main() -> None:
     # ---- 11. diagnostics: the measurement scripts --------------------------------
     launches = {**train_launches, **diagnostics_phase()}
 
-    # ---- 12. sequence: the train CLI on a capture on disk -------------------------
-    sequence_phase(train_step_ms)
+    # ---- 12.-14. sequence, serve and variants on a capture on disk ---------------
+    variant_launches = sequence_phase(train_step_ms)
 
     sources = {
         "fused_mlp_fwd": ("fused_mlp_fwd.cu", "nersemble_tpu/ops/fused_mlp.py:71"),
@@ -1535,7 +1966,10 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda",
          "source": f"nersemble_tpu_torch/csrc/{src}", "replaces": replaces,
-         "launches": launches[kernel], **kernel_results[kernel]}
+         "launches": launches[kernel], **kernel_results[kernel],
+         **({"variant_launches": {run: counts[kernel] for run, counts
+                                  in variant_launches.items()}}
+            if kernel in variant_launches["a"] else {})}
         for kernel, (src, replaces) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -51,9 +51,11 @@ from nersemble_tpu_torch.ops.rendering import (
     render_weights,
 )
 from nersemble_tpu_torch.ops.sampling import (
+    coarse_entry_steps,
     compact_samples,
     compact_samples_monotone,
     dilate_binaries,
+    march_range,
     march_rays,
     scatter_rows_back,
 )
@@ -80,16 +82,31 @@ class NeRSembleModel:
         if config.use_hash_ensemble and \
                 config.latent_dim_time != config.hash_ensemble.n_hash_encodings:
             raise ValueError("latent_dim_time must equal n_hash_encodings")
-        if config.cone_angle > 0:
-            raise NotImplementedError("cone-angle marching is not ported yet")
-        if config.early_stop_eps > 0:
-            raise NotImplementedError("early_stop_eps > 0 is not ported yet")
         # the candidate comb must span the (coarsest-level) scene box
         diag = float(np.linalg.norm(box[1] - box[0])) \
             * (2.0 ** (config.grid_levels - 1))
-        needed = int(np.ceil(diag / config.render_step_size))
+        needed = self._candidates_to_span(diag)
         if config.sampling.max_candidates_per_ray == -1:
             config.sampling.max_candidates_per_ray = (needed + 127) // 128 * 128
+        elif config.sampling.max_candidates_per_ray < needed:
+            print(f"[nersemble-torch] WARNING: max_candidates_per_ray="
+                  f"{config.sampling.max_candidates_per_ray} candidates cannot "
+                  f"span the {diag:.2f}-unit scene-box diagonal: rays will "
+                  f"stop mid-scene. Use -1 to auto-size (= {needed}).")
+
+    def _candidates_to_span(self, span: float) -> int:
+        """Candidate steps that cover ``span`` world units from the entry
+        point with the least growth: span / step, or with a cone angle the
+        steps ``max(t * cone_angle, step)`` counted on the host."""
+        cfg = self.config
+        if cfg.cone_angle <= 0:
+            return int(np.ceil(span / cfg.render_step_size))
+        t = max(cfg.near_plane, cfg.render_step_size)
+        end, n = t + span, 0
+        while t < end:
+            t += max(t * cfg.cone_angle, cfg.render_step_size)
+            n += 1
+        return n
 
     # -- parameters ----------------------------------------------------------
 
@@ -178,14 +195,16 @@ class NeRSembleModel:
                                    compute_dtype=self.compute_dtype)
         return density
 
-    def _density_rgb(self, params, fparams, pos, ts, dirs, sched):
+    def _density_rgb(self, params, fparams, pos, ts, dirs, cams, sched,
+                     train):
         tc, tc_def = self._time_codes(params, ts)
         pos, offsets = self._warp_positions(params, pos, tc_def, sched)
         density, geo = field_density(fparams, pos, tc, self.config, self.levels,
                                      self.aabb_min, self.aabb_max,
                                      window_hash=sched.get("window_hash"),
                                      compute_dtype=self.compute_dtype)
-        rgb = field_rgb(fparams, dirs, geo, self.config, self.compute_dtype)
+        rgb = field_rgb(fparams, dirs, geo, self.config, camera_indices=cams,
+                        train=train, compute_dtype=self.compute_dtype)
         if offsets is None:
             offsets = torch.zeros_like(pos)
         return density, rgb, offsets
@@ -226,24 +245,32 @@ class NeRSembleModel:
         return keep
 
     def _evaluate_samples(self, params, fparams, samples, ray_pack,
-                          budget: int, mask_monotone: bool, sched: Dict):
+                          budget: int, mask_monotone: bool, sched: Dict,
+                          train: bool):
         """Field evaluation of the [R, S] samples: the ``budget`` picked by
         global slot-major compaction when it is below R * S (results
-        scattered back to their slots), else every slot. Returns (samples
-        with the kept mask, sigmas [R, S], rgbs [R, S, 3], normalized
-        offsets [R, S, 3], budget-dropped count)."""
+        scattered back to their slots), else every slot. ``ray_pack``
+        column 7, when present, holds the camera indices (the appearance
+        embedding's, training only). Returns (samples with the kept mask,
+        sigmas [R, S], rgbs [R, S, 3], normalized offsets [R, S, 3],
+        budget-dropped count)."""
         R, S = samples.mask.shape
+        with_cams = ray_pack.shape[1] > 7
 
-        def body(pos, ts, dirs):
-            return self._density_rgb(params, fparams, pos, ts, dirs, sched)
+        def body(pos, ts, dirs, *cams):
+            return self._density_rgb(params, fparams, pos, ts, dirs,
+                                     cams[0] if cams else None, sched, train)
 
         if budget >= R * S:
             positions = samples.positions(ray_pack[:, 0:3], ray_pack[:, 3:6])
-            flat_ts = ray_pack[:, 6].to(torch.int64)[:, None].expand(R, S)
+            per_ray = ray_pack[:, 6:].to(torch.int64)[:, None].expand(
+                R, S, ray_pack.shape[1] - 6).reshape(R * S, -1)
             flat_dirs = ray_pack[:, None, 3:6].expand(R, S, 3)
-            density, rgbs, offsets = self._chunked_samples(
-                body, (positions.reshape(R * S, 3), flat_ts.reshape(R * S),
-                       flat_dirs.reshape(R * S, 3)), R * S)
+            inputs = (positions.reshape(R * S, 3), per_ray[:, 0],
+                      flat_dirs.reshape(R * S, 3))
+            if with_cams:
+                inputs += (per_ray[:, 1],)
+            density, rgbs, offsets = self._chunked_samples(body, inputs, R * S)
             return (samples, density.reshape(R, S), rgbs.reshape(R, S, 3),
                     offsets.reshape(R, S, 3), 0)
 
@@ -256,8 +283,10 @@ class NeRSembleModel:
         tmid = ((samples.t_starts + samples.t_ends) * 0.5).t().reshape(-1)[sel]
         picked = ray_pack[sel % R]
         pos = picked[:, 0:3] + picked[:, 3:6] * tmid[:, None]
-        density, rgbs, offsets = self._chunked_samples(
-            body, (pos, picked[:, 6].to(torch.int64), picked[:, 3:6]), budget)
+        inputs = (pos, picked[:, 6].to(torch.int64), picked[:, 3:6])
+        if with_cams:
+            inputs += (picked[:, 7].to(torch.int64),)
+        density, rgbs, offsets = self._chunked_samples(body, inputs, budget)
         back = scatter_rows_back(torch.cat([density[:, None], rgbs, offsets], 1),
                                  sel, R * S).reshape(S, R, 7).transpose(0, 1)
         return (samples, back[..., 0] * kept, back[..., 1:4], back[..., 4:7],
@@ -297,29 +326,39 @@ class NeRSembleModel:
         n_cand = scfg.max_candidates_per_ray
 
         # eval strided march on the dilated grid: one probe vouches for
-        # `stride` candidates while (stride/2) * step <= one cell
-        march_binaries, occupancy_stride = binaries, 1
-        if (not train and scfg.eval_coarse_prefilter and binaries is not None
-                and not cfg.disable_occupancy_grid):
-            stride = 1
-            if scfg.eval_probe_stride > 1:
-                box = np.asarray(cfg.scene_box, np.float32)
-                cell = float(np.min(box[1] - box[0])) / cfg.grid_resolution
-                stride = min(scfg.eval_probe_stride,
-                             max(int(2.0 * cell / cfg.render_step_size), 1))
-            if stride > 1:
-                occupancy_stride = stride
-                march_binaries = dilate_binaries(binaries)
-            elif scfg.eval_fine_candidates < n_cand:
-                raise NotImplementedError(
-                    "the two-phase coarse prefilter is not ported yet")
-
+        # `stride` candidates while (stride/2) * step <= one cell, which a
+        # cone angle's growing steps break; with exact probing the two-phase
+        # prefilter starts each ray's fine window at its first occupied
+        # coarse probe instead
+        march_binaries, occupancy_stride, start_steps = binaries, 1, None
         with record_function("render:march"):
+            if (not train and scfg.eval_coarse_prefilter
+                    and binaries is not None and not cfg.disable_occupancy_grid):
+                stride = 1
+                if scfg.eval_probe_stride > 1 and cfg.cone_angle == 0.0:
+                    box = np.asarray(cfg.scene_box, np.float32)
+                    cell = float(np.min(box[1] - box[0])) / cfg.grid_resolution
+                    stride = min(scfg.eval_probe_stride,
+                                 max(int(2.0 * cell / cfg.render_step_size), 1))
+                if stride > 1:
+                    occupancy_stride = stride
+                    march_binaries = dilate_binaries(binaries)
+                elif scfg.eval_fine_candidates < n_cand:
+                    t_near, t_far = march_range(
+                        origins, directions, self.aabb_min, self.aabb_max,
+                        binaries, cfg.near_plane, cfg.far_plane)
+                    start_steps = coarse_entry_steps(
+                        origins, directions, t_near, t_far,
+                        dilate_binaries(binaries), self.aabb_min,
+                        self.aabb_max, cfg.render_step_size, n_cand,
+                        scfg.eval_prefilter_stride, cfg.cone_angle)
+                    n_cand = max(scfg.eval_fine_candidates, S)
             samples, info = march_rays(
                 origins, directions, self.aabb_min, self.aabb_max,
                 cfg.render_step_size, n_cand, S, binaries=march_binaries,
                 near_plane=cfg.near_plane, far_plane=cfg.far_plane,
-                jitter=jitter, occupancy_stride=occupancy_stride)
+                jitter=jitter, cone_angle=cfg.cone_angle,
+                start_steps=start_steps, occupancy_stride=occupancy_stride)
 
         timesteps = rays.get("timesteps")
         if timesteps is None:
@@ -333,10 +372,17 @@ class NeRSembleModel:
                 if 0 < frac < 1.0 else R * S
         budget = min(budget, R * S)
 
-        # per-ray inputs gathered by one row gather; the timestep rides as a
-        # float VALUE (exact below 2^24), never as reinterpreted bits
-        ray_pack = torch.cat([origins, directions,
-                              timesteps.to(torch.float32)[:, None]], dim=1)
+        # per-ray inputs gathered by one row gather; the timestep (and the
+        # camera index, which only the appearance embedding reads, in
+        # training) ride as float VALUES (exact below 2^24), never as
+        # reinterpreted bits
+        cols = [origins, directions, timesteps.to(torch.float32)[:, None]]
+        if train and cfg.use_appearance_embedding:
+            cams = rays.get("camera_indices")
+            if cams is None:
+                cams = torch.zeros(R, dtype=torch.int64, device=origins.device)
+            cols.append(cams.to(torch.float32)[:, None])
+        ray_pack = torch.cat(cols, dim=1)
 
         n_samples_out = info["n_samples_per_ray"]
         mask_monotone = True  # march_rays fills a valid slot PREFIX per ray
@@ -353,7 +399,7 @@ class NeRSembleModel:
         with record_function("render:field"):
             samples, sigmas, rgbs, offsets_norm, n_budget_dropped = \
                 self._evaluate_samples(params, fparams, samples, ray_pack,
-                                       budget, mask_monotone, sched)
+                                       budget, mask_monotone, sched, train)
 
         # alpha_thre pruning (nerfacc's sigma_fn filter): low-opacity samples
         # neither attenuate nor render nor receive gradients; the mask comes
@@ -361,6 +407,17 @@ class NeRSembleModel:
         if cfg.alpha_thre > 0:
             delta = samples.t_ends - samples.t_starts
             keep = 1.0 - torch.exp(-sigmas.detach() * delta) >= cfg.alpha_thre
+            samples = samples._replace(mask=samples.mask & keep)
+            sigmas = sigmas * keep
+
+        # early_stop_eps > 0: nerfacc ends a ray once its transmittance falls
+        # below eps; the dropped samples neither render nor train. T is
+        # monotone along the ray, so the drop is a per-ray suffix: keep
+        # sample i iff T before i (without gradient) >= eps
+        if cfg.early_stop_eps > 0:
+            _, trans = render_weights(sigmas.detach(), samples.t_starts,
+                                      samples.t_ends, samples.mask)
+            keep = trans >= cfg.early_stop_eps
             samples = samples._replace(mask=samples.mask & keep)
             sigmas = sigmas * keep
 

@@ -14,7 +14,8 @@ The blended encode is plain PyTorch here: gather the rows as
 quarters and corners. The JAX version rounds ``rows * code`` to the table
 dtype before its f32 sum; this does the same (the product is taken in the
 table dtype). Its backward is JAX's analytic one (``_BlendedEncode``); the
-hand kernel for both directions is ROADMAP A3.
+hand kernel for both directions is ROADMAP A3. The single-grid field's
+plain encode (``hash_encode``) is the same function without the blend.
 """
 
 from dataclasses import dataclass
@@ -163,22 +164,27 @@ class _BlendedEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, quad_table, code, wy, fx, fz, entry_idx, n_levels,
                 features_per_logical, keep_residuals):
-        n, L, Fl = code.shape[0], n_levels, features_per_logical
+        n, L, Fl = wy.shape[0], n_levels, features_per_logical
         W = quad_table.shape[1] // N_QUARTERS
         H = W // Fl
         dt = quad_table.dtype
         rows = quad_table[entry_idx.reshape(-1)].view(n, 2, L, N_QUARTERS, H, Fl)
-        # per-logical-table blend, product rounded to the table dtype as in JAX
-        code_t = code.to(dt)[:, None, None, None, :, None]
-        cg = torch.sum(rows * code_t, dim=4, dtype=torch.float32)  # [n,2,L,4,Fl]
+        if code is None:  # the plain encode: one table, no blend
+            cg = rows[:, :, :, :, 0].to(torch.float32)  # [n,2,L,4,Fl]
+        else:
+            # per-logical-table blend, product rounded to the table dtype as in JAX
+            code_t = code.to(dt)[:, None, None, None, :, None]
+            cg = torch.sum(rows * code_t, dim=4, dtype=torch.float32)  # [n,2,L,4,Fl]
         u = _quad_weights(fx, fz)  # [n,L,4]
         g = torch.sum(cg * u[:, None, :, :, None], dim=3)  # [n,2,L,Fl]
         out = g[:, 0] * wy[:, :L, None] + g[:, 1] * wy[:, L:, None]
         if keep_residuals:
-            wu = (wy.view(n, 2, L)[..., None] * u[:, None]).to(dt)  # [n,2,L,4]
-            b = rows[:, 0] * wu[:, 0, :, :, None, None] \
-                + rows[:, 1] * wu[:, 1, :, :, None, None]  # [n,L,4,H,Fl] dt
-            bh = torch.sum(b, dim=2, dtype=torch.float32).to(dt)  # [n,L,H,Fl]
+            bh = None
+            if code is not None:
+                wu = (wy.view(n, 2, L)[..., None] * u[:, None]).to(dt)  # [n,2,L,4]
+                b = rows[:, 0] * wu[:, 0, :, :, None, None] \
+                    + rows[:, 1] * wu[:, 1, :, :, None, None]  # [n,L,4,H,Fl] dt
+                bh = torch.sum(b, dim=2, dtype=torch.float32).to(dt)  # [n,L,H,Fl]
             ctx.save_for_backward(cg.to(dt), bh, code, entry_idx, wy, fx, fz)
             ctx.table_shape = quad_table.shape
             ctx.layout = (L, Fl)
@@ -190,7 +196,7 @@ class _BlendedEncode(torch.autograd.Function):
         CG, BH, code, entry_idx, wy, fx, fz = ctx.saved_tensors
         L, Fl = ctx.layout
         E, W4 = ctx.table_shape
-        n, dt = code.shape[0], CG.dtype
+        n, dt = wy.shape[0], CG.dtype
         gbar = gbar.to(torch.float32).reshape(n, 1, L, 1, Fl)
         cg = CG.to(torch.float32)
         u = _quad_weights(fx, fz)
@@ -204,13 +210,15 @@ class _BlendedEncode(torch.autograd.Function):
         pat_fz = torch.stack([-gx, gx, -fx, fx], dim=-1)[:, None, :, :, None]
         d_fx = torch.sum(core * pat_fx, dim=(1, 3, 4))
         d_fz = torch.sum(core * pat_fz, dim=(1, 3, 4))
-        # d code[h] = sum_{l,f} BH[l,h,f] * gbar[l,f], product in the table dtype
-        gb = gbar.reshape(n, L, 1, Fl).to(dt)
-        d_code = torch.sum(BH * gb, dim=(1, 3), dtype=torch.float32)
-
         # d rows = (gbar * u * wy) rounded, times the rounded code
         m = (gbar * u5 * w5).to(dt)  # [n,2,L,4,Fl]
-        d_rows = m[:, :, :, :, None, :] * code.to(dt)[:, None, None, None, :, None]
+        d_code, d_rows = None, m
+        if code is not None:
+            # d code[h] = sum_{l,f} BH[l,h,f] * gbar[l,f], product in the table dtype
+            gb = gbar.reshape(n, L, 1, Fl).to(dt)
+            d_code = torch.sum(BH * gb, dim=(1, 3), dtype=torch.float32)
+            d_rows = m[:, :, :, :, None, :] \
+                * code.to(dt)[:, None, None, None, :, None]
         acc = torch.zeros(E, W4, dtype=torch.float32, device=CG.device)
         acc.index_add_(0, entry_idx.reshape(-1),
                        d_rows.reshape(-1, W4).to(torch.float32))
@@ -235,3 +243,22 @@ def hash_encode_blended(quad_table: torch.Tensor, x: torch.Tensor,
         t.requires_grad for t in (quad_table, code, wy, fx, fz))
     return _BlendedEncode.apply(quad_table, code, wy, fx, fz, entry_idx,
                                 levels.n_levels, features_per_logical, keep)
+
+
+def hash_encode(quad_table: torch.Tensor, x: torch.Tensor,
+                levels: HashGridLevels) -> torch.Tensor:
+    """Plain single-grid encode: quad table [E, 4W], x [N, 3] -> [N, L * W]
+    float32, level-major (tcnn's layout for W = features per level).
+
+    ``_BlendedEncode`` with no code: the same gathered rows, quarter and
+    corner weights and analytic backward, without the blend. JAX's
+    ``hash_encode`` differentiates through its gather instead; both round
+    the row gradient ``wy * u * gbar`` to the table dtype, and the port adds
+    the rows in f32 as for the blended encode.
+    """
+    entry_idx, wy, fx, fz = hash_grid_indices(x, levels)
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (quad_table, wy, fx, fz))
+    return _BlendedEncode.apply(quad_table, None, wy, fx, fz, entry_idx,
+                                levels.n_levels,
+                                quad_table.shape[1] // N_QUARTERS, keep)

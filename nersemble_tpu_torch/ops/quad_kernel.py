@@ -22,6 +22,23 @@ MAX_LEVELS = 32  # csrc/quad_build.cu QB_MAX_LEVELS, csrc/quad_fold.cu QF_MAX_LE
 
 LAUNCHES = 0       # B3 launches since the last reset (chip_smoke.py reads it)
 FOLD_LAUNCHES = 0  # B4 launches since the last reset
+# of those, the launches on narrow rows (B3) or quarters (B4) of 4 or 8 bytes
+NARROW_LAUNCHES = 0
+NARROW_FOLD_LAUNCHES = 0
+
+
+def _narrow(nbytes: int) -> bool:
+    """Rows (B3) or quarters (B4) of 4 or 8 bytes: the single-grid table's
+    2 features in bf16 or f32."""
+    return nbytes in (4, 8)
+
+
+def _kernel_width(nbytes: int, ptr: int) -> bool:
+    """Row or quarter sizes the kernels take (narrow ones, or 16-byte chunks
+    up to 4096 bytes), at a data pointer aligned to the kernel's loads."""
+    if _narrow(nbytes):
+        return ptr % nbytes == 0
+    return nbytes % 16 == 0 and 0 < nbytes <= 4096 and ptr % 16 == 0
 
 
 def quarter_strides(levels) -> List[Tuple[int, ...]]:
@@ -54,7 +71,7 @@ def kernel_layout(levels) -> List[int]:
 
 def quad_build_cuda(table: torch.Tensor, levels) -> torch.Tensor:
     """Launch kernel B3 on a contiguous CUDA table [E, W]."""
-    global LAUNCHES
+    global LAUNCHES, NARROW_LAUNCHES
     if not table.is_cuda:
         raise ValueError("quad_build_cuda takes a CUDA tensor")
     if table.dim() != 2 or not table.is_contiguous():
@@ -65,9 +82,10 @@ def quad_build_cuda(table: torch.Tensor, levels) -> torch.Tensor:
     if levels.n_levels > MAX_LEVELS:
         raise ValueError(f"the kernel takes <= {MAX_LEVELS} levels")
     row_bytes = table.shape[1] * table.element_size()
-    if row_bytes % 16 or row_bytes > 4096:
-        raise ValueError(f"rows of {row_bytes} B: the kernel copies 16-byte "
-                         "chunks of rows up to 4096 B")
+    if not _kernel_width(row_bytes, table.data_ptr()):
+        raise ValueError(f"rows of {row_bytes} B: the kernel takes rows of 4 "
+                         "or 8 B or 16-byte chunks of rows up to 4096 B, "
+                         "aligned to their loads")
     meta = cuda_lib.int64_array(kernel_layout(levels))
     out = torch.empty(table.shape[0], N_QUARTERS * table.shape[1],
                       dtype=table.dtype, device=table.device)
@@ -76,6 +94,7 @@ def quad_build_cuda(table: torch.Tensor, levels) -> torch.Tensor:
         torch.cuda.current_stream(table.device).cuda_stream)
     cuda_lib.check(status, "quad_build")
     LAUNCHES += 1
+    NARROW_LAUNCHES += _narrow(row_bytes)
     return out
 
 
@@ -101,7 +120,7 @@ def quad_fold_plain(g: torch.Tensor, levels) -> torch.Tensor:
 def quad_fold_cuda(g: torch.Tensor, levels) -> torch.Tensor:
     """Launch kernel B4 on a contiguous CUDA quad gradient [E, 4W] (bf16 or
     f32)."""
-    global FOLD_LAUNCHES
+    global FOLD_LAUNCHES, NARROW_FOLD_LAUNCHES
     if not g.is_cuda:
         raise ValueError("quad_fold_cuda takes a CUDA tensor")
     if g.dim() != 2 or not g.is_contiguous() or g.shape[1] % N_QUARTERS:
@@ -114,9 +133,10 @@ def quad_fold_cuda(g: torch.Tensor, levels) -> torch.Tensor:
         raise ValueError(f"the kernel takes <= {MAX_LEVELS} levels")
     width = g.shape[1] // N_QUARTERS
     quarter_bytes = width * g.element_size()
-    if quarter_bytes % 16 or quarter_bytes > 4096:
+    if not _kernel_width(quarter_bytes, g.data_ptr()):
         raise ValueError(f"quarters of {quarter_bytes} B: the kernel folds "
-                         "16-byte chunks of quarters up to 4096 B")
+                         "quarters of 4 or 8 B or 16-byte chunks of quarters "
+                         "up to 4096 B, aligned to their loads")
     out = torch.empty(g.shape[0], width, dtype=g.dtype, device=g.device)
     status = cuda_lib.library().quad_fold(
         g.data_ptr(), out.data_ptr(), g.shape[0], quarter_bytes,
@@ -124,6 +144,7 @@ def quad_fold_cuda(g: torch.Tensor, levels) -> torch.Tensor:
         torch.cuda.current_stream(g.device).cuda_stream)
     cuda_lib.check(status, "quad_fold")
     FOLD_LAUNCHES += 1
+    NARROW_FOLD_LAUNCHES += _narrow(quarter_bytes)
     return out
 
 

@@ -6,10 +6,12 @@ uniform steps (shifted by a per-ray jitter in training), candidates in
 unoccupied cells are dropped, and the first ``S`` valid candidates per ray
 are kept in [R, S] slots (mask marks valid slots). Global compaction then
 picks the samples the field evaluates; the trainer sizes that budget with
-``quantized_budget``. Cone-angle marching (growing steps) and its two-phase
-coarse prefilter come with the slice that needs them.
+``quantized_budget``. With a cone angle the steps grow with distance
+(``cone_march_ts``), and the eval march may start each ray at its first
+occupied coarse probe (``coarse_entry_steps``, the two-phase prefilter).
 """
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -130,6 +132,28 @@ def occupancy_lookup(binaries, positions, aabb_min, aabb_max):
     return occ
 
 
+def cone_march_ts(t_near: torch.Tensor, steps: torch.Tensor,
+                  render_step_size: float, cone_angle: float) -> torch.Tensor:
+    """Closed form of nerfacc's growing-step march ``t += max(t * cone,
+    dt)`` at fractional step index ``steps`` ([R, N] or broadcastable):
+    uniform steps up to ``k0 = ceil(max(dt / cone - t_near, 0) / dt)``, then
+    geometric with ratio ``1 + cone`` (the JAX docstring derives it)."""
+    dt, c = render_step_size, cone_angle
+    k0 = torch.ceil(torch.clamp(dt / c - t_near, min=0.0) / dt)  # [R]
+    t_base = t_near + k0 * dt
+    linear = t_near[:, None] + steps * dt
+    geometric = t_base[:, None] * torch.exp((steps - k0[:, None])
+                                            * float(math.log1p(c)))
+    return torch.where(steps <= k0[:, None], linear, geometric)
+
+
+def _comb_ts(t_near, k, render_step_size: float, cone_angle: float):
+    """t at step indices ``k`` [R, N]: uniform, or the cone's growing comb."""
+    if cone_angle > 0.0:
+        return cone_march_ts(t_near, k, render_step_size, cone_angle)
+    return t_near[:, None] + k * render_step_size
+
+
 def march_range(origins, directions, aabb_min, aabb_max, binaries,
                 near_plane: float, far_plane: float):
     """Per-ray [t_near, t_far]: slab test against the coarsest cascade
@@ -191,6 +215,28 @@ def occupied_world_aabb(binaries, aabb_min, aabb_max, expand_cells: float = 2.0)
     return lo_all, hi_all, any_all
 
 
+def coarse_entry_steps(origins, directions, t_near, t_far, dilated_binaries,
+                       aabb_min, aabb_max, render_step_size: float,
+                       n_candidates: int, stride: int,
+                       cone_angle: float = 0.0) -> torch.Tensor:
+    """Per-ray step index (float) at which the fine march starts: the
+    DILATED grid is probed every ``stride`` candidate steps over the full
+    comb, and the start is one stride before the first occupied probe (0
+    at the earliest). Rays with no hit start at ``n_candidates``, past
+    t_far, so their fine window is empty."""
+    n_coarse = -(-n_candidates // stride)
+    k = (torch.arange(n_coarse, dtype=origins.dtype, device=origins.device)
+         * stride)[None, :]
+    ts = _comb_ts(t_near, k + 0.5 * stride, render_step_size, cone_angle)
+    pos = origins[:, None, :] + directions[:, None, :] * ts[..., None]
+    occ = occupancy_lookup(dilated_binaries, pos, aabb_min, aabb_max)
+    occ = occ & (ts < t_far[:, None])
+    first = torch.argmax(occ.to(torch.uint8), dim=-1)  # first True (0: none)
+    k0 = (torch.clamp(first - 1, min=0) * stride).to(origins.dtype)
+    return torch.where(occ.any(dim=-1), k0,
+                       torch.full_like(k0, float(n_candidates)))
+
+
 def quantized_budget(measured_samples: float, n_rays: int, n_slots: int,
                      headroom: float = 1.15,
                      current: Optional[int] = None) -> int:
@@ -220,11 +266,17 @@ def march_rays(origins: torch.Tensor,
                near_plane: float = 0.0,
                far_plane: float = 1e10,
                jitter: Optional[torch.Tensor] = None,
+               cone_angle: float = 0.0,
+               start_steps: Optional[torch.Tensor] = None,
                occupancy_stride: int = 1):
-    """Rays -> compacted RaySamples + diagnostics (uniform steps).
+    """Rays -> compacted RaySamples + diagnostics.
 
     ``jitter``: optional [R] uniforms in [0, 1) shifting each ray's sample
     comb (training-time stratification); None starts at the near point.
+    ``cone_angle > 0`` grows the step with distance (``cone_march_ts``).
+    ``start_steps``: optional [R] step offsets added to the comb (the
+    coarse-prefilter entry points of ``coarse_entry_steps``): the window
+    covers steps [start, start + n_candidates).
     ``occupancy_stride > 1`` probes ``binaries`` once per group of that many
     candidates, at the group's centre, and lets it vouch for the group; it
     requires a dilated grid and (stride/2) * step <= one cell (see the JAX
@@ -238,16 +290,21 @@ def march_rays(origins: torch.Tensor,
     steps = torch.arange(n_candidates, dtype=dtype, device=dev)
     if jitter is None:
         jitter = torch.zeros_like(t_near)
-    t0 = t_near[:, None] + (steps[None, :] + jitter[:, None]) * render_step_size
-    t1 = t0 + render_step_size
+    offset = jitter if start_steps is None else jitter + start_steps
+    k = steps[None, :] + offset[:, None]
+    t0 = _comb_ts(t_near, k, render_step_size, cone_angle)
+    if cone_angle > 0.0:
+        t1 = _comb_ts(t_near, k + 1.0, render_step_size, cone_angle)
+    else:
+        t1 = t0 + render_step_size
     valid = (t0 + t1) * 0.5 < t_far[:, None]
 
     if binaries is not None:
         if occupancy_stride > 1:
             n_probe = -(-n_candidates // occupancy_stride)
             kp = (torch.arange(n_probe, dtype=dtype, device=dev) * occupancy_stride
-                  + 0.5 * occupancy_stride)[None, :] + jitter[:, None]
-            tp = t_near[:, None] + kp * render_step_size
+                  + 0.5 * occupancy_stride)[None, :] + offset[:, None]
+            tp = _comb_ts(t_near, kp, render_step_size, cone_angle)
             posp = origins[:, None, :] + directions[:, None, :] * tp[..., None]
             occ_p = occupancy_lookup(binaries, posp, aabb_min, aabb_max)
             occupied = occ_p.repeat_interleave(occupancy_stride,
@@ -263,9 +320,12 @@ def march_rays(origins: torch.Tensor,
                       torch.full_like(valid, big, dtype=torch.int64))
     vals, order = torch.topk(key, max_samples_per_ray, dim=1, largest=False,
                              sorted=True)
-    t_starts = t_near[:, None] + (order.to(dtype) + jitter[:, None]) \
-        * render_step_size
-    t_ends = t_starts + render_step_size
+    k_sel = order.to(dtype) + offset[:, None]
+    t_starts = _comb_ts(t_near, k_sel, render_step_size, cone_angle)
+    if cone_angle > 0.0:
+        t_ends = _comb_ts(t_near, k_sel + 1.0, render_step_size, cone_angle)
+    else:
+        t_ends = t_starts + render_step_size
     mask = vals < big
 
     n_valid_total = valid.sum(dim=-1)

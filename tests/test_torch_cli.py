@@ -33,6 +33,8 @@ TINY = ["--n-train-rays", "64", "--num-levels", "4", "--log2-hashmap-size", "9",
         "--window-hash-encodings-end", "8", "--steps-per-eval-image", "0"]
 SEQ = ["30", "SYN-1"]
 CPU = ["--device", "cpu"]
+# the train CLI's flags for the model's other configurations
+VARIANT = ["--no-use-hash-ensemble", "--cone-angle", "0.004", "--early-stop-eps", "1e-4"]
 # the keys of the JAX loop's log cadence on a device without memory stats
 LOG_KEYS = {"train_loss", "train_psnr", "rays_per_sec", "samples_per_batch",
             "dropped_samples_per_batch", "budget_dropped_per_batch",
@@ -94,7 +96,8 @@ def test_cli_flags_and_defaults_match():
     assert {k: ours[k] for k in theirs} == theirs
 
 
-@pytest.mark.parametrize("argv", [SEQ, SEQ + TINY], ids=["defaults", "tiny"])
+@pytest.mark.parametrize("argv", [SEQ, SEQ + TINY, SEQ + VARIANT, SEQ + TINY + VARIANT],
+                         ids=["defaults", "tiny", "variant", "tiny-variant"])
 def test_build_config_matches(argv):
     ours = tcli.build_config(tcli.build_parser().parse_args(argv + CPU), "NERS-003", "/m")
     theirs = jcli.build_config(jcli.build_parser().parse_args(argv), "NERS-003", "/m")
@@ -251,3 +254,151 @@ def test_parts_not_ported_raise(flags, match):
     """``--vis viewer`` is ported: tests/test_torch_viewer.py trains with it."""
     with pytest.raises(NotImplementedError, match=match):
         tcli.main(SEQ + TINY + CPU + flags)
+
+
+# ---------------------------------------------------------------------------
+# the model's other configurations through the CLIs
+# ---------------------------------------------------------------------------
+
+class _FakeJod:
+    def predict(self, pred, gt, dim_order, frames_per_second):
+        return np.float32(8.5), None
+
+
+@pytest.fixture(scope="module")
+def variant_runs(tmp_path_factory):
+    """A tiny capture and two runs of the model's other configurations:
+    "NERS-001-variant", 8 steps of the port's train CLI with the single-grid
+    field, a cone angle and early stop; "NERS-002-jax", a config.yml and a
+    step-3 checkpoint the JAX package wrote for the same flags plus SH
+    degree 4 and the appearance embedding."""
+    from nersemble_tpu.engine import checkpoints as jckpt
+    from nersemble_tpu.engine.optimizers import make_optimizer
+    from nersemble_tpu.model_manager import NeRSembleModelFolder
+    from nersemble_tpu.models.nersemble import NeRSembleModel as JModel
+
+    data = tmp_path_factory.mktemp("data")
+    models = tmp_path_factory.mktemp("models")
+    make_synthetic_dataset(data, n_timesteps=3)
+    saved = (tenv.NERSEMBLE_DATA_PATH, tenv.NERSEMBLE_MODELS_PATH,
+             jenv.NERSEMBLE_DATA_PATH, jenv.NERSEMBLE_MODELS_PATH)
+    tenv.NERSEMBLE_DATA_PATH = jenv.NERSEMBLE_DATA_PATH = str(data)
+    tenv.NERSEMBLE_MODELS_PATH = jenv.NERSEMBLE_MODELS_PATH = str(models)
+    try:
+        result = tcli.main(SEQ + TINY + VARIANT + CPU + ["--name", "variant",
+                                                         "--max-num-iterations", "8"])
+        manager = NeRSembleModelFolder().new_run(name="jax")
+        config = jcli.build_config(jcli.build_parser().parse_args(SEQ + TINY + VARIANT),
+                                   manager.get_run_name(), str(models / "nersemble"))
+        config.model.n_timesteps = config.data.n_timesteps = 3
+        config.model.num_images = 36
+        config.model.spherical_harmonics_degree = 4
+        config.model.use_appearance_embedding = True
+        manager.save_config(config)
+        model = JModel(config.model)
+        params = model.init_params(jax.random.PRNGKey(0))
+        jckpt.save_checkpoint(Path(manager.get_checkpoint_folder()) / "step-000000003.ckpt",
+                              3, params, make_optimizer().init(params),
+                              model.init_grid_occs())
+        yield {"root": models / "nersemble", "result": result}
+    finally:
+        (tenv.NERSEMBLE_DATA_PATH, tenv.NERSEMBLE_MODELS_PATH,
+         jenv.NERSEMBLE_DATA_PATH, jenv.NERSEMBLE_MODELS_PATH) = saved
+
+
+def test_variant_flags_train_with_the_jax_config(variant_runs):
+    """The train CLI with --no-use-hash-ensemble --cone-angle 0.004
+    --early-stop-eps 1e-4 trains 8 steps on the CPU; its config.yml is the
+    JAX CLI's config for the same flags with the capture's fields filled in
+    (n_timesteps, num_images, scene_box), and the JAX package loads the
+    run's checkpoint into its own parameter tree."""
+    from nersemble_tpu.engine import checkpoints as jckpt
+    from nersemble_tpu.engine.optimizers import make_optimizer
+    from nersemble_tpu.model_manager import NeRSembleModelFolder
+    from nersemble_tpu.models.nersemble import NeRSembleModel as JModel
+
+    run_dir = variant_runs["root"] / "NERS-001-variant"
+    result = variant_runs["result"]
+    assert result["step"] == 7 and np.isfinite(result["loss"])
+    metrics = _metrics(run_dir)
+    assert np.isfinite([metrics[s]["train_loss"] for s in (0, 7)]).all()
+    assert metrics[7]["train_loss"] < metrics[0]["train_loss"]
+
+    theirs = NeRSembleModelFolder().open_run("NERS-001-variant").load_config()
+    want = jcli.build_config(jcli.build_parser().parse_args(
+        SEQ + TINY + VARIANT + ["--max-num-iterations", "8"]),
+        "NERS-001-variant", str(variant_runs["root"]))
+    want.model.n_timesteps = want.data.n_timesteps = 3
+    want.model.num_images = 36
+    want.model.scene_box = theirs.model.scene_box
+    assert theirs.to_dict() == want.to_dict()
+    assert not theirs.model.use_hash_ensemble and theirs.model.hash_ensemble is None
+    assert (theirs.model.cone_angle, theirs.model.early_stop_eps) == (0.004, 1e-4)
+
+    model = JModel(theirs.model)
+    template = model.init_params(jax.random.PRNGKey(1))
+    step, params, _, _, _ = jckpt.load_checkpoint(
+        run_dir / "checkpoints" / "step-000000007.ckpt", template,
+        make_optimizer().init(template), model.init_grid_occs())
+    assert step == 7 and params["field"]["table"].shape[1] == 2
+
+
+@pytest.mark.parametrize("run", ["NERS-001-variant", "NERS-002-jax"])
+def test_variant_runs_evaluate_and_render(variant_runs, run, tmp_path):
+    """The evaluate, render and view CLIs serve the port's variant run and
+    the JAX-written one (single grid, cone angle, early stop, SH degree 4
+    and the appearance embedding) on the CPU."""
+    import socket
+    import threading
+    import time
+    import urllib.error
+    import urllib.request
+
+    from nersemble_tpu_torch.scripts import evaluate_nersemble as teval
+    from nersemble_tpu_torch.scripts import render_nersemble as trender
+    from nersemble_tpu_torch.scripts import view_nersemble as tview
+    from nersemble_tpu_torch.utils import jod as TJ
+    from nersemble_tpu_torch.utils import png
+
+    TJ.set_jod_evaluator_factory(_FakeJod)
+    try:
+        result = teval.main([run, "--max-eval-timesteps", "2", "--n-rays-eval", "512",
+                             "--no-use-occupancy-grid-filtering"] + CPU)
+    finally:
+        TJ.set_jod_evaluator_factory(None)
+    assert np.isfinite(result.mean.regular.psnr) and 0.0 <= result.mean.regular.ssim <= 1.0
+    pngs = list((variant_runs["root"] / run / "evaluation").rglob("cam_*.png"))
+    assert len(pngs) == 2 * 4
+    outputs = trender.main([run, "--seconds", "1", "--fps", "2", "--downscale-factor", "8",
+                            "--n-rays", "512", "--render-depth"] + CPU,
+                           renders_path=str(tmp_path))
+    assert set(outputs) == {"rgb", "depth"}
+    for path in outputs.values():
+        frames = sorted(Path(path).iterdir())
+        assert len(frames) == 2 and png.imread(frames[0]).shape[2] == 3
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    replies = []
+
+    def client():
+        deadline = time.time() + 60
+        while True:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/render?channel=rgb&width=40",
+                        timeout=60) as r:
+                    replies.append((r.status, r.read()))
+                return
+            except urllib.error.URLError:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.05)
+
+    thread = threading.Thread(target=client)
+    thread.start()
+    assert tview.main([run, "--port", str(port)] + CPU, max_requests=1) == 1
+    thread.join(timeout=30)
+    (status, payload), = replies
+    assert status == 200 and png.decode(payload).shape[1:] == (40, 3)

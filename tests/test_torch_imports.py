@@ -196,3 +196,48 @@ def test_no_host_sync_in_the_loop_outside_its_cadences():
 
     visit(loop, False)
     assert found == CADENCE_READERS
+
+
+SYNC_METHODS = ("item", "cpu", "numpy", "tolist", "__bool__", "__float__", "__int__",
+                "__index__")
+
+
+@pytest.mark.parametrize("variant", ["flagship", "single_grid", "single_grid_static",
+                                     "ensemble_static", "cone", "early_stop",
+                                     "sh_appearance"])
+def test_train_step_of_every_configuration_reads_no_device_value(variant, monkeypatch):
+    """The scan above, run: the occupancy update and two train steps of
+    each model configuration (the tiny flagship and chip_smoke.py's
+    TINY_VARIANTS: the single grid, no deformation, a cone angle, early
+    stop, SH + appearance) on the CPU with every Tensor method that hands a
+    value to the host raising."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import tiny_config
+    from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
+
+    cfg, _ = tiny_config(None if variant == "flagship" else variant)
+    trainer = NeRSembleTrainer(cfg, n_rays=64, device="cpu")
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(64, 3)) * [0.05, 0.3, 0.3] + [1.0, 0.0, 0.0]
+    batch = {"origins": torch.tensor([[-8.0, 0.0, 0.0]]).repeat(64, 1),
+             "directions": torch.tensor(d / np.linalg.norm(d, axis=-1, keepdims=True),
+                                        dtype=torch.float32),
+             "timesteps": torch.from_numpy(rng.integers(0, 8, 64)),
+             "camera_indices": torch.from_numpy(rng.integers(0, max(cfg.num_images, 1), 64)),
+             "rgb": torch.rand(64, 3), "alpha": torch.rand(64),
+             "depth": torch.rand(64) * 2 + 7.5}
+
+    def refuse(name):
+        def read(*args, **kwargs):
+            raise AssertionError(f"Tensor.{name} on the train path")
+        return read
+
+    for name in SYNC_METHODS:
+        monkeypatch.setattr(torch.Tensor, name, refuse(name))
+    trainer.maybe_update_occupancy(0)
+    for step in (0, 1):
+        total, aux = trainer.train_step(step, batch)
+    monkeypatch.undo()
+    assert torch.isfinite(total) and int(aux["num_samples"]) > 0

@@ -42,6 +42,11 @@ MLP_SHAPES = [
     (173, 128, 6, 128, (4,), True, "relu"),     # flagship deformation stem
     (61, 16, 2, 16, (), True, "relu"),          # tiny stem
     (45 + 16, 32, 6, 32, (4,), True, "relu"),   # narrow stem with a skip
+    # the colour head's other input widths: SH degree 4 (16 + 15), the
+    # appearance embedding (3 + 15 + 32), both (16 + 15 + 32)
+    (31, 3, 3, 64, (), False, "sigmoid"),
+    (50, 3, 3, 64, (), False, "sigmoid"),
+    (63, 3, 3, 64, (), False, "sigmoid"),
 ]
 
 
@@ -239,6 +244,34 @@ def test_quad_fold_kernel_is_bit_exact(cuda, layout, width, dtype):
     assert quad_kernel.FOLD_LAUNCHES == before + 1
     assert out.shape == (levels.total_entries, width) and out.dtype == dtype
     assert torch.equal(out, quad_kernel.quad_fold_plain(grad, levels))
+
+
+SINGLE_GRID = (16, 19, 16, float(np.exp((np.log(2048) - np.log(16)) / 15)))
+
+
+@pytest.mark.parametrize("layout,dtype", [
+    ((4, 10, 4, 1.5), torch.bfloat16),   # 1024-row hashed levels: ragged
+    ((4, 10, 4, 1.5), torch.float32),
+    ((6, 12, 4, 1.5), torch.float32),    # padded dense + 2048-row hashed
+    (SINGLE_GRID, torch.bfloat16),       # the single-grid field's table
+])
+def test_quad_kernels_take_narrow_rows(cuda, layout, dtype):
+    """B3 on [E, 2] tables (rows of 4 B in bf16, 8 B in f32) and B4 on
+    their [E, 8] gradients, bit-exact against the plain versions."""
+    levels = HashGridLevels.create(*layout)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    table = torch.randn(levels.total_entries, 2, generator=g,
+                        device=cuda).to(dtype)
+    grad = torch.randn(levels.total_entries, 8, generator=g,
+                       device=cuda).to(dtype)
+    before = (quad_kernel.LAUNCHES, quad_kernel.FOLD_LAUNCHES)
+    out = quad_kernel.quad_build(table, levels)
+    folded = quad_kernel.quad_fold(grad, levels)
+    torch.cuda.synchronize()
+    assert (quad_kernel.LAUNCHES, quad_kernel.FOLD_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, quad_kernel.quad_build_plain(table, levels))
+    assert torch.equal(folded, quad_kernel.quad_fold_plain(grad, levels))
 
 
 def test_train_step_on_cuda_matches_cpu(cuda):
