@@ -10,7 +10,9 @@ Phases, each printing its own lines:
                   in parallel, sm_90a);
   3. kernels   -- each kernel vs its plain PyTorch version at the flagship
                   shapes, with times for both: the quad build (B3) on a
-                  [6,537,216, 64] bf16 table and the quad fold (B4) on a
+                  [6,537,216, 64] bf16 table (beside one index_select of
+                  the table at a cached [4E] quad index, its library call,
+                  held equal first) and the quad fold (B4) on a
                   [6,537,216, 256] bf16 gradient must be bit-exact; the fused
                   MLP forward (B1-fwd) on the stem, base and head at 98,304
                   rows within ops/fused_mlp.py's forward bound (max error
@@ -159,11 +161,33 @@ Phases, each printing its own lines:
                   train step and a 32x24 frame on the GPU vs the port's CPU
                   path within TRAIN_REF_TOL and REF_TOL; the cone variant's
                   frame must take the two-phase prefilter.
+ 15. trained scene -- nersemble_tpu_torch/scripts/trained_scene.py's parts
+                  on a fresh textured capture (the quality benchmark's,
+                  16 cameras at 128x176, one timestep): (a) the quality
+                  benchmark's static mode (single grid, no deformation)
+                  for 6000 steps through the train CLI, evals of the 4
+                  hold-out views at 2000, 4000 and 6000; the last eval PSNR
+                  must beat the first and an image that is the background
+                  colour everywhere on the same views, and B1-fwd, B2, B3
+                  and B4 must launch; (b) the render benchmark on that run
+                  at 802x550, 8 frames, chunk 16384, with the occupancy CC
+                  filter: it must keep cells, its orbit must reach a mean
+                  accumulation >= 0.01 and a hit fraction > 0; then
+                  without it; B1-fwd and B3 must launch in both; then the
+                  view CLI, 3 requests at width 256; (c) validate_poses on
+                  the capture: the PNG decodes, its plotted centres are the
+                  dataparser's and each is drawn at its pixel. Prints the
+                  eval curve, ms/step, ms/frame, the probed auto budget,
+                  the hit fraction, the filter's kept cells and its largest
+                  thresholded component, the viewer's ms per request and
+                  peak memory per part.
 Then one JSON line with the eight kernels (launches on the training path
 for B1-B4 and on the measurement path for P1-P4, times, the bound and the
-library call's time; B3/B4 also with their narrow-row time and bound, B1-fwd
-and B2 with the variant heads', and B1-B4 with their launches in phase
-14's runs (a) and (b)), and the last line
+library call's time; B3/B4 also with their narrow-row time and bound (B3
+beside its library call, index_select at a cached quad index), B1-fwd and
+B2 with the variant heads', and B1-B4 with their launches in phase 14's
+runs (a) and (b) and phase 15's quality run and render bench), and the
+last line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
 and the last line is not printed. Without a CUDA device nothing runs.
 """
@@ -278,6 +302,15 @@ VAR_B_NAME, VAR_B_STEPS, VAR_B_QUIET = "shapp", 10, (2, 7)
 VAR_B_FLAGS = ["--steps-per-eval-batch", "0", "--steps-per-eval-image", "8",
                "--steps-per-eval-all-images", "0", "--steps-per-save", "1000"]
 VAR_EVALS = ("_eval_image", "_train_image", "save_run_checkpoint")
+# the trained-scene phase (scripts/trained_scene.py's parts): the quality
+# benchmark's static mode on a fresh textured capture, long enough that the
+# CC filter keeps a component (H100: at 800-3000 steps no cell reaches its
+# threshold, or a component of tens of cells does and its erosion blur
+# erases it; 63k-77k cells kept at 6000 steps, 18.3-18.6 dB), then the
+# render benchmark on its run at 802x550 with and without the CC filter and
+# the viewer at width 256, then the capture's pose figure
+TRAINED_ARGS = ["--mode", "static", "--steps", "6000", "--eval-every", "2000",
+                "--view-requests", "3"]
 
 
 def _single_grid(cfg):
@@ -472,11 +505,50 @@ def rows_histogram(phase: str, cfg, counts) -> None:
                    + ", ".join(buckets))
 
 
+def quad_index(levels, device):
+    """[4E] int64 rows of the table whose ``index_select``, viewed [E, 4W],
+    is the quad table: entry e's own row, then its rows rolled by each
+    level's z, x and x+z strides. Built once per level layout."""
+    import torch
+    from nersemble_tpu_torch.ops import quad_kernel
+    quarters = [torch.arange(levels.total_entries)]
+    for strides in quad_kernel.quarter_strides(levels):
+        quarters.append(torch.cat([
+            off + (torch.arange(size) + stride % size) % size
+            for off, size, stride in zip(levels.offsets, levels.sizes, strides)]))
+    return torch.stack(quarters, dim=1).reshape(-1).to(device)
+
+
+def quad_library_ms(table, levels, what: str) -> float:
+    """B3's library yardstick: one ``torch.index_select`` of the table at
+    the cached quad index, viewed [E, 4W]; held equal to the plain build,
+    then timed (the index is built outside the timing). Used nowhere in the
+    port."""
+    import torch
+    from nersemble_tpu_torch.ops import quad_kernel
+    from nersemble_tpu_torch.utils.timing import cuda_time_ms
+
+    index = quad_index(levels, table.device)
+    entries, width = table.shape
+
+    def library():
+        return torch.index_select(table, 0, index).view(entries, 4 * width)
+
+    if not torch.equal(library(), quad_kernel.quad_build_plain(table, levels)):
+        raise AssertionError(f"index_select at the quad index ({what}) differs "
+                             f"from the plain quad build")
+    ms = cuda_time_ms(library)
+    del index
+    return ms
+
+
 def kernel_phase(cfg, levels, device):
     """Every kernel of the train and render paths vs its plain version at
-    the flagship shapes; returns {kernel: kernel_entry(...)}. No single
-    PyTorch call computes any of these four functions: library_ms is
-    None."""
+    the flagship shapes; returns {kernel: kernel_entry(...)}. One PyTorch
+    call computes B3's function, ``index_select`` at a cached index
+    (``quad_library_ms``); none computes B4's (a fold that sums the four
+    rolled quarters in f32 and casts back), B1-fwd's or B2's: their
+    library_ms is None."""
     import torch
     from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
     from nersemble_tpu_torch.ops.mlp import init_mlp
@@ -500,12 +572,14 @@ def kernel_phase(cfg, levels, device):
     del quad, plain
     k_ms = cuda_time_ms(lambda: quad_kernel.quad_build_cuda(table, levels))
     p_ms = cuda_time_ms(lambda: quad_kernel.quad_build_plain(table, levels))
+    l_ms = quad_library_ms(table, levels, "wide rows")
     moved = table.numel() * table.element_size() * 5  # read 1x, write 4x
-    results["quad_build"] = kernel_entry(err, k_ms, p_ms, bound_ms(moved))
+    results["quad_build"] = kernel_entry(err, k_ms, p_ms, bound_ms(moved), l_ms)
     log("kernels", f"B3 quad_build {tuple(table.shape)} -> "
                    f"({table.shape[0]}, {4 * width}) bf16: bit-exact; "
                    f"kernel {k_ms:.3f} ms ({moved / k_ms / 1e6:.0f} GB/s, bound "
-                   f"{results['quad_build']['bound_ms']:.3f} ms), plain {p_ms:.3f} ms")
+                   f"{results['quad_build']['bound_ms']:.3f} ms), plain {p_ms:.3f} ms, "
+                   f"index_select {l_ms:.3f} ms")
     del table
     torch.cuda.empty_cache()
 
@@ -549,14 +623,18 @@ def kernel_phase(cfg, levels, device):
         del out, plain
         k_ms = cuda_time_ms(lambda: run(x, sg_levels))
         p_ms = cuda_time_ms(lambda: plain_fn(x, sg_levels))
+        l_ms = quad_library_ms(x, sg_levels, "narrow rows") if kernel == "quad_build" \
+            else None
         moved = x.numel() * x.element_size() * (5 if kernel == "quad_build" else 1.25)
         bound = bound_ms(moved)
         results[kernel].update(narrow_shape=list(x.shape), narrow_ms=k_ms,
-                               narrow_plain_ms=p_ms, narrow_bound_ms=bound[0])
+                               narrow_plain_ms=p_ms, narrow_bound_ms=bound[0],
+                               narrow_library_ms=l_ms)
         log("kernels", f"{what} narrow rows {tuple(x.shape)} -> {shape} bf16: "
                        f"bit-exact; kernel {k_ms:.4f} ms ({moved / k_ms / 1e6:.0f} GB/s, "
                        f"bound {bound[0]:.4f} ms, {100 * bound[0] / k_ms:.1f}% of it), "
-                       f"plain {p_ms:.3f} ms")
+                       f"plain {p_ms:.3f} ms"
+                       + (f", index_select {l_ms:.4f} ms" if l_ms is not None else ""))
     del table, grad
     torch.cuda.empty_cache()
 
@@ -1582,21 +1660,6 @@ def serve_phase(root, run_name: str) -> None:
         torch.cuda.empty_cache()
 
 
-def _reset_launches() -> None:
-    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
-    fused_mlp.LAUNCHES = fused_mlp.BWD_LAUNCHES = 0
-    quad_kernel.LAUNCHES = quad_kernel.FOLD_LAUNCHES = 0
-    quad_kernel.NARROW_LAUNCHES = quad_kernel.NARROW_FOLD_LAUNCHES = 0
-
-
-def _train_launches() -> dict:
-    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
-    return {"fused_mlp_fwd": fused_mlp.LAUNCHES, "fused_mlp_bwd": fused_mlp.BWD_LAUNCHES,
-            "quad_build": quad_kernel.LAUNCHES, "quad_fold": quad_kernel.FOLD_LAUNCHES,
-            "quad_build narrow": quad_kernel.NARROW_LAUNCHES,
-            "quad_fold narrow": quad_kernel.NARROW_FOLD_LAUNCHES}
-
-
 def variant_run(what: str, monitor, run_dir, steps: int, run_s: float) -> list:
     """Print a variant run (quiet ms/step, eval and save seconds, peak
     memory, budget, launches, logged losses) and hold it: losses finite, the
@@ -1604,8 +1667,9 @@ def variant_run(what: str, monitor, run_dir, steps: int, run_s: float) -> list:
     checkpoint at the last step. Returns the logged losses and the
     launches."""
     import torch
+    from nersemble_tpu_torch.scripts.trained_scene import launches as train_launches
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = _train_launches()
+    launches = train_launches()
     metrics = read_metrics(run_dir / "metrics.jsonl")
     losses = [(s, m["train_loss"]) for s, m in sorted(metrics.items())
               if "train_loss" in m]
@@ -1652,6 +1716,8 @@ def variants_phase(root, device) -> dict:
         render_nersemble,
         train_nersemble,
     )
+    from nersemble_tpu_torch.scripts.trained_scene import launches as train_launches
+    from nersemble_tpu_torch.scripts.trained_scene import reset_launches
     from nersemble_tpu_torch.utils import png
     from nersemble_tpu_torch.utils.timing import cuda_time_ms
 
@@ -1667,7 +1733,7 @@ def variants_phase(root, device) -> dict:
     try:
         # (a) the train CLI: single grid, cone angle, early stop
         fresh_memory("variants")
-        _reset_launches()
+        reset_launches()
         monitor = SeqMonitor(VAR_A_QUIET, VAR_EVALS)
         start = time.perf_counter()
         train_nersemble.main(SEQ_ARGS[:2] + VAR_A_FLAGS + [
@@ -1689,7 +1755,7 @@ def variants_phase(root, device) -> dict:
         if not (quad_kernel.NARROW_LAUNCHES == quad_kernel.LAUNCHES
                 and quad_kernel.NARROW_FOLD_LAUNCHES == quad_kernel.FOLD_LAUNCHES):
             raise AssertionError(f"(a) B3/B4 ran on rows that are not narrow: "
-                                 f"{_train_launches()}")
+                                 f"{train_launches()}")
         del monitor, cfg
 
         with RenderLog() as renders:
@@ -1726,7 +1792,7 @@ def variants_phase(root, device) -> dict:
 
         # (b) the flagship with SH degree 4 and the appearance embedding
         fresh_memory("variants")
-        _reset_launches()
+        reset_launches()
         fused_mlp.ROWS = collections.Counter()
         folder = NeRSembleModelFolder()
         manager = folder.new_run(name=VAR_B_NAME)
@@ -1790,10 +1856,10 @@ def variants_phase(root, device) -> dict:
     nersemble.coarse_entry_steps = counted_entry
     try:
         for variant in TINY_VARIANTS:
-            _reset_launches()
+            reset_launches()
             train_reference_phase(device, variant, phase=f"variants (c) {variant}")
             frame_reference(device, variant, phase=f"variants (c) {variant}")
-            launches = _train_launches()
+            launches = train_launches()
             if min(launches[k] for k in ("fused_mlp_fwd", "fused_mlp_bwd", "quad_build",
                                          "quad_fold")) <= 0:
                 raise AssertionError(f"(c) {variant}: launches {launches}")
@@ -1806,6 +1872,106 @@ def variants_phase(root, device) -> dict:
         raise AssertionError("(c) the cone variant's frame never took the two-phase "
                              "prefilter")
     return {"a": launches_a, "b": launches_b}
+
+
+def trained_scene_phase(device) -> dict:
+    """A trained, carved scene (phase 15): (a) the quality benchmark's
+    static run, (b) the render benchmark and the viewer on it, (c) the pose
+    figure of its capture. Returns the kernels' launches in (a) and in (b)'s
+    filtered and unfiltered renders."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from nersemble_tpu_torch.config import TrainConfig
+    from nersemble_tpu_torch.data.dataparser import NeRSembleDataParser
+    from nersemble_tpu_torch.data.multi_view_data import NeRSembleDataManager
+    from nersemble_tpu_torch.scripts import trained_scene, validate_poses
+    from nersemble_tpu_torch.utils import png
+
+    root = Path(tempfile.mkdtemp(prefix="nersemble_trained_scene_"))
+    args = trained_scene.build_parser().parse_args(TRAINED_ARGS + ["--root", str(root)])
+    try:
+        # (a) the quality run
+        train = trained_scene.train_scene(args, device)
+        quality, launches = train["quality"], train["launches"]
+        curve = [(p["step"], p["eval_psnr"], p["eval_ssim"]) for p in quality["eval_curve"]]
+        log("trained scene", f"(a) static quality run, {args.steps} steps in "
+                             f"{quality['wall_clock_s']} s ({train['seconds']:.1f} s with "
+                             f"the capture), median {train['ms_per_step_median']:.1f} "
+                             f"ms/step over the logged intervals; eval (step, PSNR, "
+                             f"SSIM) {curve}; all-background image "
+                             f"{train['background_psnr']:.3f} dB; final train PSNR "
+                             f"{quality['final_train_psnr']}; drops "
+                             f"{quality['drop_diagnostics_tail'][-1:]}; peak memory "
+                             f"{train['peak_gib']} GiB; launches {launches}")
+        if len(curve) < 2 or not curve[-1][1] > curve[0][1]:
+            raise AssertionError(f"(a) the last eval PSNR does not beat the first: {curve}")
+        if not curve[-1][1] > train["background_psnr"]:
+            raise AssertionError(f"(a) the last eval PSNR {curve[-1][1]} does not beat an "
+                                 f"all-background image's {train['background_psnr']:.3f}")
+        for kernel in ("fused_mlp_fwd", "fused_mlp_bwd", "quad_build", "quad_fold"):
+            if launches[kernel] <= 0:
+                raise AssertionError(f"(a) the quality run never launched {kernel}")
+
+        # (b) the render benchmark and the viewer on the run: with the CC
+        # filter (the render and eval protocol: it must keep cells, which no
+        # grid still in its warm-up does), then without it, the grid the run
+        # marched in training
+        render = trained_scene.render_scene(args, train["run"], device)
+        for key, part in render.items():
+            extra = part["bench"]["extra"]
+            log("trained scene", f"(b) bench_render {extra['resolution']} {key}: "
+                                 f"{extra['ms_per_frame']} ms/frame, auto budget "
+                                 f"{extra['auto_budget']}, hit fraction "
+                                 f"{extra['hit_ray_fraction']}, mean accumulation "
+                                 f"{extra['mean_accumulation']}, CC filter cells "
+                                 f"{part['bench']['cc_cells']}, peak memory "
+                                 f"{part['peak_gib']} GiB, launches per frame "
+                                 f"{extra['launches_per_frame']}, in all {part['launches']}")
+        filtered, unfiltered = render["filtered"], render["unfiltered"]
+        cells, extra = filtered["bench"]["cc_cells"], filtered["bench"]["extra"]
+        if cells is None or not cells["kept"] > 0:
+            raise AssertionError(f"(b) the CC filter kept no cell: {cells}")
+        if not extra["mean_accumulation"] >= 0.01 or not extra["hit_ray_fraction"] > 0:
+            raise AssertionError(f"(b) the filtered orbit renders (almost) nothing: {extra}")
+        for key, part in render.items():
+            for kernel in ("fused_mlp_fwd", "quad_build"):
+                if part["launches"][kernel] <= 0:
+                    raise AssertionError(f"(b) bench_render {key} never launched {kernel}")
+        view = trained_scene.view_scene(args, train["run"], device)
+        log("trained scene", f"(b) viewer at width {trained_scene.VIEW_WIDTH}: ms per "
+                             f"request {[round(ms, 1) for ms, _ in view['requests']]}, "
+                             f"peak memory {view['peak_gib']} GiB")
+
+        # (c) the pose figure: it decodes, and the capture's train cameras
+        # are drawn at their centres
+        data = TrainConfig.load(Path(quality["run_dir"]) / "config.yml").data
+        figure = root / "validate_poses.png"
+        geometry = validate_poses.main(
+            [str(data.participant_id), data.sequence_name, "--output", str(figure),
+             "--device", str(device)], data_location=str(root / "data"))
+        image = png.imread(figure)
+        centers = NeRSembleDataParser(data, NeRSembleDataManager(
+            data.participant_id, data.sequence_name, location=str(root / "data"))
+        ).generate_outputs("train").c2w[:, :3, 3]
+        fig = validate_poses.Figure(geometry)
+        drawn = [image[r, c] for view_idx in range(len(validate_poses.VIEWS))
+                 for r, c in fig.pixels(geometry["centers"], view_idx)]
+        log("trained scene", f"(c) validate_poses: {figure.name} {image.shape} "
+                             f"{image.dtype}, {len(centers)} train cameras")
+        if image.shape != (validate_poses.PANEL, 3 * validate_poses.PANEL, 3):
+            raise AssertionError(f"(c) the pose figure is {image.shape}")
+        if not np.array_equal(geometry["centers"], centers):
+            raise AssertionError("(c) the plotted centres differ from the dataparser's")
+        if not all(tuple(px) == validate_poses.CAMERA for px in drawn):
+            raise AssertionError("(c) a camera centre is not drawn at its pixel")
+        return {"train": launches, "render": filtered["launches"],
+                "render unfiltered": unfiltered["launches"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -1953,6 +2119,9 @@ def main() -> None:
     # ---- 12.-14. sequence, serve and variants on a capture on disk ---------------
     variant_launches = sequence_phase(train_step_ms)
 
+    # ---- 15. a trained scene: quality run, render bench, viewer, poses ----------
+    trained_launches = trained_scene_phase(device)
+
     sources = {
         "fused_mlp_fwd": ("fused_mlp_fwd.cu", "nersemble_tpu/ops/fused_mlp.py:71"),
         "fused_mlp_bwd": ("fused_mlp_bwd.cu", "nersemble_tpu/ops/fused_mlp.py:83"),
@@ -1968,7 +2137,9 @@ def main() -> None:
          "source": f"nersemble_tpu_torch/csrc/{src}", "replaces": replaces,
          "launches": launches[kernel], **kernel_results[kernel],
          **({"variant_launches": {run: counts[kernel] for run, counts
-                                  in variant_launches.items()}}
+                                  in variant_launches.items()},
+             "trained_scene_launches": {part: counts[kernel] for part, counts
+                                        in trained_launches.items()}}
             if kernel in variant_launches["a"] else {})}
         for kernel, (src, replaces) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,10 +13,10 @@ Per image:
   scale factor.
 
 Resizing: images stored at the probed size pass unchanged (the case of
-every capture the dataparser sizes); depth maps of another size are
-resized with PIL's NEAREST rule, which ``resize_nearest`` reproduces bit
-for bit. An rgb or alpha map of another size would need PIL's antialiased
-BILINEAR, which is not ported (ROADMAP A5): it raises.
+every capture the dataparser sizes). An rgb or alpha map of another size is
+resized with PIL's antialiased BILINEAR filter and a depth map with PIL's
+NEAREST rule, as the JAX package resizes them; ``resize_bilinear`` and
+``resize_nearest`` reproduce PIL bit for bit.
 
 The cache stores at most ``max_cached_items`` decoded items, optionally
 uint8-compressed (~4x smaller, lossy) like the reference's ~200 GB RAM cache.
@@ -51,15 +51,73 @@ def resize_nearest(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     return image[_nearest_index(image.shape[0], height)][:, _nearest_index(image.shape[1], width)]
 
 
+# PIL's fixed-point weights of the 8-bit resample passes (Resample.c)
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _bilinear_taps(n_in: int, n_out: int):
+    """(first source index [n_out], fixed-point weights [n_out, taps]) of
+    PIL's triangle filter along one axis (Resample.c precompute_coeffs and
+    normalize_coeffs_8bpc): support max(n_in / n_out, 1), window centred
+    on (i + 0.5) * scale and clipped to the image, weights normalised in
+    double precision (summed tap by tap, as PIL does), then rounded to
+    ``_PRECISION_BITS`` fraction bits. Taps past the window weigh 0."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = filterscale  # the bilinear filter's support is 1
+    taps = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(n_out) + 0.5) * scale
+    # C's (int) conversion truncates toward zero
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), n_in) - xmin
+    x = np.arange(taps)
+    w = np.abs(((x + xmin[:, None]).astype(np.float64) - center[:, None] + 0.5)
+               * (1.0 / filterscale))
+    w = np.where((x < xmax[:, None]) & (w < 1.0), 1.0 - w, 0.0)
+    total = np.zeros(n_out)
+    for k in range(taps):
+        total = total + w[:, k]
+    w = np.where(total[:, None] != 0.0, w / np.where(total == 0.0, 1.0, total)[:, None], w)
+    return xmin, np.trunc(0.5 + w * (1 << _PRECISION_BITS)).astype(np.int64)
+
+
+def _bilinear_pass(image: np.ndarray, n_out: int, axis: int) -> np.ndarray:
+    """One 8-bit pass of PIL's resample along ``axis``: the weighted sum of
+    each window in integers, rounded at half, clipped to uint8."""
+    n_in = image.shape[axis]
+    xmin, weights = _bilinear_taps(n_in, n_out)
+    index = np.minimum(xmin[:, None] + np.arange(weights.shape[1]), n_in - 1)
+    src = np.moveaxis(image, axis, 0).astype(np.int64)
+    acc = np.full((n_out,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    for k in range(weights.shape[1]):
+        wk = weights[:, k].reshape((n_out,) + (1,) * (src.ndim - 1))
+        acc += src[index[:, k]] * wk
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_bilinear(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """uint8 [H, W] or [H, W, C] -> [size[1], size[0], ...] by PIL's
+    antialiased BILINEAR resize (``Image.resize(size, Image.BILINEAR)``),
+    bit for bit: the horizontal pass first, rounded to uint8, then the
+    vertical pass; an axis whose size does not change is not resampled."""
+    if image.dtype != np.uint8:
+        raise TypeError(f"resize_bilinear takes uint8 images, not {image.dtype}")
+    width, height = size
+    out = image
+    if width != image.shape[1]:
+        out = _bilinear_pass(out, width, axis=1)
+    if height != image.shape[0]:
+        out = _bilinear_pass(out, height, axis=0)
+    return out
+
+
 def _resize(image: np.ndarray, size, nearest: bool = False) -> np.ndarray:
     if image.shape[1::-1] == tuple(size):
         return image
     if nearest:
         return resize_nearest(image, size)
-    raise NotImplementedError(
-        f"resizing an image from {image.shape[1]}x{image.shape[0]} to "
-        f"{size[0]}x{size[1]} needs PIL's BILINEAR filter, which is not "
-        f"ported (ROADMAP A5)")
+    return resize_bilinear(image, size)
 
 
 class NeRSembleDataset:

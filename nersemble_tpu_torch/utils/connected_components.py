@@ -20,6 +20,13 @@ def _sigmoid(x):
     return 1.0 / (1.0 + np.exp(-x))
 
 
+def _thinned(grid: np.ndarray, sigma_thinning: float) -> np.ndarray:
+    """The filter's first steps: sigmoid, uint8 rescale, thinning blur."""
+    import scipy.ndimage as ndi
+    return ndi.gaussian_filter(((_sigmoid(grid) - 0.5) * 2 * 255).astype(np.uint8),
+                               sigma=sigma_thinning)
+
+
 def extract_top_k_connected_component(density_grid: np.ndarray,
                                       threshold: float = 0.6,
                                       sigma_thinning: float = 1.0,
@@ -29,10 +36,7 @@ def extract_top_k_connected_component(density_grid: np.ndarray,
     (largest last, erosion-enlarged)."""
     import scipy.ndimage as ndi
 
-    grid = _sigmoid(density_grid)
-    grid = ((grid - 0.5) * 2 * 255).astype(np.uint8)
-    grid = ndi.gaussian_filter(grid, sigma=sigma_thinning)
-    binary = grid >= 255 * threshold
+    binary = _thinned(density_grid, sigma_thinning) >= 255 * threshold
 
     labels, n_labels = ndi.label(binary, structure=ndi.generate_binary_structure(3, 1))
     if n_labels == 0:
@@ -57,6 +61,21 @@ def extract_top_k_connected_component(density_grid: np.ndarray,
     return components
 
 
+def largest_component_cells(grid_occs: np.ndarray, resolution: int,
+                            threshold: float = 0.6,
+                            sigma_thinning: float = 1.0) -> int:
+    """Cells of the largest 6-connected component of the thresholded grid,
+    before the erosion blur enlarges it (or erases it: a component of a few
+    cells blurs below 1 in every integer pass and comes out empty)."""
+    import scipy.ndimage as ndi
+    grid = np.asarray(grid_occs).reshape(resolution, resolution, resolution)
+    binary = _thinned(grid, sigma_thinning) >= 255 * threshold
+    labels, n_labels = ndi.label(binary, structure=ndi.generate_binary_structure(3, 1))
+    if n_labels == 0:
+        return 0
+    return int(np.bincount(labels.ravel())[1:].max())
+
+
 def filter_occupancy_grid_mask(grid_occs: np.ndarray, resolution: int,
                                threshold: float = 0.6,
                                sigma_thinning: float = 1.0,
@@ -72,23 +91,20 @@ def filter_occupancy_grid_mask(grid_occs: np.ndarray, resolution: int,
         sigma_erosion=sigma_erosion, k=1)[-1]
     mask = largest > 0
     if not mask.any():
-        # Matches the reference pipeline (an empty thresholded grid yields an
-        # empty component and the AND blanks the binaries), but silent black
-        # frames are a terrible failure mode — say why. Seen in practice on
-        # under-trained checkpoints: EMA occ values ~0.07 rescale to 9/255,
-        # below the 0.05*255 threshold.
+        # Matches the reference pipeline (an empty component blanks the
+        # binaries), but silent black frames are a terrible failure mode:
+        # say which step emptied it. The threshold compares the POST-blur
+        # grid (the thinning blur can erase a small above-threshold peak).
         import sys
-        import scipy.ndimage as ndi
-        # report the POST-blur max (thresholding happens on the blurred uint8
-        # grid — the thinning blur can erase a small above-threshold peak, so
-        # the pre-blur max could read >= threshold here)
-        blurred = ndi.gaussian_filter(
-            ((_sigmoid(grid) - 0.5) * 2 * 255).astype(np.uint8),
-            sigma=sigma_thinning)
+        peak = float(_thinned(grid, sigma_thinning).max()) / 255
+        cells = largest_component_cells(grid, resolution, threshold, sigma_thinning)
+        cause = (f"max blurred occupancy {peak:.4f} < threshold {threshold}"
+                 if cells == 0 else
+                 f"max blurred occupancy {peak:.4f} >= threshold {threshold}, but "
+                 f"the largest thresholded component, {cells} cells, was erased by "
+                 f"the integer erosion blur (sigma {sigma_erosion})")
         print(f"[nersemble-torch] WARNING: occupancy CC filter kept 0 cells "
-              f"(max blurred occupancy {float(blurred.max()) / 255:.4f} < "
-              f"threshold {threshold}); everything renders as background. The "
-              f"grid is likely under-trained, or lower "
-              f"--occupancy-grid-filtering-threshold.",
+              f"({cause}); everything renders as background. The grid is likely "
+              f"under-trained, or lower --occupancy-grid-filtering-threshold.",
               file=sys.stderr)
     return mask

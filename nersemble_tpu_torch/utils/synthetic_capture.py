@@ -1,9 +1,11 @@
 """A synthetic multi-view capture on disk, in the published dataset's layout
-(the port's copy of tests/synthetic_data.make_synthetic_dataset without
-its textures): a shaded sphere whose centre moves over time, seen by the
-16-camera rig on two staggered elevation rings, written as images, alpha
+(the port's copy of tests/synthetic_data.make_synthetic_dataset): a shaded
+sphere whose centre moves over time, optionally squashed into a time-varying
+ellipsoid and covered with a surface-anchored procedural texture, seen by
+the 16-camera rig on two staggered elevation rings, written as images, alpha
 maps, 16-bit depth maps, colour corrections and ``camera_params.json``
-through utils/png.py. It drives the train CLI where no capture ships.
+through utils/png.py. It drives the train CLI and the quality benchmark
+where no capture ships.
 
 Geometry lives in the calibration (OpenCV-world) frame at metric scale; the
 dataparser's x9 world scaling is a pure rescale invisible to the cameras.
@@ -27,6 +29,34 @@ SPHERE_COLOR = np.array([0.8, 0.35, 0.25])
 def sphere_center(time_frac: float) -> np.ndarray:
     """The centre moves along calibration x with time."""
     return np.array([0.06 * time_frac - 0.03, 0.0, 0.0])
+
+
+def squash_factor(time_frac: float, amplitude: float) -> float:
+    """The time-varying y squash of the ellipsoid (the non-rigid motion of
+    the dynamic quality benchmark)."""
+    return 1.0 - amplitude * np.sin(np.pi * time_frac)
+
+
+def surface_texture(n_obj: np.ndarray, style: str = "default") -> np.ndarray:
+    """Procedural multi-frequency albedo from object-space unit normals, so
+    it sticks to the surface under motion and squash. ``"sharp"`` adds
+    strong very-high-frequency bands (a period of ~4 pixels at the quality
+    benchmark's framing): multi-view parallax of fine texture is what makes
+    a field carve instead of converging to fog."""
+    theta = np.arctan2(n_obj[..., 1], n_obj[..., 0])
+    phi = np.arccos(np.clip(n_obj[..., 2], -1.0, 1.0))
+    t1 = np.sin(9.0 * theta) * np.sin(9.0 * phi)
+    t2 = np.sin(23.0 * theta + 1.3) * np.sin(17.0 * phi + 0.7)
+    t3 = np.sin(5.0 * theta - 2.1) * np.cos(7.0 * phi)
+    r = 0.55 + 0.35 * t1 + 0.10 * t2
+    g = 0.45 + 0.30 * t3 - 0.15 * t1
+    b = 0.50 + 0.25 * t2 + 0.15 * t3
+    rgb = np.stack([r, g, b], axis=-1)
+    if style == "sharp":
+        s1 = np.sin(81.0 * theta + 0.4) * np.sin(67.0 * phi + 1.9)
+        s2 = np.sign(np.sin(41.0 * theta) * np.sin(37.0 * phi + 0.5))
+        rgb = rgb + (0.22 * s1 + 0.13 * s2)[..., None]
+    return np.clip(rgb, 0.0, 1.0)
 
 
 def camera_rig(n_cams: int = 16, elevation_deg: float = 22.5) -> dict:
@@ -53,8 +83,11 @@ def camera_rig(n_cams: int = 16, elevation_deg: float = 22.5) -> dict:
 
 
 def render_view(w2c: np.ndarray, intrinsics: np.ndarray, width: int,
-                height: int, time_frac: float):
-    """Analytic render -> (rgb u8 [H,W,3], alpha u8 [H,W], depth f32 [H,W])."""
+                height: int, time_frac: float, texture: bool = False,
+                squash: float = 0.0, texture_style: str = "default"):
+    """Analytic render -> (rgb u8 [H,W,3], alpha u8 [H,W], depth f32 [H,W]).
+    The ray meets the unit sphere of object space: translated to the centre
+    and with y scaled by 1 / ``squash_factor``."""
     c2w = np.linalg.inv(w2c)
     fx, fy = intrinsics[0, 0], intrinsics[1, 1]
     cx, cy = intrinsics[0, 2], intrinsics[1, 2]
@@ -65,28 +98,44 @@ def render_view(w2c: np.ndarray, intrinsics: np.ndarray, width: int,
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
     origin = c2w[:3, 3]
     center = sphere_center(time_frac)
-    oc = origin - center
-    b = (dirs * oc).sum(-1)
+    s = np.array([1.0, squash_factor(time_frac, squash), 1.0])
+    oc = (origin - center) / s
+    d_obj = dirs / s
+    a = (d_obj * d_obj).sum(-1)
+    b = (d_obj * oc).sum(-1)
     c = (oc * oc).sum() - SPHERE_RADIUS ** 2
-    disc = b * b - c
-    t = -b - np.sqrt(np.maximum(disc, 0.0))
+    disc = b * b - a * c
+    t = (-b - np.sqrt(np.maximum(disc, 0.0))) / np.maximum(a, 1e-12)
     hit = (disc > 0) & (t > 0)
     depth = np.where(hit, t, 0.0).astype(np.float32)
-    normals = (origin + dirs * t[..., None] - center) / SPHERE_RADIUS
+    points = origin + dirs * t[..., None]
+    n_obj = ((points - center) / s) / SPHERE_RADIUS
+    n_obj = n_obj / np.maximum(np.linalg.norm(n_obj, axis=-1, keepdims=True), 1e-12)
+    # the ellipsoid's world normal is normalize(n_obj / s)
+    normals = n_obj / s
+    normals = normals / np.maximum(np.linalg.norm(normals, axis=-1, keepdims=True),
+                                   1e-12)
     light = np.array([0.5, -0.7, 0.5]) / np.linalg.norm([0.5, -0.7, 0.5])
     shade = np.clip((normals * light).sum(-1), 0.0, 1.0) * 0.7 + 0.3
-    rgb = np.where(hit[..., None], SPHERE_COLOR * shade[..., None], 0.0)
+    albedo = surface_texture(n_obj, texture_style) if texture else SPHERE_COLOR
+    rgb = np.where(hit[..., None], albedo * shade[..., None], 0.0)
     rgb_u8 = (np.clip(rgb, 0, 1) * 255).round().astype(np.uint8)
     alpha_u8 = np.where(hit, 255, 0).astype(np.uint8)
     return rgb_u8, alpha_u8, depth
 
 
-def write_capture(root, participant_id: int = 30, sequence_name: str = "SYN-1",
-                  n_timesteps: int = 3,
-                  original_size: Tuple[int, int] = (1100, 1604)) -> dict:
+def make_synthetic_dataset(root, participant_id: int = 30,
+                           sequence_name: str = "SYN-1",
+                           n_timesteps: int = 3,
+                           original_size: Tuple[int, int] = (64, 88),
+                           n_cams: int = 16,
+                           texture: bool = False,
+                           squash: float = 0.0,
+                           texture_style: str = "default") -> dict:
     """Write the capture under ``root`` with images at half of
-    ``original_size`` (width, height), the dataset's 2x downscale; returns
-    its sizes and poses."""
+    ``original_size`` (width, height), the dataset's 2x downscale, rendered
+    by ``render_view`` with ``texture``, ``squash`` and ``texture_style``;
+    returns its sizes, poses and intrinsics."""
     root = Path(root)
     ow, oh = original_size
     w, h = ow // 2, oh // 2
@@ -95,7 +144,7 @@ def write_capture(root, participant_id: int = 30, sequence_name: str = "SYN-1",
                                 [0, 0, 1.0]])
     intrinsics_half = intrinsics_full.copy()
     intrinsics_half[:2] /= 2
-    poses = camera_rig()
+    poses = camera_rig(n_cams)
     participant = root / f"{participant_id:03d}"
     seq = participant / "sequences" / sequence_name
     quantizer = DepthQuantizer()
@@ -108,7 +157,9 @@ def write_capture(root, participant_id: int = 30, sequence_name: str = "SYN-1",
         for d in (img_dir, alpha_dir, depth_dir):
             d.mkdir(parents=True, exist_ok=True)
         for serial, w2c in poses.items():
-            rgb, alpha, depth = render_view(w2c, intrinsics_half, w, h, time_frac)
+            rgb, alpha, depth = render_view(w2c, intrinsics_half, w, h, time_frac,
+                                            texture=texture, squash=squash,
+                                            texture_style=texture_style)
             png.imwrite(img_dir / f"cam_{serial}.png", rgb)
             png.imwrite(alpha_dir / f"cam_{serial}.png", alpha)
             png.imwrite(depth_dir / f"cam_{serial}.png", quantizer.encode(depth))
@@ -123,3 +174,12 @@ def write_capture(root, participant_id: int = 30, sequence_name: str = "SYN-1",
     return {"original_size": (ow, oh), "image_size": (w, h),
             "intrinsics_full": intrinsics_full, "poses": poses,
             "n_timesteps": n_timesteps}
+
+
+def write_capture(root, participant_id: int = 30, sequence_name: str = "SYN-1",
+                  n_timesteps: int = 3,
+                  original_size: Tuple[int, int] = (1100, 1604)) -> dict:
+    """The untextured capture at the flagship's image size (550x802 on
+    disk): ``make_synthetic_dataset`` with another default size."""
+    return make_synthetic_dataset(root, participant_id, sequence_name,
+                                  n_timesteps, original_size)

@@ -134,8 +134,13 @@ def test_nearest_resize_is_pils(src, dst, dtype):
 
 
 def test_bilinear_resize_is_not_ported():
-    with pytest.raises(NotImplementedError, match="32x44 to 16x22"):
-        tds._resize(np.zeros((44, 32, 3), np.uint8), (16, 22))
+    """Kept under its old name: an rgb image of another size, which the port
+    used to refuse, is now resized as the JAX dataset resizes it (PIL's
+    BILINEAR; tests/test_torch_resize_capture.py holds more shapes)."""
+    image = np.random.default_rng(3).integers(0, 256, (44, 32, 3), dtype=np.uint8)
+    ref = np.asarray(Image.fromarray(image).resize((16, 22), resample=Image.BILINEAR))
+    assert np.array_equal(tds._resize(image, (16, 22)), ref)
+    assert np.array_equal(tds._resize(image, (16, 22)), jds._resize(image, (16, 22)))
 
 
 def test_depth_quantizer_matches():

@@ -48,15 +48,20 @@ def test_imports_without_jax_and_yaml():
             "nersemble_tpu_torch.utils.connected_components",
             "nersemble_tpu_torch.utils.fvvdp", "nersemble_tpu_torch.utils.jod",
             "nersemble_tpu_torch.utils.lpips",
-            "nersemble_tpu_torch.utils.videoio"} <= set(names)
+            "nersemble_tpu_torch.utils.videoio",
+            "nersemble_tpu_torch.utils.synthetic_capture",
+            "nersemble_tpu_torch.scripts.quality_benchmark",
+            "nersemble_tpu_torch.scripts.bench_render",
+            "nersemble_tpu_torch.scripts.validate_poses",
+            "nersemble_tpu_torch.scripts.trained_scene"} <= set(names)
     code = ("import sys\n"
             f"for blocked in {BLOCKED + LAZY!r}:\n"
             "    sys.modules[blocked] = None\n"
             "import importlib\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
-            "bad = [m for m in sys.modules if m == 'nersemble_tpu' "
-            "or m.startswith('nersemble_tpu.')]\n"
+            "bad = [m for m in sys.modules if m in ('nersemble_tpu', 'tests') "
+            "or m.startswith(('nersemble_tpu.', 'tests.'))]\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -67,7 +72,7 @@ def test_imports_without_jax_and_yaml():
 
 def test_no_source_imports_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|yaml|imageio|PIL|matplotlib|cv2"
-                         r"|nersemble_tpu)\b", re.MULTILINE)
+                         r"|nersemble_tpu|tests)\b", re.MULTILINE)
     offenders = [str(p) for p in PACKAGE.rglob("*.py")
                  if pattern.search(p.read_text())]
     assert offenders == []
