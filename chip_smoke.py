@@ -3,6 +3,7 @@
 one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parallel-only  # phases 1, 2 and 16; no result line
 
 Phases, each printing its own lines:
   1. device    -- requires CUDA; prints the card and its power limit;
@@ -181,13 +182,38 @@ Phases, each printing its own lines:
                   the hit fraction, the filter's kept cells and its largest
                   thresholded component, the viewer's ms per request and
                   peak memory per part.
+ 16. parallel  -- the multi-device layouts (nersemble_tpu_torch/parallel/)
+                  on the flagship step with contrast-scaled weights: 4096
+                  rays of parallel/compare.synthetic_batches, S=256, budget
+                  73,728, bench.py's grid, steps 79999-80001 through
+                  run_step (a sampled occupancy update and a budget
+                  decision at 80000), every run under PyTorch's
+                  deterministic algorithms. (a) one NCCL rank (a spawned
+                  process) against the plain trainer in this process:
+                  losses, parameters and first moments bit for bit
+                  (SHA-256); (b) at an f32 table, ZeRO-3 and the replicated
+                  table over two gloo ranks sharing this card (NCCL takes
+                  one card per rank), and one rank: on each run the ranks'
+                  replicated parameters and grids bit for bit; ZeRO-3
+                  against the replicated table after the three steps
+                  within atol 5e-5 rtol 1e-3 (tests/test_table_sharding.py
+                  :170); against one rank, the first step's gradients (the
+                  first moments) within tests/test_torch_train_step.py's
+                  bounds (f32; bf16 for the warp head's weight, whose
+                  gradient passes a bf16 cast on each rank); ms/step,
+                  collectives' host ms per step and peak GiB per rank;
+                  B1-B4 must launch in (a)'s rank and (b)'s ZeRO-3 rank 0.
+                  (c) with two or more cards visible: ZeRO-3 over NCCL on
+                  all of them, its first step's gradients against one rank
+                  as in (b), then bench_projection; with one card, a line
+                  says (c) was not run.
 Then one JSON line with the eight kernels (launches on the training path
 for B1-B4 and on the measurement path for P1-P4, times, the bound and the
 library call's time; B3/B4 also with their narrow-row time and bound (B3
 beside its library call, index_select at a cached quad index), B1-fwd and
 B2 with the variant heads', and B1-B4 with their launches in phase 14's
-runs (a) and (b) and phase 15's quality run and render bench), and the
-last line
+runs (a) and (b), phase 15's quality run and render bench and phase 16's
+ranks), and the last line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
 and the last line is not printed. Without a CUDA device nothing runs.
 """
@@ -311,6 +337,32 @@ VAR_EVALS = ("_eval_image", "_train_image", "save_run_checkpoint")
 # the viewer at width 256, then the capture's pose figure
 TRAINED_ARGS = ["--mode", "static", "--steps", "6000", "--eval-every", "2000",
                 "--view-requests", "3"]
+# the parallel phase: the flagship step through parallel/ (bench.py's grid,
+# 4096 rays of parallel/compare.synthetic_batches, S=256, the steady-state
+# budget 73,728, the schedule's end, constant learning rates, weights scaled
+# by utils/cameras.add_contrast) for steps 79999-80001: the last takes the
+# budget decided at 80000, after a sampled occupancy update there. Every run
+# uses PyTorch's deterministic algorithms (the encode's index_add_
+# otherwise sums in atomic order). (a) one NCCL rank against the plain
+# trainer, bit for bit; (b) at an f32 table, ZeRO-3 over two gloo ranks
+# sharing the card against the replicated table on two ranks (the layout
+# alone differs): every parameter after the three steps at the JAX
+# package's multi-device bound (tests/test_table_sharding.py:170); and
+# against one rank, the first step's gradients (0.1 g: the first Adam
+# moments) at tests/test_torch_train_step.py's f32 gradient bound. Not the
+# parameters after three steps: on the card a gradient that differs by its
+# sums' order (1e-7 to 1e-5 of its leaf's largest) flips Adam's step of the
+# entries that cancel, the occupancy update at 80000 turns the moved
+# densities into other cells and samples, and by step 80001 about 40% of
+# the table's entries on an H100 80GB HBM3 are past the JAX bound while the
+# first step's gradients hold theirs; the phase prints that count.
+PAR_FIRST_STEP, PAR_STEPS = 79999, 3
+PAR_TOL = {"atol": 5e-5, "rtol": 1e-3}
+# the gradient bound, atol as a fraction of the leaf's largest: f32, and
+# bf16 for the weights whose gradient passes a bf16 cast (ops/mlp.py
+# apply_linear's round_to: each rank rounds its share before the sum)
+PAR_GRAD_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (1e-2, 2e-3)}
+PAR_BF16_GRADS = ("deformation.head_rv.w",)
 
 
 def _single_grid(cfg):
@@ -1874,6 +1926,177 @@ def variants_phase(root, device) -> dict:
     return {"a": launches_a, "b": launches_b}
 
 
+def parallel_phase() -> dict:
+    """The multi-device layouts (phase 16): (a) one NCCL rank vs the plain
+    trainer, (b) ZeRO-3 over two gloo ranks on this card vs one rank, (c)
+    with two or more cards visible, ZeRO-3 over NCCL on all of them vs one
+    rank and bench_projection. Returns the kernels' launches in (a)'s rank
+    and (b)'s rank 0 (and (c)'s). The runs' parameters (~1.7 GB each) go
+    through a temporary directory."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    out_dir = Path(tempfile.mkdtemp(prefix="nersemble_parallel_"))
+    try:
+        return _parallel_runs(out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _parallel_runs(out_dir) -> dict:
+    import torch
+    from nersemble_tpu_torch.bench import LRS
+    from nersemble_tpu_torch.config import flagship_model_config
+    from nersemble_tpu_torch.ops.sampling import quantized_budget
+    from nersemble_tpu_torch.parallel import compare, launch
+    from nersemble_tpu_torch.utils.bench_data import STEADY_STATE_FILL, bench_grid
+    from nersemble_tpu_torch.utils.windows import sched_values
+
+    cfg = flagship_model_config(tiny=False)
+    S = cfg.sampling.max_samples_per_ray
+    spec = {"config": cfg, "layout": "replicated", "params": None,
+            "grid_occs": bench_grid(cfg.grid_resolution).numpy(),
+            "batches": compare.synthetic_batches(TRAIN_RAYS, PAR_STEPS, cfg.n_timesteps,
+                                                 seed=SEED),
+            "first_step": PAR_FIRST_STEP, "lrs": LRS,
+            "sched": sched_values(cfg, cfg.window_hash_encodings_end + 1),
+            "budget": quantized_budget(STEADY_STATE_FILL, TRAIN_RAYS, S),
+            "device": "cuda", "deterministic": True, "contrast": True}
+    log("parallel", f"flagship {TRAIN_RAYS} rays, S={S}, budget {spec['budget']}, "
+                    f"steps {PAR_FIRST_STEP}-{PAR_FIRST_STEP + PAR_STEPS - 1}; "
+                    f"{torch.cuda.device_count()} card(s) visible")
+
+    def load(name):
+        with np.load(out_dir / f"{name}.npz") as data:
+            return {k: data[k] for k in data.files}
+
+    def plain(what, run_spec):
+        """``run_steps`` in this process, deterministic like the ranks."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            result = compare.run_steps(None, run_spec)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        report(what, result)
+        return result
+
+    def ranks(what, n, backend, run_specs):
+        """``run_steps`` of each spec on n new ranks."""
+        torch.cuda.empty_cache()
+        results = launch.spawn(compare.run_many, n, backend, "cuda",
+                               [("run_steps", run_spec) for run_spec in run_specs])
+        for run_spec, result in zip(run_specs, results):
+            report(f"{what}, {run_spec['layout']}", result)
+            if result["layout"] != run_spec["layout"] or not result["replicas_equal"]:
+                raise AssertionError(f"{what}: layout {result['layout']}, replicas "
+                                     f"equal {result['replicas_equal']}")
+        if n > 1:
+            log("parallel", f"{what}: every run's replicated parameters and grids "
+                            f"equal on all ranks, bit for bit")
+        return results
+
+    def report(what, result):
+        log("parallel", f"{what}: layout {result['layout']}, ms/step "
+                        f"{[round(x, 1) for x in result['ms_per_step']]}, collectives' "
+                        f"host ms {[round(x, 1) for x in result['comm_ms_per_step']]}, "
+                        f"peak {[round(x, 2) for x in result.get('peak_gib', [])]} GiB "
+                        f"per rank, loss {[round(x, 6) for x in result['loss']]}, "
+                        f"budget-dropped {result['num_budget_dropped']}, launches "
+                        f"{result['launches']}")
+        if not all(math.isfinite(x) for x in result["loss"]):
+            raise AssertionError(f"{what}: non-finite loss {result['loss']}")
+
+    def out(name):
+        return {"params_out": str(out_dir / f"{name}.npz")}
+
+    def held(what, got, ref, hold=True):
+        """Every parameter within PAR_TOL of ``ref`` (``hold`` False: only
+        count the ones outside)."""
+        worst, outside = (None, 0.0), 0
+        for key, value in ref.items():
+            p_got, p_ref = got[key].astype(np.float64), value.astype(np.float64)
+            ratio = np.abs(p_got - p_ref) / (PAR_TOL["atol"] + PAR_TOL["rtol"] * np.abs(p_ref))
+            outside += int((ratio > 1).sum())
+            if ratio.max() > worst[1]:
+                worst = (key, float(ratio.max()))
+        log("parallel", f"{what}: {len(ref)} leaves, the worst {worst} of atol "
+                        f"{PAR_TOL['atol']} rtol {PAR_TOL['rtol']}; {outside} outside")
+        if hold and worst[1] > 1.0:
+            raise AssertionError(f"{what}: {worst[0]} at {worst[1]:.3f} of the bound")
+
+    def gradients(what, got, ref):
+        """The first moments after the first step within PAR_GRAD_TOL."""
+        shares = {}
+        for key, value in ref.items():
+            leaf = key[len("mu."):]
+            rtol, atol = PAR_GRAD_TOL["bfloat16" if leaf in PAR_BF16_GRADS else "float32"]
+            scale = float(np.abs(value).max())
+            share = float((np.abs(got[key] - value) / (atol * scale + rtol * np.abs(value))
+                           ).max()) if scale > 0 else 0.0
+            shares[leaf] = round(share, 4)
+        log("parallel", f"{what}: the first step's gradients, each leaf's worst share "
+                        f"of its bound: {shares}")
+        bad = {k: v for k, v in shares.items() if v > 1.0}
+        if bad:
+            raise AssertionError(f"{what}: gradients past their bound {bad}")
+
+    # (a) one NCCL rank vs the plain trainer, both deterministic: digests
+    a = dict(spec, digest=True)
+    ref = plain("(a) plain trainer", a)
+    (one,) = ranks("(a) one NCCL rank", 1, "nccl", [a])
+    differ = [k for k, v in ref["digest"].items() if one["digest"][k] != v]
+    if one["loss"] != ref["loss"] or differ:
+        raise AssertionError(f"(a) the NCCL rank differs: losses {one['loss']} vs "
+                             f"{ref['loss']}, leaves {differ}")
+    log("parallel", f"(a) one NCCL rank vs the plain trainer: losses and "
+                    f"{len(ref['digest'])} parameter and moment leaves bit for bit "
+                    f"(SHA-256)")
+    launches = {"a": one["launches"]}
+
+    # (b) ZeRO-3 over two gloo ranks on this card: vs the replicated table
+    # on as many ranks (the layout alone differs) and vs one rank, f32 table
+    b_cfg = copy.deepcopy(cfg)
+    b_cfg.table_dtype = "float32"
+    b = dict(spec, config=b_cfg)
+    plain("(b) one rank, f32 table", dict(b, first_mu_out=str(out_dir / "b_one_mu.npz"),
+                                          **out("b_one")))
+    zero3, _ = ranks("(b) two gloo ranks", 2, "gloo", [
+        dict(b, layout="zero3", first_mu_out=str(out_dir / "b_zero3_mu.npz"),
+             **out("b_zero3")),
+        dict(b, layout="replicated", **out("b_rep"))])
+    held("(b) ZeRO-3 vs the replicated table, two gloo ranks each, after "
+         f"{PAR_STEPS} steps", load("b_zero3"), load("b_rep"))
+    b_one_mu = load("b_one_mu")
+    gradients("(b) ZeRO-3 on two gloo ranks vs one rank", load("b_zero3_mu"), b_one_mu)
+    held(f"(b) for information, not held: ZeRO-3 on two gloo ranks vs one rank "
+         f"after {PAR_STEPS} steps", load("b_zero3"), load("b_one"), hold=False)
+    launches["b"] = zero3["launches"]
+    for run, counts in launches.items():
+        for kernel, count in counts.items():
+            if count <= 0:
+                raise AssertionError(f"({run}) the parallel path never launched {kernel}")
+
+    # (c) every visible card over NCCL
+    n = torch.cuda.device_count()
+    if n < 2:
+        log("parallel", "(c) not run: one card visible (NCCL takes one card per "
+                        "rank; bench_projection's n-rank step needs n cards)")
+        return launches
+    (many,) = ranks(f"(c) {n} NCCL ranks", n, "nccl",
+                    [dict(b, layout="zero3", first_mu_out=str(out_dir / "c_mu.npz"))])
+    gradients(f"(c) ZeRO-3 on {n} NCCL ranks vs one rank", load("c_mu"), b_one_mu)
+    from nersemble_tpu_torch.scripts import bench_projection
+    torch.cuda.empty_cache()
+    projection = bench_projection.main(["--n-cards", str(n)])
+    log("parallel", f"(c) bench_projection over {n} cards: {json.dumps(projection)}")
+    launches["c"] = many["launches"]
+    return launches
+
+
 def trained_scene_phase(device) -> dict:
     """A trained, carved scene (phase 15): (a) the quality benchmark's
     static run, (b) the render benchmark and the viewer on it, (c) the pose
@@ -1975,6 +2198,8 @@ def trained_scene_phase(device) -> dict:
 
 
 def main() -> None:
+    import sys
+
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2005,6 +2230,10 @@ def main() -> None:
     for line in (cuda_lib.BUILD_DIR / "build.log").read_text().splitlines():
         if "registers" in line or "Compiling entry" in line or line.startswith("# "):
             log("build", line.strip())
+
+    if sys.argv[1:] == ["--parallel-only"]:  # phase 16 alone; no result line
+        log("parallel", f"launches {parallel_phase()}")
+        return
 
     # ---- 3. kernels vs plain at the flagship shapes ---------------------------
     cfg = flagship_model_config(tiny=False)
@@ -2122,6 +2351,9 @@ def main() -> None:
     # ---- 15. a trained scene: quality run, render bench, viewer, poses ----------
     trained_launches = trained_scene_phase(device)
 
+    # ---- 16. parallel: the multi-device layouts ----------------------------------
+    parallel_launches = parallel_phase()
+
     sources = {
         "fused_mlp_fwd": ("fused_mlp_fwd.cu", "nersemble_tpu/ops/fused_mlp.py:71"),
         "fused_mlp_bwd": ("fused_mlp_bwd.cu", "nersemble_tpu/ops/fused_mlp.py:83"),
@@ -2139,7 +2371,9 @@ def main() -> None:
          **({"variant_launches": {run: counts[kernel] for run, counts
                                   in variant_launches.items()},
              "trained_scene_launches": {part: counts[kernel] for part, counts
-                                        in trained_launches.items()}}
+                                        in trained_launches.items()},
+             "parallel_launches": {run: counts[kernel] for run, counts
+                                   in parallel_launches.items()}}
             if kernel in variant_launches["a"] else {})}
         for kernel, (src, replaces) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

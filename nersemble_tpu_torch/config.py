@@ -478,9 +478,9 @@ class DataConfig(ConfigBase):
 
 @dataclass
 class ParallelConfig(ConfigBase):
-    """Device-mesh layout of the JAX package. The port runs on one device:
-    only ``data_axis_size`` -1 or 1 is accepted (ROADMAP A6); the sharding
-    fields are kept so that a ``config.yml`` reads back equal."""
+    """The data axis of the JAX package's device mesh: its ranks (-1: every
+    visible card) and the hash table's layout over them
+    (``NeRSembleTrainer.table_layout``, ``parallel/``)."""
 
     data_axis_size: int = -1
     shard_hash_tables: bool = False

@@ -155,10 +155,14 @@ class DeviceBatches:
     page-locked slots and a non-blocking copy; on the CPU the numpy arrays
     are wrapped as they are. ``wait_s`` and ``copy_s`` add up the host
     seconds ``__next__`` spent waiting for the thread and issuing copies.
-    ``close()`` stops the thread."""
+    ``close()`` stops the thread. ``rows``: the slice of every batch's rays
+    to keep (a rank's share of the batch under data parallelism); every
+    rank builds the whole step-indexed batch and copies only its rows."""
 
-    def __init__(self, batcher: RayBatcher, start_step: int, device):
+    def __init__(self, batcher: RayBatcher, start_step: int, device,
+                 rows: slice = slice(None)):
         self.batcher = batcher
+        self.rows = rows
         self.device = torch.device(device)
         self.wait_s = self.copy_s = 0.0
         self._ready: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
@@ -166,6 +170,7 @@ class DeviceBatches:
         self._slots = None
         if self.device.type == "cuda":
             first = batcher.batch_for_step(start_step)
+            first = {k: v[rows] for k, v in first.items()}
             self._slots = [{k: torch.empty(first[k].shape, dtype=torch.from_numpy(first[k]).dtype,
                                            pin_memory=True)
                             for k in DEVICE_KEYS if k in first}
@@ -191,6 +196,7 @@ class DeviceBatches:
         try:
             while not self._stop.is_set():
                 batch = self.batcher.batch_for_step(step)
+                batch = {k: v[self.rows] for k, v in batch.items()}
                 if self._slots is None:
                     item = {k: batch[k] for k in DEVICE_KEYS if k in batch}
                 else:

@@ -105,16 +105,22 @@ def save_checkpoint(path, step: int, params: ParamTree, opt_state: AdamState,
                     grid_occs: torch.Tensor,
                     extra: Optional[Dict[str, Any]] = None) -> None:
     """Write ``path`` atomically in the JAX package's format."""
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    state = {
-        "step": np.asarray(step),
-        "params": to_tree(params, _numpy),
-        "opt_state": {"count": _numpy(opt_state.count),
+    write_checkpoint(path, step, to_tree(params, _numpy),
+                     {"count": _numpy(opt_state.count),
                       "mu": to_tree(opt_state.mu, _numpy),
                       "nu": to_tree(opt_state.nu, _numpy)},
-        "grid_occs": _numpy(grid_occs),
-    }
+                     _numpy(grid_occs), extra)
+
+
+def write_checkpoint(path, step: int, params: Dict, opt_state: Dict,
+                     grid_occs: np.ndarray,
+                     extra: Optional[Dict[str, Any]] = None) -> None:
+    """``save_checkpoint`` of numpy trees (``params``; ``opt_state`` with
+    ``count``, ``mu`` and ``nu``)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    state = {"step": np.asarray(step), "params": params,
+             "opt_state": opt_state, "grid_occs": grid_occs}
     if extra:
         state["extra"] = extra
     tmp = path.with_suffix(".tmp")
@@ -123,7 +129,7 @@ def save_checkpoint(path, step: int, params: ParamTree, opt_state: AdamState,
     os.replace(tmp, path)
 
 
-def _read(path, skip: Optional[str] = None) -> Dict[str, np.ndarray]:
+def read_flat(path, skip: Optional[str] = None) -> Dict[str, np.ndarray]:
     """The arrays of a checkpoint, but those under the prefix ``skip``."""
     with np.load(Path(path), allow_pickle=False) as data:
         return {k: data[k] for k in data.files
@@ -141,8 +147,16 @@ def load_checkpoint(path, device="cuda", load_opt: bool = True
     """A checkpoint of either package -> (step, params, opt_state,
     grid_occs, extra); ``opt_state`` is None unless ``load_opt`` (an
     evaluation never reads the Adam moments)."""
+    return state_from_flat(read_flat(path, skip=None if load_opt else "opt_state/"),
+                           device, load_opt)
+
+
+def state_from_flat(flat: Dict[str, np.ndarray], device="cuda",
+                    load_opt: bool = True) -> Tuple[int, ParamTree,
+                                                    Optional[AdamState],
+                                                    torch.Tensor, Dict]:
+    """``load_checkpoint`` of the arrays ``read_flat`` gave."""
     device = resolve_device(device)
-    flat = _read(path, skip=None if load_opt else "opt_state/")
     grid_occs = torch.from_numpy(
         np.asarray(flat["grid_occs"], np.float32)).to(device)
     opt_state = opt_state_from_numpy(flat, device) if load_opt else None
@@ -154,7 +168,7 @@ def load_jax_checkpoint(path, device="cuda") -> Tuple[ParamTree, torch.Tensor, D
     """A ``step-*.ckpt`` -> (params, grid_occs, extra), without the
     optimizer state (eval only)."""
     device = resolve_device(device)
-    flat = _read(path)
+    flat = read_flat(path)
     grid_occs = torch.from_numpy(
         np.asarray(flat["grid_occs"], np.float32)).to(device)
     return params_from_numpy(flat, device), grid_occs, _extra(flat)

@@ -16,7 +16,7 @@ keeps another state layout, so it is not used. Parameters and moments are
 updated in place (the JAX version returns new arrays).
 """
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,10 +45,16 @@ def group_of_param(groups: Dict[str, list]) -> Dict[str, str]:
 def fused_adam_update(params: ParamTree, state: AdamState,
                       key_to_group: Dict[str, str], lrs: Dict[str, float],
                       b1: float = 0.9, b2: float = 0.999,
-                      eps: float = 1e-15) -> AdamState:
+                      eps: float = 1e-15,
+                      row_shards: Optional[Dict[str, Tuple[slice, torch.Tensor]]] = None
+                      ) -> AdamState:
     """One Adam step over every parameter with a ``.grad``, in place; the
     learning rate of a parameter is that of its top-level key's group.
-    Returns the new state (its moments are the same tensors, updated)."""
+    Returns the new state (its moments are the same tensors, updated).
+
+    ``row_shards`` {name: (rows, gradient)}: parameters stepped on their
+    ``rows`` only, with that gradient and moments that hold those rows (the
+    moments-only ZeRO layout; their ``.grad`` is None)."""
     count = state.count + 1
     t = count.to(torch.float32)
     # scalar ** tensor: no host-to-device copy (which would sync the stream)
@@ -56,11 +62,17 @@ def fused_adam_update(params: ParamTree, state: AdamState,
     c2 = 1.0 - torch.pow(b2, t)
     mus = dict(state.mu.named_parameters())
     nus = dict(state.nu.named_parameters())
+    row_shards = row_shards or {}
     for name, p in params.named_parameters():
-        if p.grad is None:
+        if name in row_shards:
+            rows, g = row_shards[name]
+            p = p[rows]
+        elif p.grad is None:
             continue
+        else:
+            g = p.grad
         lr = lrs[key_to_group[name.split(".")[0]]]
-        g = p.grad.to(torch.float32)
+        g = g.to(torch.float32)
         mu, nu = mus[name], nus[name]
         mu.copy_(b1 * mu + (1.0 - b1) * g)
         nu.copy_(b2 * nu + (1.0 - b2) * torch.square(g))

@@ -10,6 +10,11 @@ gather operand is built once per parameter state and reused across chunks
 and frames, and so is the probed budget of ``budget="auto"`` per grid
 state.
 
+Over several ranks (``mesh``) every rank holds the frame's rays and renders
+its slice of each chunk (the chunk padded to a multiple of the ranks); the
+chunk's rows are all-gathered and its counts all-reduced, so every rank
+assembles the same frame and makes the same budget decisions.
+
 The frame's rays reach the device by non-blocking copies from page-locked
 memory, and the chunk loop reads nothing back: the host waits on the device
 only for the packed hit indices, the auto budget's probe (once per grid
@@ -24,6 +29,7 @@ import torch
 
 from nersemble_tpu_torch.models.nersemble import NeRSembleModel
 from nersemble_tpu_torch.ops.sampling import occupied_world_aabb, ray_aabb_intersect
+from nersemble_tpu_torch.parallel.mesh import pad_to_multiple
 from nersemble_tpu_torch.utils.device import to_device
 from nersemble_tpu_torch.utils.params import ParamTree
 from nersemble_tpu_torch.utils.windows import sched_values
@@ -46,8 +52,9 @@ class Renderer:
 
     def __init__(self, model: NeRSembleModel, params: ParamTree,
                  grid_occs: torch.Tensor,
-                 grid_mask: Optional[torch.Tensor] = None):
+                 grid_mask: Optional[torch.Tensor] = None, mesh=None):
         self.model = model
+        self.mesh = mesh
         self.params = params
         self.grid_occs = grid_occs
         self.grid_mask = grid_mask
@@ -82,18 +89,27 @@ class Renderer:
     def render_chunk(self, batch: Dict, sched: Dict,
                      budget: Optional[int] = None) -> Dict:
         """One chunk -> packed [R, 8] (rgb 3 | depth 1 | acc 1 | deformation
-        3) plus the valid-sample and budget-drop counts."""
+        3) plus the valid-sample and budget-drop counts. With a mesh each
+        rank renders its slice of the chunk (R divides over the ranks) and
+        gets the whole chunk's results."""
+        mesh = self.mesh
+        if mesh is not None:
+            rows = mesh.rows(batch["origins"].shape[0])
+            batch = {key: arr[rows] for key, arr in batch.items()}
         binaries = self.model.binaries(self.grid_occs, self.grid_mask)
         out = self.model.render_rays(self.params, batch, binaries, sched,
                                      train=False, budget=budget,
-                                     fparams=self.fparams())
+                                     fparams=self.fparams(), mesh=mesh)
         cols = [out["rgb"], out["depth"], out["accumulation"],
                 out.get("deformation", torch.zeros_like(out["rgb"]))]
         dropped = out["num_budget_dropped"]
         if not isinstance(dropped, torch.Tensor):  # every slot evaluated
             dropped = torch.zeros((), dtype=torch.int64, device=self.device)
-        return {"_packed": torch.cat(cols, dim=1),
-                "_n_valid": out["num_samples_per_ray"].sum(),
+        packed, n_valid = torch.cat(cols, dim=1), out["num_samples_per_ray"].sum()
+        if mesh is not None:
+            packed = mesh.all_gather_rows(packed)
+            n_valid, dropped = mesh.all_reduce_sum(torch.stack([n_valid, dropped]))
+        return {"_packed": packed, "_n_valid": n_valid,
                 "_n_budget_dropped": dropped}
 
     def render_hit_mask(self, origins: torch.Tensor,
@@ -133,6 +149,8 @@ class Renderer:
         if not (budget is None or budget == "auto" or isinstance(budget, int)):
             raise ValueError(f"budget={budget!r}: None, an int or 'auto'")
         cfg = self.model.config
+        if self.mesh is not None:
+            chunk = pad_to_multiple(chunk, self.mesh.size)
         H, W = image_rays["height"], image_rays["width"]
         n = H * W
         rays = {key: to_device(image_rays[key], self.device) for key in RAY_KEYS}

@@ -31,6 +31,20 @@ device: the batch arrives by a non-blocking copy from page-locked memory
 (``data.ray_batcher.DeviceBatches``), and device values are read on the
 host only in the cadence branches: the log, the adaptive budget's sample
 counts (``_maybe_adapt_budget``), evaluations and checkpoints.
+
+Over several ranks (``mesh``, one process per card; parallel/) each rank
+takes its slice of every batch and the step stays the global one that
+GSPMD makes of the JAX step: the jitter is drawn for the whole batch and
+sliced, the compaction ranks the samples of all rays, the loss means divide
+by the batch's counts, the gradients are summed over the ranks, and the
+logged values come from all-reduced sums, so every rank adapts the budget
+alike. The hash table's layout (``table_layout``) follows the run's
+``ParallelConfig`` as in the JAX trainer: the ZeRO-3 entry-sharded table
+(``shard_table_params``, the default), the replicated table with sharded
+Adam moments (``shard_table_optimizer``), the feature-sharded table
+(``shard_hash_tables``) or the replicated table. The occupancy update runs
+on every rank with the same draws, so the grids stay equal. Only rank 0
+writes metrics, images and checkpoints.
 """
 
 import json
@@ -46,6 +60,7 @@ from torch.profiler import record_function
 from nersemble_tpu_torch.config import (
     ModelConfig,
     OptimizerConfig,
+    ParallelConfig,
     TrainConfig,
     default_optimizers,
 )
@@ -69,6 +84,7 @@ from nersemble_tpu_torch.engine.writer import (
     device_memory_scalars,
     param_count_summary,
 )
+from nersemble_tpu_torch.models.field import table_row_width
 from nersemble_tpu_torch.models.nersemble import NeRSembleModel
 from nersemble_tpu_torch.ops.occupancy import (
     OccupancyDraws,
@@ -76,15 +92,23 @@ from nersemble_tpu_torch.ops.occupancy import (
     frustum_culling_grid,
 )
 from nersemble_tpu_torch.ops.sampling import quantized_budget
+from nersemble_tpu_torch.parallel.mesh import DataMesh
 from nersemble_tpu_torch.utils import colormaps as C
 from nersemble_tpu_torch.utils import metrics as M
 from nersemble_tpu_torch.utils.device import resolve_device, to_device
 from nersemble_tpu_torch.utils.metrics import psnr
-from nersemble_tpu_torch.utils.params import ParamTree
+from nersemble_tpu_torch.utils.params import ParamTree, to_tree
 from nersemble_tpu_torch.utils.windows import lr_values, sched_values
 
 OCC_UPDATE_EVERY = 16
 _JITTER, _OCCUPANCY = 0, 1  # generator streams
+# the hash table's layout under a mesh (``table_layout``): "replicated"
+# (gradient all-reduced), "zero3" (the [E/n, W] entry shard: all-gathered in
+# the table dtype for the quad, its folded gradient reduce-scattered),
+# "moments" (replicated, Adam moments of an [E/n, W] row shard, gradient
+# reduce-scattered and updated rows all-gathered), "tp" (the [E, W/n] column
+# shard: the rank's logical tables)
+_TABLE = "field.table"
 
 
 class NeRSembleTrainer:
@@ -94,19 +118,29 @@ class NeRSembleTrainer:
                  params: Optional[ParamTree] = None,
                  grid_occs: Optional[torch.Tensor] = None,
                  grid_mask: Optional[torch.Tensor] = None,
-                 eval_only: bool = False):
+                 eval_only: bool = False, mesh: Optional[DataMesh] = None,
+                 parallel: Optional[ParallelConfig] = None):
         """``eval_only``: a trainer that renders and never trains holds no
-        Adam moments (3.35 GB at the flagship size)."""
+        Adam moments (3.35 GB at the flagship size). ``mesh``: this rank of
+        a data-parallel run (None: one process, no collectives); ``params``
+        are then the whole parameters, which the trainer shards by
+        ``parallel`` (default ``ParallelConfig()``)."""
         self.device = resolve_device(device)
         self.model = NeRSembleModel(model_config, self.device)
         self.config = self.model.config
         self.optimizers = optimizers or default_optimizers()
         self.n_rays = n_rays
         self.seed = seed
+        self.mesh = mesh
+        self.is_chief = mesh is None or mesh.rank == 0
+        if mesh is not None and n_rays % mesh.size:
+            raise ValueError(f"n_rays={n_rays} must divide over {mesh.size} ranks")
         if params is None:  # drawn on the host: the same on every device
             params = self.model.init_params(torch.Generator().manual_seed(seed))
-        self._set_params(params.to(self.device))
-        self.opt_state = None if eval_only else init_adam(self.params)
+        self.table_layout = self._choose_layout(parallel or ParallelConfig(),
+                                                tuple(params.field.table.shape))
+        self._set_params(self._shard(params.to(self.device)))
+        self.opt_state = None if eval_only else self._init_adam()
         self.grid_occs = grid_occs if grid_occs is not None \
             else self.model.init_grid_occs()
         # [G, G, G] bool ANDed into the sampling binaries (frustum culling)
@@ -135,6 +169,83 @@ class NeRSembleTrainer:
             p.requires_grad_(True)
         self.key_to_group = group_of_param(self.model.param_groups(params))
 
+    # -- the table's layout over the ranks -------------------------------------
+
+    def _choose_layout(self, parallel: ParallelConfig, table_shape) -> str:
+        """The JAX trainer's choice (trainer.py:86-93, 183-235): the
+        feature-sharded table when asked and the row width divides, else
+        the ZeRO-3 table or sharded moments when asked and the entries
+        divide, else replicated; one rank is always replicated."""
+        mesh = self.mesh
+        if mesh is None or mesh.size == 1:
+            return "replicated"
+        n, (E, W) = mesh.size, table_shape
+        if parallel.shard_hash_tables:
+            f_l = table_row_width(self.config)[1]
+            if W % n:
+                print(f"[nersemble-torch] shard_hash_tables disabled: row width "
+                      f"{W} not divisible by {n} devices")
+            elif not self.config.use_hash_ensemble or (W // n) % f_l:
+                print(f"[nersemble-torch] shard_hash_tables disabled: the "
+                      f"port shards whole logical tables of the hash "
+                      f"ensemble ({W // f_l} tables over {n} ranks)")
+            else:
+                self.model.table_layout = ("cols", mesh)
+                return "tp"
+        if E % n == 0 and parallel.shard_table_params:
+            self.model.table_layout = ("rows", mesh)
+            return "zero3"
+        if E % n == 0 and parallel.shard_table_optimizer:
+            return "moments"
+        return "replicated"
+
+    def _table_part(self) -> slice:
+        """This rank's slice of the whole table's rows (zero3, moments) or
+        columns (tp)."""
+        E, W = self.model.levels.total_entries, table_row_width(self.config)[0]
+        return self.mesh.rows(W if self.table_layout == "tp" else E)
+
+    def _shard(self, params: ParamTree) -> ParamTree:
+        """Whole parameters -> this rank's (the table's shard in place)."""
+        if self.table_layout in ("zero3", "tp"):
+            table = params.field.table
+            part = table[:, self._table_part()] if self.table_layout == "tp" \
+                else table[self._table_part()]
+            params.field.table = torch.nn.Parameter(part.contiguous(),
+                                                    requires_grad=False)
+        return params
+
+    def _init_adam(self):
+        state = init_adam(self.params)
+        if self.table_layout == "moments":
+            rows = self._table_part()
+            for moments in (state.mu, state.nu):
+                moments.field.table = torch.nn.Parameter(
+                    moments.field.table[rows].contiguous(), requires_grad=False)
+        return state
+
+    def _reduce_gradients(self) -> Dict:
+        """Sum the gradients over the ranks (the JAX step's psum): one
+        all-reduce of every gradient but the table's, then the table's by
+        its layout. Returns ``fused_adam_update``'s ``row_shards``."""
+        mesh = self.mesh
+        named = [(k, p) for k, p in self.params.named_parameters()
+                 if p.grad is not None and k != _TABLE]
+        flat = mesh.all_reduce_sum(torch.cat([p.grad.reshape(-1) for _, p in named]))
+        for (_, p), g in zip(named, flat.split([p.numel() for _, p in named])):
+            p.grad = g.view_as(p)
+        table = self.params.field.table
+        if table.grad is None:
+            return {}
+        if self.table_layout == "replicated":
+            table.grad = mesh.all_reduce_sum(table.grad)
+        elif self.table_layout == "moments":
+            grad, table.grad = mesh.reduce_scatter_rows(table.grad), None
+            return {_TABLE: (self._table_part(), grad)}
+        # zero3: the all-gather's backward reduce-scattered it; tp: each
+        # rank's tables saw every rank's rows
+        return {}
+
     def _generator(self, step: int, stream: int) -> torch.Generator:
         """A host generator seeded by (seed, stream, step): a run draws the
         same numbers on every device, so a run on the card can be held to
@@ -154,37 +265,77 @@ class NeRSembleTrainer:
     def train_step(self, step: int, batch: Dict[str, torch.Tensor],
                    jitter: Optional[torch.Tensor] = None):
         """Forward, losses, backward and the Adam update at the current
-        budget. ``jitter`` [R] overrides the step's own draw. Returns (total
-        loss, aux) as device tensors: aux holds the loss dict, psnr and the
-        sample counts."""
-        model = self.model
+        budget. ``batch`` holds this rank's rays; ``jitter`` [R of the whole
+        batch] overrides the step's own draw. Returns (total loss, aux) as
+        device tensors: aux holds the loss dict, psnr and the sample counts
+        (of the whole batch)."""
+        model, mesh = self.model, self.mesh
         sched, lrs = self.sched_values(step), self.lr_values(step)
         binaries = model.binaries(self.grid_occs, self.grid_mask)
+        R = batch["origins"].shape[0]
+        rows = slice(None) if mesh is None else mesh.rows(R * mesh.size)
         if jitter is None:
-            jitter = to_device(torch.rand(
-                batch["origins"].shape[0], generator=self._generator(step, _JITTER)),
-                self.device)
+            jitter = torch.rand(R if mesh is None else R * mesh.size,
+                                generator=self._generator(step, _JITTER))
+        jitter = to_device(jitter[rows], self.device)
         with record_function("train:forward"):
             outputs = model.render_rays(self.params, batch, binaries, sched,
                                         train=True, budget=self._budget,
-                                        jitter=jitter)
-            losses = model.compute_losses(outputs, batch, sched, train=True)
+                                        jitter=jitter, mesh=mesh)
+            losses = model.compute_losses(outputs, batch, sched, train=True,
+                                          mesh=mesh)
             total = sum(losses.values())
         with record_function("train:backward"):
             total.backward()
+        row_shards = {}
+        if mesh is not None:
+            with record_function("train:reduce"):
+                row_shards = self._reduce_gradients()
         with record_function("train:adam"):
             self.opt_state = fused_adam_update(self.params, self.opt_state,
-                                               self.key_to_group, lrs)
+                                               self.key_to_group, lrs,
+                                               row_shards=row_shards)
+            if self.table_layout == "moments":
+                table = self.params.field.table
+                with torch.no_grad():
+                    table.copy_(mesh.all_gather_rows(table[self._table_part()]))
         for p in self.params.parameters():
             p.grad = None
+        if mesh is None:
+            aux = {
+                "losses": {k: v.detach() for k, v in losses.items()},
+                "psnr": psnr(outputs["rgb"].detach(), batch["rgb"]),
+                "num_samples": outputs["num_samples_per_ray"].sum(),
+                "num_dropped": outputs["num_dropped_per_ray"].sum(),
+                "num_budget_dropped": outputs["num_budget_dropped"],
+            }
+            return total.detach(), aux
+        return self._batch_aux(total, losses, outputs, batch)
+
+    def _batch_aux(self, total, losses, outputs, batch):
+        """The step's values for the whole batch: one all-reduce of the
+        ranks' loss shares, squared errors and sample counts."""
+        mesh = self.mesh
+        dropped = outputs["num_budget_dropped"]
+        if not isinstance(dropped, torch.Tensor):  # every slot evaluated
+            dropped = torch.zeros((), device=self.device)
+        sse = torch.sum((outputs["rgb"].detach() - batch["rgb"]) ** 2)
+        parts = [total.detach(), *(v.detach() for v in losses.values()), sse,
+                 outputs["num_samples_per_ray"].sum(),
+                 outputs["num_dropped_per_ray"].sum(), dropped]
+        sums = mesh.all_reduce_sum(torch.stack([x.to(torch.float64) for x in parts]))
+        n = len(losses)
+        mse = sums[n + 1] / (batch["rgb"].numel() * mesh.size)
         aux = {
-            "losses": {k: v.detach() for k, v in losses.items()},
-            "psnr": psnr(outputs["rgb"].detach(), batch["rgb"]),
-            "num_samples": outputs["num_samples_per_ray"].sum(),
-            "num_dropped": outputs["num_dropped_per_ray"].sum(),
-            "num_budget_dropped": outputs["num_budget_dropped"],
+            "losses": {k: sums[1 + i].to(torch.float32)
+                       for i, k in enumerate(losses)},
+            "psnr": (10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-12))
+                     ).to(torch.float32),
+            "num_samples": sums[n + 2],
+            "num_dropped": sums[n + 3],
+            "num_budget_dropped": sums[n + 4],
         }
-        return total.detach(), aux
+        return sums[0].to(torch.float32), aux
 
     def maybe_update_occupancy(self, step: int) -> None:
         """The grid's EMA update every 16 steps (all cells below
@@ -258,19 +409,87 @@ class NeRSembleTrainer:
     # -- checkpoints -----------------------------------------------------------
 
     def save_checkpoint(self, path, step: int) -> None:
-        """Params, Adam state, grid and the budget state at ``step``."""
+        """Params, Adam state, grid and the budget state at ``step``. Over
+        several ranks every rank calls it: the table's shards are gathered
+        to rank 0 in row chunks (no rank holds the whole table twice),
+        rank 0 writes the whole checkpoint, and every rank returns when it
+        is written."""
         extra = {"sample_budget": np.asarray(self._budget),
                  "sample_counts": np.asarray(self._sample_counts[-16:], np.float64),
                  "budget_drops": np.asarray(self._budget_drops[-16:], np.float64)}
-        checkpoints.save_checkpoint(path, step, self.params, self.opt_state,
-                                    self.grid_occs, extra=extra)
+        if self.mesh is None:
+            checkpoints.save_checkpoint(path, step, self.params, self.opt_state,
+                                        self.grid_occs, extra=extra)
+            return
+        trees = self.host_trees()
+        if self.is_chief:
+            checkpoints.write_checkpoint(
+                path, step, trees["params"],
+                {"count": self.opt_state.count.cpu().numpy(), "mu": trees["mu"],
+                 "nu": trees["nu"]}, self.grid_occs.cpu().numpy(), extra)
+        self.mesh.barrier()  # every rank returns once the file is there
+
+    def host_trees(self, whats=("params", "mu", "nu")) -> Dict:
+        """The whole parameters and Adam moments named in ``whats`` as numpy
+        trees on rank 0, every rank calling: {"params", "mu", "nu"}; the
+        table's shards gathered in row chunks, None on the other ranks."""
+        shards = {"zero3": ("params", "mu", "nu"), "tp": ("params", "mu", "nu"),
+                  "moments": ("mu", "nu")}.get(self.table_layout, ())
+        trees = {}
+        sources = {"params": self.params}
+        if self.opt_state is not None:
+            sources.update(mu=self.opt_state.mu, nu=self.opt_state.nu)
+        copy = (lambda t: t.cpu().numpy()) if self.is_chief else (lambda t: None)
+        for what, tree in ((w, sources[w]) for w in whats):
+            host = to_tree(tree, copy)
+            if what in shards:
+                host["field"]["table"] = self._gather_table(tree.field.table)
+            trees[what] = host
+        return trees
+
+    def _gather_table(self, shard: torch.Tensor,
+                      chunk_rows: int = 1 << 18) -> Optional[np.ndarray]:
+        """The whole [E, W] table from every rank's shard, on rank 0's host
+        (None on the others), all-gathered in chunks of ``chunk_rows`` rows
+        of each shard."""
+        mesh, n = self.mesh, self.mesh.size
+        tp = self.table_layout == "tp"
+        E, w = shard.shape
+        out = None
+        if self.is_chief:
+            out = np.empty((E, w * n) if tp else (E * n, w), np.float32)
+        for lo in range(0, E, chunk_rows):
+            part = mesh.all_gather_rows(shard[lo:lo + chunk_rows])
+            if out is None:
+                continue
+            part = part.cpu().numpy().reshape(n, -1, w)
+            c = part.shape[1]
+            if tp:
+                out[lo:lo + c] = part.transpose(1, 0, 2).reshape(c, n * w)
+            else:
+                for r in range(n):
+                    out[r * E + lo:r * E + lo + c] = part[r]
+        return out
 
     def load_checkpoint(self, path, load_opt: bool = True) -> None:
         """Resume from a checkpoint of either package: training continues at
         its step + 1 with its adapted budget. Without ``load_opt`` the Adam
-        state stays as it was (an evaluation never reads it)."""
+        state stays as it was (an evaluation never reads it). Over several
+        ranks every rank reads the file and keeps its shard of the table and
+        of its moments."""
+        flat = checkpoints.read_flat(path, skip=None if load_opt else "opt_state/")
+        if self.table_layout != "replicated":
+            part = self._table_part()
+            keys = ["opt_state/mu/field/table", "opt_state/nu/field/table"]
+            if self.table_layout != "moments":
+                keys.append("params/field/table")
+            for key in keys:
+                if key in flat:
+                    table = flat[key]
+                    flat[key] = np.ascontiguousarray(
+                        table[:, part] if self.table_layout == "tp" else table[part])
         step, params, opt_state, grid_occs, extra = \
-            checkpoints.load_checkpoint(path, self.device, load_opt=load_opt)
+            checkpoints.state_from_flat(flat, self.device, load_opt=load_opt)
         self._set_params(params)
         if load_opt:
             self.opt_state = opt_state
@@ -287,7 +506,8 @@ class NeRSembleTrainer:
 
     @classmethod
     def from_train_config(cls, config: TrainConfig, model_manager=None,
-                          eval_only: bool = False, device="cuda"):
+                          eval_only: bool = False, device="cuda",
+                          mesh: Optional[DataMesh] = None):
         """The trainer of a run: data from the capture ``config.data`` names,
         the run folder of ``model_manager`` (else ``output_dir/run_name``),
         and, when ``config.load_dir`` is set, the state of its checkpoint
@@ -295,12 +515,14 @@ class NeRSembleTrainer:
         ``n_timesteps``, ``scene_box``, ``num_images`` and the auto-sized
         candidate count, as the JAX trainer does, so the ``config.yml`` saved
         afterwards equals the JAX package's. ``eval_only``: no Adam moments
-        are made or read from the checkpoint, and ``train`` raises."""
+        are made or read from the checkpoint, and ``train`` raises.
+        ``mesh``: this rank of a run over several ranks (parallel/launch.py
+        starts them); the table's layout follows ``config.parallel``."""
         device = resolve_device(device)
-        if config.parallel.data_axis_size not in (-1, 1):
+        if mesh is not None and mesh.size > 1 and config.vis == "viewer":
             raise NotImplementedError(
-                f"data_axis_size={config.parallel.data_axis_size}: the port "
-                f"trains on one device (multi-GPU is ROADMAP A6)")
+                "--vis viewer serves requests between steps on one rank; over "
+                f"{mesh.size} ranks it would need a per-step broadcast")
         dm = NeRSembleDataManager(config.data.participant_id,
                                   config.data.sequence_name)
         dataparser = NeRSembleDataParser(config.data, data_manager=dm)
@@ -318,7 +540,8 @@ class NeRSembleTrainer:
                 config.model.view_frustum_culling)).to(device)
         self = cls(config.model, n_rays=config.data.train_num_rays_per_batch,
                    optimizers=config.optimizers, seed=config.seed,
-                   device=device, grid_mask=grid_mask, eval_only=eval_only)
+                   device=device, grid_mask=grid_mask, eval_only=eval_only,
+                   mesh=mesh, parallel=config.parallel)
         config.model.sampling.max_candidates_per_ray = \
             self.config.sampling.max_candidates_per_ray
         self.train_config = config
@@ -342,7 +565,8 @@ class NeRSembleTrainer:
                                   num_rays=self.n_rays, seed=config.seed)
         # "viewer" serves the live web viewer between steps, with csv metrics
         # (reference: nerfstudio --vis viewer, train_nersemble.py:56)
-        self.writer = MetricsWriter(self.run_dir, enabled=config.vis != "none",
+        self.writer = MetricsWriter(self.run_dir,
+                                    enabled=config.vis != "none" and self.is_chief,
                                     mode="csv" if config.vis == "viewer"
                                     else config.vis)
         self.viewer = None
@@ -357,6 +581,10 @@ class NeRSembleTrainer:
             }, port=config.viewer_port)
             print(f"[nersemble-torch] viewer: {self.viewer.url}")
         counts = param_count_summary(self.params)
+        if self.table_layout in ("zero3", "tp"):  # the whole table's count
+            others = self.params.field.table.numel() * (self.mesh.size - 1)
+            counts = {k: v + (others if k in ("field", "total") else 0)
+                      for k, v in counts.items()}
         print("[nersemble-torch] parameters: "
               + "  ".join(f"{k}={v:,}" for k, v in counts.items()))
         self.writer.put_scalars(self.start_step,
@@ -402,7 +630,10 @@ class NeRSembleTrainer:
         "end")``, when set, is called around each iteration.
         ``NERSEMBLE_PROFILE_DIR`` traces steps start + 10 to start + 14
         with torch.profiler into ``trace.json`` there, and writes the
-        operators and kernels by device time to ``kernels.txt``."""
+        operators and kernels by device time to ``kernels.txt`` (rank 0's,
+        over several ranks). Over several ranks every rank runs the loop:
+        each takes its rows of every batch and renders its share of every
+        eval image, and rank 0 writes."""
         if self._eval_only:
             raise RuntimeError("this trainer was built with eval_only=True: it "
                                "holds no optimizer state and cannot train")
@@ -411,11 +642,14 @@ class NeRSembleTrainer:
                                "train_batches() takes batches from the caller")
         cfg = self.train_config
         max_steps = max_steps or cfg.max_num_iterations
-        self.save_dataparser_transforms()
+        if self.is_chief:
+            self.save_dataparser_transforms()
         # step-indexed batches: a resumed run sees the uninterrupted run's
+        rows = slice(None) if self.mesh is None else self.mesh.rows(self.n_rays)
         self.batches = batches = DeviceBatches(self.batcher, self.start_step,
-                                               self.device)
-        profile_dir = os.environ.get("NERSEMBLE_PROFILE_DIR")
+                                               self.device, rows)
+        profile_dir = os.environ.get("NERSEMBLE_PROFILE_DIR") \
+            if self.is_chief else None
         profiler = None
         last = {}
         t_last_log = time.time()
@@ -505,7 +739,7 @@ class NeRSembleTrainer:
         images)."""
         if self._renderer is None:
             self._renderer = Renderer(self.model, self.params, self.grid_occs,
-                                      self.grid_mask)
+                                      self.grid_mask, mesh=self.mesh)
         return self._renderer
 
     def render_image(self, image_rays: Dict, step: int, chunk: Optional[int] = None,
@@ -581,6 +815,10 @@ class NeRSembleTrainer:
         host = next(self._eval_batch_iter)
         batch = {k: torch.from_numpy(host[k]).to(self.device)
                  for k in (*RAY_KEYS, "rgb")}
+        if self.mesh is not None:  # render_chunk takes this rank's rows
+            n = self.mesh.size
+            if batch["rgb"].shape[0] % n:
+                raise ValueError(f"eval_num_rays_per_batch must divide over {n} ranks")
         with torch.no_grad():
             out = self.renderer().render_chunk({k: batch[k] for k in RAY_KEYS},
                                                self.sched_values(step))
@@ -692,7 +930,7 @@ class NeRSembleTrainer:
         if dt > 5.0:
             print(f"[nersemble-torch] step {step}: checkpoint saved in {dt:.0f} s")
         self.writer.put_scalars(step, {"checkpoint_save_seconds": dt})
-        if self.train_config.save_only_latest_checkpoint:
+        if self.train_config.save_only_latest_checkpoint and self.is_chief:
             checkpoints.prune_old_checkpoints(self.checkpoint_dir(), step)
 
     def _load_checkpoint(self) -> None:

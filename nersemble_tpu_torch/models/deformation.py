@@ -4,7 +4,8 @@ Windowed positional encoding of AABB-normalized positions + a per-timestep
 warp code feed a skip-connection MLP stem (kernel B1-fwd on CUDA); one
 128-column linear head (columns 0:3 = v, 3:6 = r, the rest padding, kept
 for checkpoint layout) gives the screw axis whose exponential warps the
-point. Offsets are in normalized units, NaN-guarded to zero.
+point. Offsets are in normalized units, NaN-guarded to zero in the forward
+and the backward.
 """
 
 import torch
@@ -45,6 +46,15 @@ def deformation_offsets(params, positions_normalized: torch.Tensor,
     feat = fused_mlp_apply(params.stem, stem_in, "relu", compute_dtype, skips)
     screw = apply_linear(params.head_rv, feat, compute_dtype)[:, :6]
     pos32 = positions_normalized.to(torch.float32)
-    warped = se3_apply(screw.to(torch.float32), pos32)
-    warped = torch.where(torch.isnan(warped), pos32, warped)
+    screw = screw.to(torch.float32)
+    # the NaN guard (JAX: where(isnan(warped), pos32, warped)) with its
+    # backward kept finite: rows whose warp is NaN somewhere take the JAX
+    # values without a gradient, and se3_apply differentiates a zero screw
+    # there instead of the one that gave NaN (the double-where pattern)
+    with torch.no_grad():
+        raw = se3_apply(screw, pos32)
+    bad = torch.isnan(raw)
+    row_bad = bad.any(dim=-1, keepdim=True)
+    safe = se3_apply(torch.where(row_bad, torch.zeros_like(screw), screw), pos32)
+    warped = torch.where(row_bad, torch.where(bad, pos32, raw), safe)
     return warped - pos32

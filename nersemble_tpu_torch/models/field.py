@@ -98,17 +98,58 @@ def normalize_positions(positions, aabb_min, aabb_max):
 
 
 def prepare_field(field_params, config: ModelConfig,
-                  levels: HashGridLevels) -> Dict:
+                  levels: HashGridLevels, table_layout=None) -> Dict:
     """Per-params table preparation, hoisted out of the sample-chunk loop:
     the xz-quad gather operand [E, 4W] in the table dtype (kernel B3 on
-    CUDA) next to the MLP parameters (and the appearance embedding)."""
-    quad = build_quad_table(field_params.table, levels,
-                            getattr(torch, config.table_dtype))
+    CUDA) next to the MLP parameters (and the appearance embedding).
+
+    ``table_layout`` (set by a trainer over several ranks, JAX
+    ``replicate_sharding``): ``("rows", mesh)``, the ZeRO-3 table, holds the
+    rank's [E/n, W] entry shard: the cast runs on the shard, the cast rows
+    are all-gathered (half the bytes of f32 at bf16) and the quad is built
+    on the whole table; the backward reduce-scatters the folded gradient in
+    the table dtype onto the shard. ``("cols", mesh)``, the feature-sharded
+    table, holds [E, W/n] columns, the rank's logical tables: the quad is
+    built on them and the encode blends them (``encode_tables``)."""
+    dtype = getattr(torch, config.table_dtype)
+    table = field_params.table
+    kind, mesh = table_layout or (None, None)
+    if kind == "rows":
+        table = mesh.all_gather_rows_grad(table.to(dtype))
+    quad = build_quad_table(table, levels, dtype)
     prepared = {"table_quad": quad, "mlp_base": field_params.mlp_base,
                 "mlp_head": field_params.mlp_head}
+    if kind == "cols":
+        prepared["tp_mesh"] = mesh
     if "appearance_embedding" in field_params:
         prepared["appearance_embedding"] = field_params.appearance_embedding
     return prepared
+
+
+def encode_tables(fparams: Dict, norm: torch.Tensor, code: torch.Tensor,
+                  levels: HashGridLevels, features_per_logical: int,
+                  smoothstep: bool) -> torch.Tensor:
+    """``hash_encode_blended`` of the prepared quad table. Under the
+    feature-sharded layout (``fparams["tp_mesh"]``) each rank blends its own
+    logical tables over the rows of every rank (inputs all-gathered) and the
+    partial sums are reduce-scattered back to each rank's rows; rows that
+    every rank holds alike (``fparams["tp_rows"] == "replicated"``, the
+    occupancy update) are encoded in place and the partial sums
+    all-reduced."""
+    mesh = fparams.get("tp_mesh")
+    quad = fparams["table_quad"]
+    if mesh is None:
+        return hash_encode_blended(quad, norm, code, levels,
+                                   features_per_logical, smoothstep)
+    n_local = quad.shape[1] // (4 * features_per_logical)
+    cols = slice(mesh.rank * n_local, (mesh.rank + 1) * n_local)
+    if fparams.get("tp_rows") == "replicated":
+        return mesh.all_reduce_sum(hash_encode_blended(
+            quad, norm, code[:, cols], levels, features_per_logical, smoothstep))
+    part = hash_encode_blended(quad, mesh.all_gather_rows_grad(norm),
+                               mesh.all_gather_rows_grad(code)[:, cols], levels,
+                               features_per_logical, smoothstep)
+    return mesh.reduce_scatter_rows_grad(part)
 
 
 def field_density(fparams: Dict, positions_world: torch.Tensor,
@@ -127,10 +168,9 @@ def field_density(fparams: Dict, positions_world: torch.Tensor,
                                         he.n_hash_encodings,
                                         he.disable_initial_hash_ensemble,
                                         he.use_soft_transition)
-            base_in = hash_encode_blended(
-                fparams["table_quad"], norm, code, levels,
-                features_per_logical=table_row_width(config)[1],
-                smoothstep=he.hash_encoding.interpolation == "Smoothstep")
+            base_in = encode_tables(
+                fparams, norm, code, levels, table_row_width(config)[1],
+                he.hash_encoding.interpolation == "Smoothstep")
         else:
             base_in = hash_encode(fparams["table_quad"], norm, levels)
     h = fused_mlp_apply(fparams["mlp_base"], base_in, None, compute_dtype)

@@ -12,6 +12,14 @@ functional style.
 World/normalized composition quirk kept from the reference: the warp is
 computed on AABB-normalized positions and its offset is added to the WORLD
 position.
+
+Over several ranks (``mesh``, a ``parallel.mesh.DataMesh``) each rank holds
+its own slice of the ray batch and the computation stays the global one
+that GSPMD makes of the JAX step: the compaction ranks the samples of every
+rank's rays (``_sharded_compaction``), each rank evaluates an equal share
+of the global selection, the evaluated rows reach the ranks of their rays by
+an all-gather (a reduce-scatter in the backward), and the loss means divide
+by the global counts.
 """
 
 import copy
@@ -53,12 +61,13 @@ from nersemble_tpu_torch.ops.rendering import (
 from nersemble_tpu_torch.ops.sampling import (
     coarse_entry_steps,
     compact_samples,
-    compact_samples_monotone,
     dilate_binaries,
     march_range,
     march_rays,
+    monotone_ranks,
     scatter_rows_back,
 )
+from nersemble_tpu_torch.parallel.mesh import DataMesh, pad_to_multiple
 from nersemble_tpu_torch.utils.device import resolve_device
 from nersemble_tpu_torch.utils.params import ParamTree, normal
 
@@ -79,6 +88,9 @@ class NeRSembleModel:
         self.background = torch.tensor(_BACKGROUNDS[config.background_color],
                                        dtype=torch.float32, device=self.device)
         self.compute_dtype = getattr(torch, config.compute_dtype)
+        # ("rows" or "cols", mesh) under the ZeRO-3 or the feature-sharded
+        # table (set by the trainer; models/field.prepare_field)
+        self.table_layout = None
         if config.use_hash_ensemble and \
                 config.latent_dim_time != config.hash_ensemble.n_hash_encodings:
             raise ValueError("latent_dim_time must equal n_hash_encodings")
@@ -147,7 +159,8 @@ class NeRSembleModel:
                                   frustum_grid).reshape(shape)
 
     def prepare_field(self, params: ParamTree) -> Dict:
-        return prepare_field(params.field, self.config, self.levels)
+        return prepare_field(params.field, self.config, self.levels,
+                             self.table_layout)
 
     # -- per-sample evaluation -----------------------------------------------
 
@@ -210,7 +223,7 @@ class NeRSembleModel:
         return density, rgb, offsets
 
     def _probe_termination(self, params, fparams, samples, ray_pack,
-                           budget: int, sched: Dict) -> torch.Tensor:
+                           budget: int, sched: Dict, mesh) -> torch.Tensor:
         """Sigma-probed early termination, the fixed-shape analogue of
         nerfacc's eval transmittance stop: probe density at every ps-th
         slot (its own budget = budget / ps), accumulate coarse
@@ -224,17 +237,19 @@ class NeRSembleModel:
         sub_t = ((samples.t_starts + samples.t_ends) * 0.5)[:, :Sc * ps:ps]
         deltas = (samples.t_ends - samples.t_starts) * samples.mask
         delta_c = deltas[:, :Sc * ps].reshape(R, Sc, ps).sum(-1)
-        bc = min(-(-max(budget // ps, 128) // 128) * 128, R * Sc)
+        bc = min(-(-max(budget // ps, 128) // 128) * 128, R * mesh.size * Sc)
+
+        def probe(picked, tmid):
+            pos = picked[:, 0:3] + picked[:, 3:6] * tmid[:, None]
+            return self._chunked_samples(
+                lambda p, t: self._density(params, fparams, p, t, sched),
+                (pos, picked[:, 6].to(torch.int64)), pos.shape[0])[:, None]
+
         # a strided view of the prefix mask is still per-ray monotone
-        sel_c, kept_c = compact_samples_monotone(sub_mask, bc)
-        tmid_c = sub_t.t().reshape(-1)[sel_c]
-        picked_c = ray_pack[sel_c % R]
-        pos_p = picked_c[:, 0:3] + picked_c[:, 3:6] * tmid_c[:, None]
-        sigma_p = self._chunked_samples(
-            lambda p, t: self._density(params, fparams, p, t, sched),
-            (pos_p, picked_c[:, 6].to(torch.int64)), bc)
-        sig_back = scatter_rows_back(sigma_p[:, None], sel_c, R * Sc)[:, 0]
-        sigma_c = sig_back.reshape(Sc, R).t() * kept_c
+        sel_c, kept_c = self._sharded_compaction(sub_mask, bc, True, mesh)
+        sig_back = self._evaluate_selected(probe, sel_c, bc, ray_pack, sub_t,
+                                           mesh)[..., 0]
+        sigma_c = sig_back * kept_c
         trans_c = torch.exp(-exclusive_cumsum(sigma_c * delta_c, dim=-1))
         alive = trans_c >= scfg.eval_early_stop_trans
         alive = alive | torch.cat([torch.ones_like(alive[:, :1]),
@@ -244,9 +259,47 @@ class NeRSembleModel:
             keep = torch.cat([keep, alive[:, -1:].expand(R, S - Sc * ps)], dim=1)
         return keep
 
+    def _sharded_compaction(self, mask, budget: int, monotone: bool, mesh):
+        """The compaction of the whole batch from this rank's rows: (sel
+        [budget padded to a multiple of the ranks] slot-major indices over
+        the global rays, kept [R, S] for this rank's rays). The monotone
+        staircase needs only every ray's valid count (all-gathered); the
+        sorted compaction gathers the masks."""
+        R, S = mask.shape
+        rows = mesh.rows(R * mesh.size)
+        n_sel = pad_to_multiple(budget, mesh.size)
+        if monotone:
+            counts = mesh.all_gather_rows(mask.sum(dim=1, dtype=torch.int64))
+            sel, C, inv_order = monotone_ranks(counts, S, n_sel)
+            return sel, mask & (C[None, :S] + inv_order[rows, None] < budget)
+        masks = mesh.all_gather_rows(mask.to(torch.uint8)).to(torch.bool)
+        sel, kept = compact_samples(masks, budget, n_sel)
+        return sel, kept[rows]
+
+    def _evaluate_selected(self, fn, sel, budget: int, ray_pack, tmid, mesh):
+        """``fn(picked ray_pack rows, tmid) -> [m, C]`` over this rank's
+        equal share of the global selection ``sel`` (the rays and slot
+        midpoints of every rank all-gathered), the rows past ``budget``
+        zeroed, then all rows all-gathered and scattered into this rank's
+        [R, S, C] slots. Differentiable: the backward of the gather
+        reduce-scatters each row's gradient to the rank that evaluated it."""
+        R, S = tmid.shape
+        Rg, P = R * mesh.size, ray_pack.shape[1]
+        share = mesh.rows(sel.shape[0])
+        mine = sel[share]
+        table = mesh.all_gather_rows(torch.cat([ray_pack, tmid], dim=1))
+        ray, slot = mine % Rg, mine // Rg
+        out = fn(table[ray, :P], table[ray, P + slot])
+        if sel.shape[0] > budget:  # padding to a multiple of the ranks
+            j = torch.arange(share.start, share.stop, device=out.device)
+            out = torch.where((j < budget)[:, None], out, torch.zeros_like(out))
+        rows = mesh.all_gather_rows_grad(out)
+        back = scatter_rows_back(rows, sel, Rg * S).reshape(S, Rg, -1)
+        return back[:, mesh.rows(Rg)].transpose(0, 1)
+
     def _evaluate_samples(self, params, fparams, samples, ray_pack,
                           budget: int, mask_monotone: bool, sched: Dict,
-                          train: bool):
+                          train: bool, mesh):
         """Field evaluation of the [R, S] samples: the ``budget`` picked by
         global slot-major compaction when it is below R * S (results
         scattered back to their slots), else every slot. ``ray_pack``
@@ -261,7 +314,7 @@ class NeRSembleModel:
             return self._density_rgb(params, fparams, pos, ts, dirs,
                                      cams[0] if cams else None, sched, train)
 
-        if budget >= R * S:
+        if budget >= R * S * mesh.size:
             positions = samples.positions(ray_pack[:, 0:3], ray_pack[:, 3:6])
             per_ray = ray_pack[:, 6:].to(torch.int64)[:, None].expand(
                 R, S, ray_pack.shape[1] - 6).reshape(R * S, -1)
@@ -274,21 +327,23 @@ class NeRSembleModel:
             return (samples, density.reshape(R, S), rgbs.reshape(R, S, 3),
                     offsets.reshape(R, S, 3), 0)
 
-        if mask_monotone:  # sort-free staircase compaction
-            sel, kept = compact_samples_monotone(samples.mask, budget)
-        else:
-            sel, kept = compact_samples(samples.mask, budget)
-        n_dropped = samples.mask.sum() - kept.sum()
+        sel, kept = self._sharded_compaction(samples.mask, budget, mask_monotone,
+                                             mesh)
+        n_dropped = samples.mask.sum() - kept.sum()  # this rank's share
         samples = samples._replace(mask=kept)
-        tmid = ((samples.t_starts + samples.t_ends) * 0.5).t().reshape(-1)[sel]
-        picked = ray_pack[sel % R]
-        pos = picked[:, 0:3] + picked[:, 3:6] * tmid[:, None]
-        inputs = (pos, picked[:, 6].to(torch.int64), picked[:, 3:6])
-        if with_cams:
-            inputs += (picked[:, 7].to(torch.int64),)
-        density, rgbs, offsets = self._chunked_samples(body, inputs, budget)
-        back = scatter_rows_back(torch.cat([density[:, None], rgbs, offsets], 1),
-                                 sel, R * S).reshape(S, R, 7).transpose(0, 1)
+
+        def evaluate(picked, tmid):
+            inputs = (picked[:, 0:3] + picked[:, 3:6] * tmid[:, None],
+                      picked[:, 6].to(torch.int64), picked[:, 3:6])
+            if with_cams:
+                inputs += (picked[:, 7].to(torch.int64),)
+            density, rgbs, offsets = self._chunked_samples(body, inputs,
+                                                           picked.shape[0])
+            return torch.cat([density[:, None], rgbs, offsets], 1)
+
+        back = self._evaluate_selected(evaluate, sel, budget, ray_pack,
+                                       (samples.t_starts + samples.t_ends) * 0.5,
+                                       mesh)
         return (samples, back[..., 0] * kept, back[..., 1:4], back[..., 4:7],
                 n_dropped)
 
@@ -297,7 +352,8 @@ class NeRSembleModel:
     def render_rays(self, params: ParamTree, rays: Dict, binaries, sched: Dict,
                     train: bool = False, budget: Optional[int] = None,
                     fparams: Optional[Dict] = None,
-                    jitter: Optional[torch.Tensor] = None) -> Dict:
+                    jitter: Optional[torch.Tensor] = None,
+                    mesh=None) -> Dict:
         """Render a ray batch: origins [R,3], directions [R,3], optional
         integer timesteps [R]. ``budget`` overrides the compaction sample
         budget (None: R * S * global_budget_fraction). ``fparams``: a
@@ -307,16 +363,20 @@ class NeRSembleModel:
         ``params``, the sample comb shifted by ``jitter`` [R] in [0, 1)
         (drawn by the caller; None: no shift), no eval levers. Eval runs
         under ``torch.no_grad``.
+
+        ``mesh``: the rays are this rank's slice of a batch of ``R *
+        mesh.size`` rays and ``budget`` is the batch's; every rank calls
+        together. The counts in the outputs are this rank's shares.
         """
         if train:
             return self._render(params, rays, binaries, sched, True, budget,
-                                fparams, jitter)
+                                fparams, jitter, mesh)
         with torch.no_grad():
             return self._render(params, rays, binaries, sched, False, budget,
-                                fparams, None)
+                                fparams, None, mesh)
 
     def _render(self, params, rays, binaries, sched, train, budget, fparams,
-                jitter) -> Dict:
+                jitter, mesh) -> Dict:
         cfg, scfg = self.config, self.config.sampling
         origins, directions = rays["origins"], rays["directions"]
         R = origins.shape[0]
@@ -366,11 +426,13 @@ class NeRSembleModel:
         if fparams is None:
             fparams = self.prepare_field(params)
 
+        mesh = mesh or DataMesh()  # one rank: every collective is the identity
+        Rg = R * mesh.size
         if budget is None:
             frac = scfg.global_budget_fraction
-            budget = -(-int(R * S * frac) // 128) * 128 \
-                if 0 < frac < 1.0 else R * S
-        budget = min(budget, R * S)
+            budget = -(-int(Rg * S * frac) // 128) * 128 \
+                if 0 < frac < 1.0 else Rg * S
+        budget = min(budget, Rg * S)
 
         # per-ray inputs gathered by one row gather; the timestep (and the
         # camera index, which only the appearance embedding reads, in
@@ -387,11 +449,11 @@ class NeRSembleModel:
         n_samples_out = info["n_samples_per_ray"]
         mask_monotone = True  # march_rays fills a valid slot PREFIX per ray
         ps = scfg.eval_termination_probe_stride
-        if (not train and scfg.eval_early_stop_trans > 0 and budget < R * S
+        if (not train and scfg.eval_early_stop_trans > 0 and budget < Rg * S
                 and ps > 1 and S >= 2 * ps):
             with record_function("render:sigma_probe"):
                 keep = self._probe_termination(params, fparams, samples,
-                                               ray_pack, budget, sched)
+                                               ray_pack, budget, sched, mesh)
             samples = samples._replace(mask=samples.mask & keep)
             n_samples_out = samples.mask.sum(-1)
             mask_monotone = False
@@ -399,7 +461,8 @@ class NeRSembleModel:
         with record_function("render:field"):
             samples, sigmas, rgbs, offsets_norm, n_budget_dropped = \
                 self._evaluate_samples(params, fparams, samples, ray_pack,
-                                       budget, mask_monotone, sched, train)
+                                       budget, mask_monotone, sched, train,
+                                       mesh)
 
         # alpha_thre pruning (nerfacc's sigma_fn filter): low-opacity samples
         # neither attenuate nor render nor receive gradients; the mask comes
@@ -441,36 +504,42 @@ class NeRSembleModel:
     # -- losses --------------------------------------------------------------
 
     def compute_losses(self, outputs: Dict, batch: Dict, sched: Dict,
-                       train: bool = True) -> Dict[str, torch.Tensor]:
+                       train: bool = True, mesh=None) -> Dict[str, torch.Tensor]:
         """Scaled loss dict. batch: rgb [R,3], optional alpha [R] in [0,1],
-        optional depth [R] (0 = invalid)."""
+        optional depth [R] (0 = invalid). With ``mesh`` the batch is this
+        rank's slice (``render_rays``): each loss is this rank's share of
+        the batch's loss (the means divide by the batch's counts), and
+        ``dist_loss_max_rays`` counts the batch's rays."""
         cfg = self.config
         samples, weights = outputs["samples"], outputs["weights"]
         alpha, depth_gt = batch.get("alpha"), batch.get("depth")
         losses = {"rgb_loss": L.masked_rgb_loss(
             outputs["rgb"], batch["rgb"], alpha, cfg.use_masked_rgb_loss,
-            cfg.alpha_mask_threshold)}
+            cfg.alpha_mask_threshold, mesh)}
         if cfg.lambda_alpha_loss > 0 and alpha is not None:
             losses["alpha_loss"] = cfg.lambda_alpha_loss * L.alpha_loss(
-                outputs["accumulation"], alpha)
+                outputs["accumulation"], alpha, mesh)
         if train and depth_gt is not None:
             eps = sched.get("eps_depth", cfg.eps_depth_final)
             if cfg.lambda_empty_loss > 0:
                 losses["empty_loss"] = cfg.lambda_empty_loss * L.empty_loss(
                     weights, samples.t_starts, samples.t_ends, samples.mask,
-                    depth_gt, eps)
+                    depth_gt, eps, mesh)
             if cfg.lambda_near_loss > 0:
                 losses["near_loss"] = cfg.lambda_near_loss * L.near_loss(
                     weights, samples.t_starts, samples.t_ends, samples.mask,
-                    depth_gt, eps)
+                    depth_gt, eps, mesh)
             if cfg.lambda_depth_loss > 0:
                 losses["depth_loss"] = cfg.lambda_depth_loss * L.depth_loss(
-                    outputs["depth"], depth_gt)
+                    outputs["depth"], depth_gt, mesh)
         if cfg.lambda_dist_loss > 0 and train:
             R = weights.shape[0]
-            ray_mask = torch.arange(R, device=weights.device) < cfg.dist_loss_max_rays
+            first = 0 if mesh is None else mesh.rank * R
+            ray_mask = torch.arange(first, first + R, device=weights.device) \
+                < cfg.dist_loss_max_rays
             losses["dist_loss"] = cfg.lambda_dist_loss * distortion_loss(
-                weights, samples.t_starts, samples.t_ends, samples.mask, ray_mask)
+                weights, samples.t_starts, samples.t_ends, samples.mask,
+                ray_mask, mesh)
         return losses
 
     def param_groups(self, params: ParamTree) -> Dict[str, list]:
@@ -494,8 +563,11 @@ class NeRSembleModel:
     def density_at(self, params: ParamTree, positions: torch.Tensor,
                    timesteps: torch.Tensor, sched: Dict) -> torch.Tensor:
         """sigma at [N, 3] world positions and [N] integer timesteps, the
-        quad table built once, samples in chunks."""
+        quad table built once, samples in chunks. Over several ranks every
+        rank evaluates the same positions (the occupancy update's draws are
+        alike on every rank) and gets the same densities."""
         fparams = self.prepare_field(params)
+        fparams["tp_rows"] = "replicated"
         return self._chunked_samples(
             lambda p, t: self._density(params, fparams, p, t, sched),
             (positions, timesteps), positions.shape[0])

@@ -12,12 +12,14 @@ plus the intra-sample term ``(1/3) sum_i w_i^2 delta_i``; averaged over rays.
 
 import torch
 
+from nersemble_tpu_torch.ops.losses import masked_mean, mean
 from nersemble_tpu_torch.ops.rendering import exclusive_cumsum
 
 
-def distortion_loss(weights, t_starts, t_ends, mask, ray_mask=None) -> torch.Tensor:
+def distortion_loss(weights, t_starts, t_ends, mask, ray_mask=None,
+                    mesh=None) -> torch.Tensor:
     """weights/t_starts/t_ends/mask [R, S]; ``ray_mask`` [R] selects the rays
-    that enter the mean."""
+    that enter the mean; ``mesh`` as in ops/losses.py."""
     m = mask.to(weights.dtype)
     w = weights * m
     mids = (t_starts + t_ends) * 0.5
@@ -28,9 +30,8 @@ def distortion_loss(weights, t_starts, t_ends, mask, ray_mask=None) -> torch.Ten
     uni = torch.sum(w * w * deltas * m, dim=-1) / 3.0
     per_ray = bi + uni
     if ray_mask is not None:
-        rm = ray_mask.to(weights.dtype)
-        return torch.sum(per_ray * rm) / torch.clamp(torch.sum(rm), min=1.0)
-    return torch.mean(per_ray)
+        return masked_mean(per_ray, ray_mask, mesh)
+    return mean(per_ray, mesh)
 
 
 def distortion_loss_reference(weights, mids, deltas) -> torch.Tensor:

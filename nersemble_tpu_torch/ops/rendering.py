@@ -5,14 +5,22 @@ import torch
 
 
 def exclusive_cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    return torch.cumsum(x, dim=dim) - x
+    """``sum_{j<i} x_j``: the inclusive cumsum shifted by one. The JAX
+    version subtracts ``x`` from the inclusive sum, which is the same where
+    the inputs are finite and inf - inf = NaN where one overflows."""
+    inclusive = torch.cumsum(x, dim=dim)
+    n = x.shape[dim]
+    return torch.cat([torch.zeros_like(x.narrow(dim, 0, 1)),
+                      inclusive.narrow(dim, 0, n - 1)], dim=dim)
 
 
 def render_weights(sigmas, t_starts, t_ends, mask):
     """``w_i = T_i (1 - exp(-sigma_i delta_i))``, ``T_i = exp(-sum_{j<i}
-    sigma_j delta_j)``; masked slots contribute 0. Returns (weights, T)."""
+    sigma_j delta_j)``; masked slots contribute 0 (selected away, so that an
+    overflowed density there does not give inf * 0). Returns (weights, T)."""
     mask_f = mask.to(sigmas.dtype)
-    sigma_delta = sigmas * (t_ends - t_starts) * mask_f
+    sigma_delta = torch.where(mask, sigmas * (t_ends - t_starts),
+                              torch.zeros_like(sigmas))
     trans = torch.exp(-exclusive_cumsum(sigma_delta, dim=-1))
     alphas = 1.0 - torch.exp(-sigma_delta)
     return trans * alphas * mask_f, trans

@@ -39,39 +39,40 @@ def scatter_rows_back(x: torch.Tensor, sel: torch.Tensor,
     return out
 
 
-def compact_samples(mask: torch.Tensor, budget: int):
+def compact_samples(mask: torch.Tensor, budget: int,
+                    n_sel: Optional[int] = None):
     """Pick ``budget`` valid (ray, slot) pairs, slot-major, with a stable
-    sort on ~valid. Returns (sel [budget] flat slot-major indices,
-    kept [R, S])."""
+    sort on ~valid. Returns (sel [n_sel] flat slot-major indices, kept
+    [R, S]); ``n_sel`` (default ``budget``, at most R * S) extends ``sel``
+    past the budget with the next positions of the same order, none kept."""
     R, S = mask.shape
     mask_t = mask.t().reshape(-1)
     order = torch.argsort((~mask_t).to(torch.uint8), stable=True)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=mask.device)
-    sel = order[:budget]
+    sel = order[:budget if n_sel is None else n_sel]
     kept = mask_t & (inv < budget)
     return sel, kept.reshape(S, R).t()
 
 
-def compact_samples_monotone(mask: torch.Tensor, budget: int):
-    """``compact_samples`` for per-ray-monotone masks (a valid slot prefix
-    per ray): rank arithmetic over the "staircase" of rays sorted by fill
-    count replaces the sort over R*S keys. Padding ranks past the valid
-    count map to invalid positions, so ``sel`` stays duplicate-free.
-    Returns (sel [budget], kept [R, S])."""
-    R, S = mask.shape
-    dev = mask.device
-    n = mask.sum(dim=1, dtype=torch.int64)
-    order = torch.argsort(-n, stable=True)
+def monotone_ranks(counts: torch.Tensor, n_slots: int, n_sel: int):
+    """The staircase of ``compact_samples_monotone`` from the per-ray valid
+    counts ``counts`` [R] alone: (sel [n_sel] flat slot-major indices, C
+    [S + 1] the valid samples before each slot, inv_order [R] each ray's
+    place in the fill order). Sample (r, s) has rank ``C[s] +
+    inv_order[r]`` and is kept iff that rank is below the budget."""
+    R, S = counts.shape[0], n_slots
+    dev = counts.device
+    order = torch.argsort(-counts, stable=True)
     inv_order = torch.empty_like(order)
     inv_order[order] = torch.arange(R, device=dev)
-    n_sorted = n[order]
+    n_sorted = counts[order]
     slots = torch.arange(S, device=dev)
     c = (n_sorted[None, :] > slots[:, None]).sum(dim=1)  # [S] valid rays/slot
     zero = torch.zeros(1, dtype=torch.int64, device=dev)
     C = torch.cat([zero, torch.cumsum(c, 0)])  # [S+1]
     total = C[S]
-    j = torch.arange(budget, device=dev)
+    j = torch.arange(n_sel, device=dev)
 
     def staircase_positions(C_, rank):
         # slot of each rank and its position within the slot (C_ ascending)
@@ -87,7 +88,20 @@ def compact_samples_monotone(mask: torch.Tensor, budget: int):
     pi = c[si] + qi
     s = torch.where(j < total, sv, si)
     p = torch.clamp(torch.where(j < total, pv, pi), 0, R - 1)
-    sel = s * R + order[p]
+    return s * R + order[p], C, inv_order
+
+
+def compact_samples_monotone(mask: torch.Tensor, budget: int,
+                             n_sel: Optional[int] = None):
+    """``compact_samples`` for per-ray-monotone masks (a valid slot prefix
+    per ray): rank arithmetic over the "staircase" of rays sorted by fill
+    count replaces the sort over R*S keys (``monotone_ranks``). Padding
+    ranks past the valid count map to invalid positions, so ``sel`` stays
+    duplicate-free. Returns (sel [n_sel], kept [R, S]), ``n_sel`` as in
+    ``compact_samples``."""
+    S = mask.shape[1]
+    sel, C, inv_order = monotone_ranks(mask.sum(dim=1, dtype=torch.int64), S,
+                                       budget if n_sel is None else n_sel)
     kept = mask & (C[None, :S] + inv_order[:, None] < budget)
     return sel, kept
 

@@ -1,19 +1,26 @@
 """Train CLI of the port (nersemble_tpu/scripts/train_nersemble.py's flags,
-defaults and config tree, plus ``--device``).
+defaults and config tree, plus ``--device`` and ``--dist-backend``).
 
 Assembles the full TrainConfig tree, allocates a NERS-XXX run folder (or
 reopens one with ``--resume-run``: a run either package wrote), saves
 config.yml, and runs the trainer's loop on the GPU unless ``--device cpu``.
 ``--vis viewer`` serves the live viewer (``--viewer-port``) between steps.
-Not ported: ``--data-axis-size`` other than -1 or 1 (multi-GPU, ROADMAP A6)
-raises NotImplementedError.
+
+``--data-axis-size N`` trains over N ranks, one card each (-1, the default:
+every visible card), the JAX mesh's data axis: it starts the N processes
+itself unless torchrun started them (``torchrun --nproc-per-node N -m
+nersemble_tpu_torch.scripts.train_nersemble ...``). ``--dist-backend``
+(nccl, the default on the card, or gloo) joins them; only rank 0 writes the
+run folder. ``--vis viewer`` over several ranks raises NotImplementedError.
 
 Usage:
     python -m nersemble_tpu_torch.scripts.train_nersemble <participant_id> <sequence_name> [flags]
 """
 
 import argparse
+import sys
 
+from nersemble_tpu_torch import env
 from nersemble_tpu_torch.config import (
     DataConfig,
     HashEncodingConfig,
@@ -26,6 +33,8 @@ from nersemble_tpu_torch.config import (
 )
 from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
 from nersemble_tpu_torch.model_manager import NeRSembleModelFolder
+from nersemble_tpu_torch.parallel import launch
+from nersemble_tpu_torch.parallel import mesh as mesh_lib
 from nersemble_tpu_torch.utils.device import resolve_device
 
 
@@ -141,8 +150,12 @@ def build_parser() -> argparse.ArgumentParser:
 
     # TPU specifics
     p.add_argument("--data-axis-size", type=int, default=-1,
-                   help="devices on the data-parallel mesh axis (-1: all; "
-                        "the port trains on one device)")
+                   help="ranks on the data-parallel axis, one card each "
+                        "(-1: every visible card; one on the CPU)")
+    p.add_argument("--dist-backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="torch.distributed backend over several ranks "
+                        "(default: nccl on the GPU, gloo on the CPU)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the run (default: the GPU)")
     return p
@@ -258,14 +271,52 @@ def build_config(args, run_name: str, output_dir: str) -> TrainConfig:
 
 
 def main(argv=None, step_hook=None):
-    """Parse ``argv``, build or reopen the run, train. ``step_hook``:
-    ``NeRSembleTrainer.step_hook`` of the run (for instrumentation)."""
+    """Parse ``argv``, build or reopen the run, train; returns rank 0's last
+    logged scalars. ``step_hook``: ``NeRSembleTrainer.step_hook`` of the run
+    (for instrumentation; one process only)."""
     args = build_parser().parse_args(argv)
-    if args.data_axis_size not in (-1, 1):
-        raise NotImplementedError(f"--data-axis-size {args.data_axis_size}: the "
-                                  f"port trains on one device (ROADMAP A6)")
-    resolve_device(args.device)  # no GPU: raise before a run folder is made
+    device = resolve_device(args.device)  # no GPU: raise before a run folder is made
+    backend = args.dist_backend or ("nccl" if device.type == "cuda" else "gloo")
+    if launch.under_torchrun():
+        mesh = mesh_lib.init(backend, device)
+        if args.data_axis_size not in (-1, mesh.size):
+            raise ValueError(f"--data-axis-size {args.data_axis_size} under "
+                             f"torchrun's {mesh.size} processes")
+        try:
+            return run(args, mesh, step_hook)
+        finally:
+            mesh_lib.shutdown()
+    n = mesh_lib.axis_size(args.data_axis_size, device)
+    if n == 1:
+        return run(args, None, step_hook)
+    if args.vis == "viewer":
+        raise NotImplementedError(
+            "--vis viewer serves requests between steps on one rank; over "
+            f"{n} ranks it would need a per-step broadcast")
+    if step_hook is not None:
+        raise ValueError("step_hook runs in one process; --data-axis-size "
+                         f"{n} starts {n}")
+    # by its module's name: run as ``python -m`` this module is __main__
+    from nersemble_tpu_torch.scripts.train_nersemble import _rank_run
+    roots = {name: getattr(env, name) for name in ENV_ROOTS}
+    return launch.spawn(_rank_run, n, backend, args.device,
+                        list(sys.argv[1:] if argv is None else argv), roots)
 
+
+# the path roots the ranks take from this process (a caller may have
+# repointed the module's attributes)
+ENV_ROOTS = ("NERSEMBLE_DATA_PATH", "NERSEMBLE_MODELS_PATH", "NERSEMBLE_RENDERS_PATH")
+
+
+def _rank_run(mesh, argv, roots):
+    for name, value in roots.items():
+        setattr(env, name, value)
+    return run(build_parser().parse_args(argv), mesh)
+
+
+def run(args, mesh=None, step_hook=None):
+    """The run of ``args`` on this rank (``mesh`` None: one process)."""
+    chief = mesh is None or mesh.rank == 0
     model_folder = NeRSembleModelFolder()
     if args.resume_run:
         manager = model_folder.open_run(args.resume_run)
@@ -274,27 +325,36 @@ def main(argv=None, step_hook=None):
         config.load_step = args.resume_checkpoint
         config.max_num_iterations = args.max_num_iterations
     else:
-        manager = model_folder.new_run(name=args.name)
+        name = model_folder.new_run(name=args.name).get_run_name() if chief else None
+        if mesh is not None:
+            name = mesh.broadcast_object(name)
+        manager = model_folder.open_run(name)
         config = build_config(args, manager.get_run_name(),
                               model_folder.get_location())
         config.parallel.data_axis_size = args.data_axis_size
 
+    device = mesh_lib.local_device(args.device, mesh) if mesh else args.device
     trainer = NeRSembleTrainer.from_train_config(config, model_manager=manager,
-                                                 device=args.device)
+                                                 device=device, mesh=mesh)
     trainer.step_hook = step_hook
     # save config AFTER trainer setup (it fills in n_timesteps/scene_box)
-    manager.save_config(config)
-    print(f"[nersemble-torch] run {manager.get_run_name()} "
-          f"({config.data.n_timesteps} timesteps, "
-          f"{trainer.train_outputs.n_images} train images, {trainer.device})")
+    if chief:
+        manager.save_config(config)
+        ranks = "" if mesh is None else f", {mesh.size} ranks ({mesh.backend}), " \
+            f"table {trainer.table_layout}"
+        print(f"[nersemble-torch] run {manager.get_run_name()} "
+              f"({config.data.n_timesteps} timesteps, "
+              f"{trainer.train_outputs.n_images} train images, {trainer.device}"
+              f"{ranks})")
     try:
         result = trainer.train()
     finally:
         trainer.writer.close()
         if trainer.viewer is not None:
             trainer.viewer.close()
-    print(f"[nersemble-torch] DONE step={result.get('step')} "
-          f"loss={result.get('loss'):.4f} psnr={result.get('train_psnr', 0):.2f}")
+    if chief:
+        print(f"[nersemble-torch] DONE step={result.get('step')} "
+              f"loss={result.get('loss'):.4f} psnr={result.get('train_psnr', 0):.2f}")
     return result
 
 

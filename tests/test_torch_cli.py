@@ -92,7 +92,8 @@ def test_run_config_defaults_match(name):
 def test_cli_flags_and_defaults_match():
     ours = {a.dest: a.default for a in tcli.build_parser()._actions}
     theirs = {a.dest: a.default for a in jcli.build_parser()._actions}
-    assert set(ours) - set(theirs) == {"device"} and ours["device"] == "cuda"
+    assert set(ours) - set(theirs) == {"device", "dist_backend"}
+    assert ours["device"] == "cuda" and ours["dist_backend"] is None
     assert {k: ours[k] for k in theirs} == theirs
 
 
@@ -249,9 +250,15 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(runs, monkeypatch):
         NeRSembleTrainer.from_train_config(config)
 
 
-@pytest.mark.parametrize("flags,match", [(["--data-axis-size", "2"], "one device")])
+@pytest.mark.parametrize("flags,match", [pytest.param(
+    ["--data-axis-size", "2", "--vis", "viewer"], "per-step broadcast",
+    id="flags0-one device")])
 def test_parts_not_ported_raise(flags, match):
-    """``--vis viewer`` is ported: tests/test_torch_viewer.py trains with it."""
+    """``--vis viewer`` is ported on one rank (tests/test_torch_viewer.py
+    trains with it) and ``--data-axis-size 2`` trains over two ranks
+    (tests/test_torch_parallel_cli.py); the viewer over several ranks is
+    not ported. The case keeps the id it had when ``--data-axis-size 2``
+    itself raised."""
     with pytest.raises(NotImplementedError, match=match):
         tcli.main(SEQ + TINY + CPU + flags)
 

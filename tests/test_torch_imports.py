@@ -53,7 +53,11 @@ def test_imports_without_jax_and_yaml():
             "nersemble_tpu_torch.scripts.quality_benchmark",
             "nersemble_tpu_torch.scripts.bench_render",
             "nersemble_tpu_torch.scripts.validate_poses",
-            "nersemble_tpu_torch.scripts.trained_scene"} <= set(names)
+            "nersemble_tpu_torch.scripts.trained_scene",
+            "nersemble_tpu_torch.scripts.bench_projection",
+            "nersemble_tpu_torch.parallel.mesh",
+            "nersemble_tpu_torch.parallel.launch",
+            "nersemble_tpu_torch.parallel.compare"} <= set(names)
     code = ("import sys\n"
             f"for blocked in {BLOCKED + LAZY!r}:\n"
             "    sys.modules[blocked] = None\n"
@@ -141,7 +145,7 @@ TRAIN_PATH = ["models/nersemble.py", "models/field.py", "models/deformation.py",
               "ops/losses.py", "ops/distortion.py", "ops/trunc_exp.py",
               "ops/sh.py", "engine/optimizers.py", "utils/se3.py",
               "utils/windows.py", "utils/metrics.py", "utils/device.py",
-              "data/ray_batcher.py"]
+              "data/ray_batcher.py", "parallel/mesh.py"]
 HOST_SYNC = re.compile(r"\.(item|cpu|numpy)\(")
 
 
@@ -154,7 +158,8 @@ def test_no_host_sync_in_the_train_step():
                  if HOST_SYNC.search((PACKAGE / name).read_text())]
     assert offenders == []
     from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
-    for method in ("train_step", "run_step", "maybe_update_occupancy"):
+    for method in ("train_step", "run_step", "maybe_update_occupancy",
+                   "_reduce_gradients", "_batch_aux"):
         source = inspect.getsource(getattr(NeRSembleTrainer, method))
         assert not HOST_SYNC.search(source), method
         assert not re.search(r"\b(float|int|bool)\(", source), method
@@ -246,3 +251,45 @@ def test_train_step_of_every_configuration_reads_no_device_value(variant, monkey
         total, aux = trainer.train_step(step, batch)
     monkeypatch.undo()
     assert torch.isfinite(total) and int(aux["num_samples"]) > 0
+
+
+def test_parallel_train_step_reads_no_device_value(tmp_path, monkeypatch):
+    """The same with the parallel code path: a gloo group of one rank in
+    this process (every collective of the step runs: the gathered counts
+    and rows of the compaction, the loss counts, the gradient and aux
+    all-reduces) and the Tensor methods refusing as above."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import tiny_config
+    from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
+    from nersemble_tpu_torch.parallel import compare
+    from nersemble_tpu_torch.parallel.mesh import DataMesh
+
+    cfg, _ = tiny_config(None)
+    cfg.sampling.global_budget_fraction = 0.5  # the compaction runs
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        trainer = NeRSembleTrainer(cfg, n_rays=64, device="cpu",
+                                   mesh=DataMesh(dist.group.WORLD, "gloo"))
+        batch = {k: torch.from_numpy(v) for k, v in
+                 compare.synthetic_batches(64, 1, 8, seed=0)[0].items()}
+
+        def refuse(name):
+            def read(*args, **kwargs):
+                raise AssertionError(f"Tensor.{name} on the train path")
+            return read
+
+        for name in SYNC_METHODS:
+            monkeypatch.setattr(torch.Tensor, name, refuse(name))
+        trainer.maybe_update_occupancy(0)
+        for step in (0, 1):
+            total, aux = trainer.train_step(step, batch)
+        monkeypatch.undo()
+        assert torch.isfinite(total) and int(aux["num_samples"]) > 0
+        assert int(aux["num_budget_dropped"]) > 0 and trainer.mesh.comm_calls > 0
+        assert np.isfinite(float(aux["psnr"]))
+    finally:
+        dist.destroy_process_group()
