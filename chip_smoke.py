@@ -36,7 +36,25 @@ Phases, each printing its own lines:
                   the colour head at the other configurations' input widths
                   31 (SH degree 4), 50 (appearance embedding) and 63 (both)
                   at 98,304 rows, within the same bounds, with the share of
-                  their bound;
+                  their bound; then the blended encode's kernel pair
+                  (A3-fwd, A3-bwd) against its plain version (ENCODE_CASES):
+                  the flagship [6,537,216, 256] bf16 quad table at 73,728
+                  and 98,304 samples, 16 tables ([6,537,216, 128]), the
+                  single grid ([6,184,960, 8]), the flagship table in f32
+                  and 24 tables ([6,537,216, 192], the wide forward
+                  kernel), on positions half uniform, a quarter in the grid's
+                  centre block and a quarter at the origin (hot entries),
+                  with codes at the time embedding's contrast scale: the
+                  output, the residuals and the per-sample gradients within
+                  ops/hash_encoding.py MAX_ERR_REL (2^-9 of max |plain|) and
+                  MEAN_ERR_REL (1e-5 of mean |plain|), every table-gradient
+                  entry within one table-dtype ulp of the plain one plus
+                  the f32 error bound of its rows summed in two orders
+                  (hash_encoding.compare_table_grads; past one ulp only
+                  where the rows cancel),
+                  A3-bwd twice bit for bit; each timed beside its bound and
+                  the plain version, A3-bwd also beside index_add_ of the
+                  materialised f32 rows alone (the flagship case);
  3b. copy kernels -- the measurement path's kernels vs their plain versions,
                   bit-exact, with the time of the one PyTorch call that
                   computes the same function: the row gather (P1) at the
@@ -68,14 +86,20 @@ Phases, each printing its own lines:
                   then one sampled occupancy update timed alone. Losses must
                   be finite and fall, the timed steps must make no
                   synchronizing call (torch.cuda.set_sync_debug_mode), and
-                  all four kernels' launch counters must grow during this
-                  phase; B1-fwd's rows-per-launch histograms of the timed
+                  all six train-path kernels' launch counters must grow
+                  during this phase; B1-fwd's rows-per-launch histograms of the timed
                   steps and of the occupancy update;
+ 6b. repeat    -- ROADMAP C11 at default settings (no deterministic
+                  algorithms): the flagship's steps 79999-80001 of
+                  flagship_steps_spec (as phase 16 runs them, a sampled
+                  occupancy update at 80000) twice, and saved after 79999
+                  and resumed in a fresh trainer: losses, parameters, both
+                  Adam moments and the grid bit for bit (SHA-256);
   7. train profile -- one more step under torch.profiler: device busy
                   share, the step's ranges (march, field forward, encode
-                  backward, Adam), the port's four kernels by name (the MLP
-                  backward and the fold run through ctypes, which the
-                  profiler charges to no range) and the top kernels;
+                  backward, Adam), the port's six kernels by name (the
+                  kernels run through ctypes, which the profiler charges
+                  to no range) and the top kernels;
   8. train reference -- a tiny-config training step on the GPU vs the
                   port's CPU path (contrast-scaled weights): losses and every
                   gradient leaf within tests/test_torch_kernels.py's bound;
@@ -187,8 +211,8 @@ Phases, each printing its own lines:
                   rays of parallel/compare.synthetic_batches, S=256, budget
                   73,728, bench.py's grid, steps 79999-80001 through
                   run_step (a sampled occupancy update and a budget
-                  decision at 80000), every run under PyTorch's
-                  deterministic algorithms. (a) one NCCL rank (a spawned
+                  decision at 80000), PyTorch's deterministic algorithms
+                  off. (a) one NCCL rank (a spawned
                   process) against the plain trainer in this process:
                   losses, parameters and first moments bit for bit
                   (SHA-256); (b) at an f32 table, ZeRO-3 and the replicated
@@ -207,9 +231,9 @@ Phases, each printing its own lines:
                   all of them, its first step's gradients against one rank
                   as in (b), then bench_projection; with one card, a line
                   says (c) was not run.
-Then one JSON line with the eight kernels (launches on the training path
-for B1-B4 and on the measurement path for P1-P4, times, the bound and the
-library call's time; B3/B4 also with their narrow-row time and bound (B3
+Then one JSON line with the ten kernels (launches on the training path
+for B1-B4 and A3 and on the measurement path for P1-P4, times, the bound
+and the library call's time; A3 with every case of phase 3; B3/B4 also with their narrow-row time and bound (B3
 beside its library call, index_select at a cached quad index), B1-fwd and
 B2 with the variant heads', and B1-B4 with their launches in phase 14's
 runs (a) and (b), phase 15's quality run and render bench and phase 16's
@@ -241,21 +265,33 @@ REF_H, REF_W, REF_CHUNK = 32, 24, 256
 # config's frame by 2.6e-3 to 5e-3, so a wrong quad or encode fails this.
 REF_TOL = dict(rtol=0.0, atol=1e-4)
 PROFILE_RANGES = ("render:march", "render:sigma_probe", "render:field",
-                  "field:hash_encode")
+                  "field:hash_encode", "fwd:hash_encode")
 OWN_KERNELS = ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel", "pack_stream_kernel",
                "partial_sum_kernel", "quad_build_kernel", "quad_fold_kernel",
-               "quad_build_narrow_kernel", "quad_fold_narrow_kernel")
+               "quad_build_narrow_kernel", "quad_fold_narrow_kernel",
+               "be_fwd_kernel", "be_fwd_wide_kernel", "be_sample_kernel",
+               "be_chunk_kernel", "be_span_kernel")
+# A3 against its plain version: (case, quad table width, dtype, samples,
+# single grid); the first is the flagship table at the bench's budget; 24
+# tables (--n-hash-encodings 24) take the wide forward kernel
+ENCODE_CASES = [("flagship", 256, "bfloat16", 73728, False),
+                ("flagship", 256, "bfloat16", 98304, False),
+                ("16 tables", 128, "bfloat16", 73728, False),
+                ("single grid", 8, "bfloat16", 73728, True),
+                ("flagship f32", 256, "float32", 73728, False),
+                ("24 tables", 192, "bfloat16", 73728, False)]
+ENCODE_CODE_STD = 0.01 / math.sqrt(32)  # the time embedding's init (models/nersemble.py)
 TRAIN_RAYS, TRAIN_STEPS = 4096, 10
 BENCH_ITERS = 5
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
 BENCH_EXTRA_KEYS = {"ray_samples_per_sec", "step_ms", "n_rays", "budget",
                     "n_candidates", "device", "loss", "power_limit"}
 TRAIN_RANGES = ("train:forward", "render:march", "render:field",
-                "field:hash_encode", "train:backward", "bwd:hash_encode",
+                "field:hash_encode", "fwd:hash_encode", "train:backward", "bwd:hash_encode",
                 "bwd:fused_mlp", "bwd:quad_fold", "train:adam")
 # GPU vs CPU train step (tiny config, contrast-scaled bf16): the same plain
-# code but for the four kernels. B3/B4 are bit-exact; B1-fwd/B2 and the
-# encode's f32 atomic scatter sum in other orders, so a recomputed bf16
+# code but for the six kernels. B3/B4 are bit-exact; B1-fwd/B2 and A3 sum
+# in other orders, so a recomputed bf16
 # activation can round to its neighbour. Losses to rtol 1e-3; every gradient
 # leaf to rtol 1e-2 with an atol of 2e-3 of the leaf's max, the table's to
 # 2^-6 of its max (an entry rounded to the neighbouring bf16 value).
@@ -341,9 +377,9 @@ TRAINED_ARGS = ["--mode", "static", "--steps", "6000", "--eval-every", "2000",
 # 4096 rays of parallel/compare.synthetic_batches, S=256, the steady-state
 # budget 73,728, the schedule's end, constant learning rates, weights scaled
 # by utils/cameras.add_contrast) for steps 79999-80001: the last takes the
-# budget decided at 80000, after a sampled occupancy update there. Every run
-# uses PyTorch's deterministic algorithms (the encode's index_add_
-# otherwise sums in atomic order). (a) one NCCL rank against the plain
+# budget decided at 80000, after a sampled occupancy update there
+# (flagship_steps_spec; the encode's backward sums in one fixed order, so no
+# run needs PyTorch's deterministic algorithms). (a) one NCCL rank against the plain
 # trainer, bit for bit; (b) at an f32 table, ZeRO-3 over two gloo ranks
 # sharing the card against the replicated table on two ranks (the layout
 # alone differs): every parameter after the three steps at the JAX
@@ -363,6 +399,11 @@ PAR_TOL = {"atol": 5e-5, "rtol": 1e-3}
 # apply_linear's round_to: each rank rounds its share before the sum)
 PAR_GRAD_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (1e-2, 2e-3)}
 PAR_BF16_GRADS = ("deformation.head_rv.w",)
+# the train path's hand kernels (ops/launch_counts.py)
+TRAIN_KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "quad_build", "quad_fold",
+                 "blended_encode_fwd", "blended_encode_bwd")
+# a served frame's launches by kernel (RenderLog)
+FRAME_KEYS = {"fused_mlp_fwd": "fwd", "quad_build": "build", "blended_encode_fwd": "encode"}
 
 
 def _single_grid(cfg):
@@ -794,6 +835,139 @@ def kernel_phase(cfg, levels, device):
     return results
 
 
+def encode_inputs(levels, table, n, fl, with_code, gen):
+    """A3's inputs for n samples on ``table``'s card: half the positions
+    uniform over the box, a quarter in the grid's centre block, a quarter
+    at the origin (the positions the field's selector zeroes: every level's
+    corner there collects them); codes at the time embedding's contrast
+    scale (utils/cameras.CONTRAST_SCALES) and an output gradient N(0, 1).
+    Returns (fwd_args, gbar)."""
+    import torch
+    from nersemble_tpu_torch.ops.hash_encoding import hash_grid_indices
+    from nersemble_tpu_torch.utils.cameras import CONTRAST_SCALES
+
+    device = table.device
+    x = torch.rand(n, 3, generator=gen, device=device)
+    q = n // 4
+    x[2 * q:3 * q] = 0.375 + 0.25 * x[2 * q:3 * q]
+    x[3 * q:] = 0.0
+    entry_idx, wy, fx, fz = hash_grid_indices(x, levels)
+    h = table.shape[1] // 4 // fl
+    code = (torch.randn(n, h, generator=gen, device=device)
+            * ENCODE_CODE_STD * CONTRAST_SCALES["time_embedding"]) if with_code else None
+    gbar = torch.randn(n, levels.n_levels * fl, generator=gen, device=device)
+    return (table, code, wy, fx.contiguous(), fz.contiguous(), entry_idx,
+            levels.n_levels, fl, True), gbar
+
+
+def encode_kernel_phase(cfg, levels, device):
+    """A3-fwd and A3-bwd against their plain versions (ENCODE_CASES); returns
+    {kernel: kernel_entry(...)} for the flagship table at the bench's
+    budget, with every case's numbers under "cases"."""
+    import torch
+    from nersemble_tpu_torch.ops import hash_encoding as he
+    from nersemble_tpu_torch.utils.timing import bound_ms, cuda_time_ms
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    sg_levels = single_grid_levels()
+    results = {"blended_encode_fwd": None, "blended_encode_bwd": None}
+    cases = {"blended_encode_fwd": [], "blended_encode_bwd": []}
+    for what, width, dtype, n, single in ENCODE_CASES:
+        lv = sg_levels if single else levels
+        dt = getattr(torch, dtype)
+        table = ((torch.rand(lv.total_entries, width, generator=gen, device=device)
+                  - 0.5) * 2e-4 * 3e3).to(dt)  # the contrast-scaled table's range
+        args, gbar = encode_inputs(lv, table, n, 2, not single, gen)
+        _, code, wy, fx, fz, entry_idx = args[:6]
+        shape = tuple(table.shape)
+
+        ours = he.blended_encode_fwd_cuda(*args)
+        refs = he.blended_encode_fwd_plain(*args)
+        f_err = he.compare_to_plain(ours, refs, ("out", "CG", "BH"))
+        residuals_equal = all(a is None or torch.equal(a, b)
+                              for a, b in zip(ours[1:], refs[1:]))
+        del refs
+        grads = [he.blended_encode_bwd_cuda(gbar, ours[1], ours[2], code, entry_idx,
+                                            wy, fx, fz, shape) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(a is None and b is None or torch.equal(a, b) for a, b in zip(*grads)):
+            raise AssertionError(f"A3-bwd {what}: two runs on the same inputs differ")
+        ref_grads = he.blended_encode_bwd_plain(gbar, ours[1], ours[2], code, entry_idx,
+                                                wy, fx, fz, shape)
+        b_err = he.compare_to_plain(grads[0][1:], ref_grads[1:],
+                                    ("d_code", "d_wy", "d_fx", "d_fz"))
+        t_err = he.compare_table_grads(grads[0][0], ref_grads[0], *he.table_grad_mass(
+            gbar, code, entry_idx, wy, fx, fz, shape, dt))
+        t_abs = float((grads[0][0].float() - ref_grads[0].float()).abs().max())
+        del grads, ref_grads
+        torch.cuda.empty_cache()
+
+        fwd = lambda: he.blended_encode_fwd_cuda(*args)  # noqa: E731
+        bwd = lambda: he.blended_encode_bwd_cuda(  # noqa: E731
+            gbar, ours[1], ours[2], code, entry_idx, wy, fx, fz, shape)
+        fk, fp = cuda_time_ms(fwd), cuda_time_ms(lambda: he.blended_encode_fwd_plain(*args))
+        bk = cuda_time_ms(bwd)
+        bp = cuda_time_ms(lambda: he.blended_encode_bwd_plain(
+            gbar, ours[1], ours[2], code, entry_idx, wy, fx, fz, shape))
+        lib = None
+        if what == ENCODE_CASES[0][0]:  # the scatter alone: index_add_ of f32 rows
+            acc = torch.zeros(shape, dtype=torch.float32, device=device)
+            rows = torch.randn(entry_idx.numel(), shape[1], generator=gen, device=device)
+            flat = entry_idx.reshape(-1)
+            lib = cuda_time_ms(lambda: acc.index_add_(0, flat, rows))
+            del acc, rows
+        # bytes: each input read once (the table: each distinct row gathered),
+        # each output written once
+        es = table.element_size()
+        distinct = int(torch.unique(entry_idx).numel())
+        per_sample = sum(t.numel() * t.element_size()
+                         for t in (wy, fx, fz, entry_idx) + ((code,) if code is not None else ()))
+        residuals = sum(t.numel() * t.element_size() for t in ours[1:] if t is not None)
+        out_bytes = ours[0].numel() * 4
+        f_bound = bound_ms(distinct * shape[1] * es + per_sample + out_bytes + residuals)
+        b_bound = bound_ms(out_bytes + residuals + 2 * per_sample
+                           - entry_idx.numel() * entry_idx.element_size()
+                           + shape[0] * shape[1] * es)
+        gathered_gb = entry_idx.numel() * shape[1] * es / 1e9
+        for kernel, k_ms, p_ms, bound, errs, l_ms in (
+                ("blended_encode_fwd", fk, fp, f_bound, f_err, None),
+                ("blended_encode_bwd", bk, bp, b_bound, {**b_err, "d_table": {
+                    "max_abs": t_abs, **t_err}}, lib)):
+            err = max(e["max_abs"] for e in errs.values())
+            entry = kernel_entry(err, k_ms, p_ms, bound, l_ms)
+            cases[kernel].append({"case": what, "samples": n, "table": list(shape),
+                                  "dtype": dtype, **entry})
+            if results[kernel] is None:
+                results[kernel] = entry
+            log("kernels", f"{'A3-fwd' if kernel.endswith('fwd') else 'A3-bwd'} "
+                           f"{what} {list(shape)} {dtype} at {n} samples: kernel "
+                           f"{k_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+                           f"{100 * bound[0] / k_ms:.1f}% of it; plain {p_ms:.3f} ms"
+                           + (f"; index_add_ of the f32 rows alone {l_ms:.3f} ms"
+                              if l_ms is not None else ""))
+        log("kernels", f"A3 {what}: {distinct} distinct rows of "
+                       f"{entry_idx.numel()} gathered ({gathered_gb:.3f} GB gathered); "
+                       f"residuals bit for bit: {residuals_equal}; "
+                       f"forward against plain, share of the max / mean bounds "
+                       + ", ".join(f"{k} {e['max_abs'] / max(e['max_tol'], 1e-38):.3g} / "
+                                   f"{e['mean_abs'] / max(e['mean_tol'], 1e-38):.3g}"
+                                   for k, e in f_err.items())
+                       + "; backward " + ", ".join(
+                           f"{k} {e['max_abs'] / max(e['max_tol'], 1e-38):.3g} / "
+                           f"{e['mean_abs'] / max(e['mean_tol'], 1e-38):.3g}"
+                           for k, e in b_err.items())
+                       + f"; table gradient {t_err['unequal']} of {t_err['entries']} "
+                         f"entries unequal, {t_err['past_one_ulp']} past one ulp (at "
+                         f"most {t_err['max_ulps']:.3g}, where rows cancel), "
+                         f"{t_err['max_share']:.3g} of the bound; A3-bwd twice: "
+                         f"bit for bit")
+        del table, args, gbar, ours, code, wy, fx, fz, entry_idx
+        torch.cuda.empty_cache()
+    for kernel in results:
+        results[kernel]["cases"] = cases[kernel]
+    return results
+
+
 def train_phase(cfg, device):
     """The flagship training step; returns (the launch counts of the phase,
     ms/step)."""
@@ -801,7 +975,7 @@ def train_phase(cfg, device):
     from nersemble_tpu_torch.bench import LRS
     from nersemble_tpu_torch.config import OptimizerConfig
     from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
-    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+    from nersemble_tpu_torch.ops import fused_mlp, launch_counts
     from nersemble_tpu_torch.ops.sampling import quantized_budget
     from nersemble_tpu_torch.utils.bench_data import (
         STEADY_STATE_FILL,
@@ -826,8 +1000,7 @@ def train_phase(cfg, device):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_mlp.LAUNCHES = fused_mlp.BWD_LAUNCHES = 0
-    quad_kernel.LAUNCHES = quad_kernel.FOLD_LAUNCHES = 0
+    launch_counts.reset()
     start = time.perf_counter()
     first, aux0 = trainer.run_step(step0, batch)
     torch.cuda.synchronize()
@@ -853,10 +1026,7 @@ def train_phase(cfg, device):
     torch.cuda.synchronize()
     occ_ms = (time.perf_counter() - start) * 1e3
     occ_rows, fused_mlp.ROWS = fused_mlp.ROWS, None
-    launches = {"fused_mlp_fwd": fused_mlp.LAUNCHES,
-                "fused_mlp_bwd": fused_mlp.BWD_LAUNCHES,
-                "quad_build": quad_kernel.LAUNCHES,
-                "quad_fold": quad_kernel.FOLD_LAUNCHES}
+    launches = launch_counts.read()
 
     values = [float(first)] + [float(t) for t in totals]
     losses = {k: float(v) for k, v in auxes[-1]["losses"].items()}
@@ -1089,10 +1259,9 @@ def bench_phase(train_step_ms: float) -> None:
     """The port's train-step bench, in this process."""
     import torch
     from nersemble_tpu_torch import bench
-    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+    from nersemble_tpu_torch.ops import launch_counts
 
-    fused_mlp.LAUNCHES = fused_mlp.BWD_LAUNCHES = 0
-    quad_kernel.LAUNCHES = quad_kernel.FOLD_LAUNCHES = 0
+    launch_counts.reset()
     start = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as out:
         bench.main(["--iters", str(BENCH_ITERS)])
@@ -1106,10 +1275,7 @@ def bench_phase(train_step_ms: float) -> None:
         raise AssertionError(f"the bench's keys differ from bench.py's: {result}")
     if not math.isfinite(result["extra"]["loss"]):
         raise AssertionError(f"the bench's loss is not finite: {result}")
-    launches = {"fused_mlp_fwd": fused_mlp.LAUNCHES,
-                "fused_mlp_bwd": fused_mlp.BWD_LAUNCHES,
-                "quad_build": quad_kernel.LAUNCHES,
-                "quad_fold": quad_kernel.FOLD_LAUNCHES}
+    launches = launch_counts.read()
     if min(launches.values()) <= 0:
         raise AssertionError(f"the bench did not launch every kernel: {launches}")
     log("bench", f"{result['extra']['step_ms']} ms/step over {BENCH_ITERS} steps "
@@ -1232,7 +1398,7 @@ def sequence_phase(train_step_ms: float) -> dict:
     import torch
     from nersemble_tpu_torch import env
     from nersemble_tpu_torch.config import TrainConfig
-    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+    from nersemble_tpu_torch.ops import launch_counts
     from nersemble_tpu_torch.scripts import train_nersemble
     from nersemble_tpu_torch.utils.synthetic_capture import write_capture
 
@@ -1252,18 +1418,14 @@ def sequence_phase(train_step_ms: float) -> dict:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        fused_mlp.LAUNCHES = fused_mlp.BWD_LAUNCHES = 0
-        quad_kernel.LAUNCHES = quad_kernel.FOLD_LAUNCHES = 0
+        launch_counts.reset()
         monitor = SeqMonitor()
         start = time.perf_counter()
         train_nersemble.main(SEQ_ARGS + ["--name", SEQ_NAME, "--max-num-iterations",
                                          str(SEQ_STEPS)], step_hook=monitor)
         run_s = time.perf_counter() - start
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        launches = {"fused_mlp_fwd": fused_mlp.LAUNCHES,
-                    "fused_mlp_bwd": fused_mlp.BWD_LAUNCHES,
-                    "quad_build": quad_kernel.LAUNCHES,
-                    "quad_fold": quad_kernel.FOLD_LAUNCHES}
+        launches = launch_counts.read()
         trainer = monitor.trainer
         metrics = read_metrics(run_dir / "metrics.jsonl")
         ckpts = sorted((run_dir / "checkpoints").glob("step-*.ckpt"))
@@ -1318,8 +1480,7 @@ def sequence_phase(train_step_ms: float) -> dict:
         del trainer, monitor
         torch.cuda.empty_cache()
 
-        fused_mlp.LAUNCHES = fused_mlp.BWD_LAUNCHES = 0
-        quad_kernel.LAUNCHES = quad_kernel.FOLD_LAUNCHES = 0
+        launch_counts.reset()
         resumed = SeqMonitor()
         start = time.perf_counter()
         train_nersemble.main(SEQ_ARGS[:2] + ["--resume-run", f"NERS-001-{SEQ_NAME}",
@@ -1335,7 +1496,7 @@ def sequence_phase(train_step_ms: float) -> dict:
                         f"{resumed.trainer.checkpoint_load_s:.1f} s; train_loss "
                         f"{[(s, round(metrics[s]['train_loss'], 6)) for s in (50, 52)]}; "
                         f"checkpoints {[p.name for p in ckpts]}; launches "
-                        f"{fused_mlp.LAUNCHES, fused_mlp.BWD_LAUNCHES, quad_kernel.LAUNCHES, quad_kernel.FOLD_LAUNCHES}")
+                        f"{launch_counts.read()}")
         if resumed.first_step != SEQ_STEPS or resumed.start_budget != saved_budget:
             raise AssertionError(f"resumed at step {resumed.first_step} with budget "
                                  f"{resumed.start_budget}, saved {saved_budget}")
@@ -1363,8 +1524,8 @@ def sequence_phase(train_step_ms: float) -> dict:
 class RenderLog:
     """Wraps NeRSembleTrainer.render_image while the serving CLIs run: each
     frame's milliseconds (it ends in the frame's copy to the host), the
-    share of its rays that can hit an occupied cell, its B1-fwd and B3
-    launches, the auto budget after it, and the synchronizing calls made
+    share of its rays that can hit an occupied cell, its B1-fwd, B3 and
+    A3-fwd launches, the auto budget after it, and the synchronizing calls made
     inside it (torch.cuda.set_sync_debug_mode("warn")) by file:line. Keeps
     the last trainer it saw."""
 
@@ -1396,11 +1557,11 @@ class RenderLog:
         import os
 
         import torch
-        from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+        from nersemble_tpu_torch.ops import launch_counts
 
         self.trainer = trainer
         torch.cuda.synchronize()
-        before = (fused_mlp.LAUNCHES, quad_kernel.LAUNCHES)
+        before = launch_counts.read(launch_counts.FORWARD)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -1415,7 +1576,8 @@ class RenderLog:
             torch.from_numpy(np.asarray(image_rays["directions"])).to(trainer.device))
         self.frames.append({
             "ms": ms, "hit": float(hit.float().mean()),
-            "fwd": fused_mlp.LAUNCHES - before[0], "build": quad_kernel.LAUNCHES - before[1],
+            **{FRAME_KEYS[k]: n - before[k]
+               for k, n in launch_counts.read(launch_counts.FORWARD).items()},
             "budget": trainer.renderer().auto_budget,
             "syncs": [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
                       if "called a synchronizing" in str(w.message)]})
@@ -1425,25 +1587,28 @@ class RenderLog:
 def summarize_frames(phase: str, what: str, frames) -> dict:
     """Print a CLI's frames (ms, hit fraction, launches, syncs) and check
     that a frame waited on the device only where SERVE_SYNC_FILES allow and
-    that hitting frames launched both kernels; returns the totals."""
+    that hitting frames launched the three forward kernels; returns the
+    totals."""
     ms = [f["ms"] for f in frames]
     syncs = collections.Counter(s for f in frames for s in f["syncs"])
-    totals = {"frames": len(frames), "fwd": sum(f["fwd"] for f in frames),
-              "build": sum(f["build"] for f in frames),
+    totals = {"frames": len(frames),
+              **{k: sum(f[k] for f in frames) for k in FRAME_KEYS.values()},
               "hit": max((f["hit"] for f in frames), default=0.0)}
     log(phase, f"{len(frames)} {what}: ms {[round(x, 1) for x in ms]} "
                f"(mean {sum(ms) / max(len(ms), 1):.1f}); hit fraction "
                f"{[round(f['hit'], 4) for f in frames]}; B1-fwd launches "
-               f"{[f['fwd'] for f in frames]}, B3 {[f['build'] for f in frames]}; "
+               f"{[f['fwd'] for f in frames]}, B3 {[f['build'] for f in frames]}, "
+               f"A3-fwd {[f['encode'] for f in frames]}; "
                f"host waits per frame {[len(f['syncs']) for f in frames]} at "
                f"{dict(syncs)}")
     stray = [s for s in syncs if s.split(":")[0] not in SERVE_SYNC_FILES]
     if stray:
         raise AssertionError(f"{what}: synchronizing calls outside the renderer's "
                              f"reads: {stray}")
-    if totals["hit"] > 0 and (totals["fwd"] <= 0 or totals["build"] <= 0):
+    if totals["hit"] > 0 and min(totals[k] for k in FRAME_KEYS.values()) <= 0:
         raise AssertionError(f"{what} hit the grid but launched B1-fwd "
-                             f"{totals['fwd']} / B3 {totals['build']} times")
+                             f"{totals['fwd']} / B3 {totals['build']} / A3-fwd "
+                             f"{totals['encode']} times")
     return totals
 
 
@@ -1549,7 +1714,7 @@ def serve_phase(root, run_name: str) -> None:
     from pathlib import Path
 
     import torch
-    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+    from nersemble_tpu_torch.ops import launch_counts
     from nersemble_tpu_torch.scripts import (
         evaluate_nersemble,
         render_nersemble,
@@ -1563,7 +1728,7 @@ def serve_phase(root, run_name: str) -> None:
     saved_lpips = os.environ.get("NERSEMBLE_LPIPS_WEIGHTS")
     os.environ["NERSEMBLE_LPIPS_WEIGHTS"] = str(weights)
     lpips.reset_lpips_cache()
-    fused_mlp.LAUNCHES = quad_kernel.LAUNCHES = 0
+    launch_counts.reset()
     try:
         with RenderLog() as renders:
             # (a) evaluate, with the occupancy filter, LPIPS and the vendored JOD
@@ -1692,7 +1857,7 @@ def serve_phase(root, run_name: str) -> None:
         trainer._renderer = None
         auto_vs_none(trainer, rays, step, f"a {SERVE_SPARSE_FILL:.1%} random grid", hold=True)
         del trainer, rays
-        launches = {"fused_mlp_fwd": fused_mlp.LAUNCHES, "quad_build": quad_kernel.LAUNCHES}
+        launches = launch_counts.read(launch_counts.FORWARD)
         log("serve", f"launches in the phase {launches}; per eval image B1-fwd "
                      f"{evals['fwd'] / max(evals['frames'], 1):.1f} / B3 "
                      f"{evals['build'] / max(evals['frames'], 1):.2f}, per video frame "
@@ -1715,7 +1880,7 @@ def serve_phase(root, run_name: str) -> None:
 def variant_run(what: str, monitor, run_dir, steps: int, run_s: float) -> list:
     """Print a variant run (quiet ms/step, eval and save seconds, peak
     memory, budget, launches, logged losses) and hold it: losses finite, the
-    four train-path kernels launched, an eval image rendered, one
+    six train-path kernels launched, an eval image rendered, one
     checkpoint at the last step. Returns the logged losses and the
     launches."""
     import torch
@@ -1741,7 +1906,7 @@ def variant_run(what: str, monitor, run_dir, steps: int, run_s: float) -> list:
                     f"{[p.name for p in ckpts]}")
     if not losses or not all(math.isfinite(v) for _, v in losses):
         raise AssertionError(f"({what}) losses not finite: {losses}")
-    for kernel in ("fused_mlp_fwd", "fused_mlp_bwd", "quad_build", "quad_fold"):
+    for kernel in TRAIN_KERNELS:
         if launches[kernel] <= 0:
             raise AssertionError(f"({what}) never launched {kernel}")
     if not monitor.seconds["_eval_image"] or monitor.quiet_ms is None:
@@ -1912,8 +2077,7 @@ def variants_phase(root, device) -> dict:
             train_reference_phase(device, variant, phase=f"variants (c) {variant}")
             frame_reference(device, variant, phase=f"variants (c) {variant}")
             launches = train_launches()
-            if min(launches[k] for k in ("fused_mlp_fwd", "fused_mlp_bwd", "quad_build",
-                                         "quad_fold")) <= 0:
+            if min(launches[k] for k in TRAIN_KERNELS) <= 0:
                 raise AssertionError(f"(c) {variant}: launches {launches}")
             if variant.startswith("single_grid") and launches["quad_build narrow"] <= 0:
                 raise AssertionError(f"(c) {variant}: no narrow B3 launch")
@@ -1944,25 +2108,97 @@ def parallel_phase() -> dict:
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
-def _parallel_runs(out_dir) -> dict:
-    import torch
+def flagship_steps_spec() -> dict:
+    """The flagship's steps PAR_FIRST_STEP.. (PAR_STEPS of them) as a
+    ``parallel/compare.run_steps`` spec: seeded weights scaled by
+    ``add_contrast``, bench.py's grid, 4096 rays of
+    ``compare.synthetic_batches``, the steady-state budget, the schedule's
+    end, constant learning rates; a sampled occupancy update and a budget
+    decision at step 80000. PyTorch's deterministic algorithms stay off."""
     from nersemble_tpu_torch.bench import LRS
     from nersemble_tpu_torch.config import flagship_model_config
     from nersemble_tpu_torch.ops.sampling import quantized_budget
-    from nersemble_tpu_torch.parallel import compare, launch
+    from nersemble_tpu_torch.parallel import compare
     from nersemble_tpu_torch.utils.bench_data import STEADY_STATE_FILL, bench_grid
     from nersemble_tpu_torch.utils.windows import sched_values
 
     cfg = flagship_model_config(tiny=False)
     S = cfg.sampling.max_samples_per_ray
-    spec = {"config": cfg, "layout": "replicated", "params": None,
+    return {"config": cfg, "layout": "replicated", "params": None,
             "grid_occs": bench_grid(cfg.grid_resolution).numpy(),
             "batches": compare.synthetic_batches(TRAIN_RAYS, PAR_STEPS, cfg.n_timesteps,
                                                  seed=SEED),
             "first_step": PAR_FIRST_STEP, "lrs": LRS,
             "sched": sched_values(cfg, cfg.window_hash_encodings_end + 1),
             "budget": quantized_budget(STEADY_STATE_FILL, TRAIN_RAYS, S),
-            "device": "cuda", "deterministic": True, "contrast": True}
+            "device": "cuda", "contrast": True}
+
+
+def repeat_phase() -> None:
+    """ROADMAP C11 at default settings (phase 6b): the flagship's three
+    steps of ``flagship_steps_spec`` twice from the same seed and batches,
+    and once saved after the first step and resumed in a fresh trainer for
+    the other two; the parameters and first moments of all three end equal,
+    bit for bit (SHA-256)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from nersemble_tpu_torch.models.nersemble import NeRSembleModel
+    from nersemble_tpu_torch.parallel import compare
+    from nersemble_tpu_torch.utils.params import to_tree
+
+    spec = flagship_steps_spec()
+    # run_steps' own seeded draw, made once on the host for the four runs
+    init = NeRSembleModel(spec["config"], "cpu").init_params(
+        torch.Generator().manual_seed(compare.SEED))
+    spec.update(digest=True, params=to_tree(init, lambda t: t.detach().numpy()))
+    del init
+    root = Path(tempfile.mkdtemp(prefix="nersemble_repeat_"))
+    try:
+        runs = []
+        for what, run_spec in (
+                ("run 1", spec), ("run 2", spec),
+                ("saved after the first step", dict(spec, batches=spec["batches"][:1],
+                                                    digest=False,
+                                                    out=str(root / "step.ckpt"))),
+                ("resumed", dict(spec, batches=spec["batches"][1:],
+                                 load=str(root / "step.ckpt")))):
+            torch.cuda.empty_cache()
+            start = time.perf_counter()
+            result = compare.run_steps(None, run_spec)
+            runs.append(result)
+            log("repeat", f"{what}: ms/step {[round(x, 1) for x in result['ms_per_step']]}, "
+                          f"loss {[round(x, 6) for x in result['loss']]}, "
+                          f"budget-dropped {result['num_budget_dropped']}; "
+                          f"{time.perf_counter() - start:.1f} s with set-up; "
+                          f"launches {result['launches']}")
+            for kernel in ("blended_encode_fwd", "blended_encode_bwd"):
+                if result["launches"][kernel] <= 0:
+                    raise AssertionError(f"repeat {what}: {kernel} never launched")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    first, second, _, resumed = runs
+    for what, other in (("a second run", second), ("the resumed run", resumed)):
+        differ = [k for k, v in first["digest"].items() if other["digest"][k] != v]
+        if differ:
+            raise AssertionError(f"C11: {what} differs from the first in {differ}")
+    if second["loss"] != first["loss"] or resumed["loss"] != first["loss"][1:]:
+        raise AssertionError(f"C11: losses {first['loss']}, {second['loss']}, "
+                             f"resumed {resumed['loss']}")
+    log("repeat", f"C11: two runs and a run resumed after step {PAR_FIRST_STEP}: "
+                  f"losses and {len(first['digest'])} parameter and moment leaves "
+                  f"bit for bit (SHA-256), PyTorch's deterministic algorithms off")
+
+
+def _parallel_runs(out_dir) -> dict:
+    import torch
+    from nersemble_tpu_torch.parallel import compare, launch
+
+    spec = flagship_steps_spec()
+    cfg = spec["config"]
+    S = cfg.sampling.max_samples_per_ray
     log("parallel", f"flagship {TRAIN_RAYS} rays, S={S}, budget {spec['budget']}, "
                     f"steps {PAR_FIRST_STEP}-{PAR_FIRST_STEP + PAR_STEPS - 1}; "
                     f"{torch.cuda.device_count()} card(s) visible")
@@ -1972,15 +2208,11 @@ def _parallel_runs(out_dir) -> dict:
             return {k: data[k] for k in data.files}
 
     def plain(what, run_spec):
-        """``run_steps`` in this process, deterministic like the ranks."""
+        """``run_steps`` in this process."""
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            result = compare.run_steps(None, run_spec)
-        finally:
-            torch.use_deterministic_algorithms(False)
+        result = compare.run_steps(None, run_spec)
         report(what, result)
         return result
 
@@ -2044,7 +2276,7 @@ def _parallel_runs(out_dir) -> dict:
         if bad:
             raise AssertionError(f"{what}: gradients past their bound {bad}")
 
-    # (a) one NCCL rank vs the plain trainer, both deterministic: digests
+    # (a) one NCCL rank vs the plain trainer: digests
     a = dict(spec, digest=True)
     ref = plain("(a) plain trainer", a)
     (one,) = ranks("(a) one NCCL rank", 1, "nccl", [a])
@@ -2134,7 +2366,7 @@ def trained_scene_phase(device) -> dict:
         if not curve[-1][1] > train["background_psnr"]:
             raise AssertionError(f"(a) the last eval PSNR {curve[-1][1]} does not beat an "
                                  f"all-background image's {train['background_psnr']:.3f}")
-        for kernel in ("fused_mlp_fwd", "fused_mlp_bwd", "quad_build", "quad_fold"):
+        for kernel in TRAIN_KERNELS:
             if launches[kernel] <= 0:
                 raise AssertionError(f"(a) the quality run never launched {kernel}")
 
@@ -2160,7 +2392,7 @@ def trained_scene_phase(device) -> dict:
         if not extra["mean_accumulation"] >= 0.01 or not extra["hit_ray_fraction"] > 0:
             raise AssertionError(f"(b) the filtered orbit renders (almost) nothing: {extra}")
         for key, part in render.items():
-            for kernel in ("fused_mlp_fwd", "quad_build"):
+            for kernel in FRAME_KEYS:
                 if part["launches"][kernel] <= 0:
                     raise AssertionError(f"(b) bench_render {key} never launched {kernel}")
         view = trained_scene.view_scene(args, train["run"], device)
@@ -2207,7 +2439,7 @@ def main() -> None:
     from nersemble_tpu_torch.config import flagship_model_config
     from nersemble_tpu_torch.engine.renderer import Renderer
     from nersemble_tpu_torch.models.nersemble import NeRSembleModel
-    from nersemble_tpu_torch.ops import cuda_lib, fused_mlp, quad_kernel
+    from nersemble_tpu_torch.ops import cuda_lib, fused_mlp, launch_counts
     from nersemble_tpu_torch.ops.hash_encoding import HashGridLevels
     from nersemble_tpu_torch.utils.bench_data import bench_grid
     from nersemble_tpu_torch.utils.cameras import add_contrast, pinhole_frame
@@ -2241,6 +2473,7 @@ def main() -> None:
     levels = HashGridLevels.create(hc.n_levels, hc.log2_hashmap_size,
                                    hc.base_resolution, hc.per_level_scale)
     kernel_results = kernel_phase(cfg, levels, device)
+    kernel_results.update(encode_kernel_phase(cfg, levels, device))
 
     # ---- 3b. the measurement path's copy kernels vs plain ----------------------
     kernel_results.update(copy_kernel_phase(levels, device))
@@ -2260,16 +2493,14 @@ def main() -> None:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_mlp.LAUNCHES = 0
-    quad_kernel.LAUNCHES = 0
+    launch_counts.reset()
     fused_mlp.ROWS = collections.Counter()
     start = time.perf_counter()
     images = [renderer.render_image(frame, step, chunk=CHUNK) for frame in frames]
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
     render_rows, fused_mlp.ROWS = fused_mlp.ROWS, None
-    render_launches = {"fused_mlp_fwd": fused_mlp.LAUNCHES,
-                       "quad_build": quad_kernel.LAUNCHES}
+    render_launches = launch_counts.read(launch_counts.FORWARD)
 
     hits = [renderer.render_hit_mask(torch.from_numpy(f["origins"]).to(device),
                                      torch.from_numpy(f["directions"]).to(device))
@@ -2313,6 +2544,9 @@ def main() -> None:
     # ---- 6.-7. train and its profile ----------------------------------------------
     train_launches, train_step_ms = train_phase(cfg, device)
     torch.cuda.empty_cache()
+
+    # ---- 6b. repeat: a step repeats and resumes bit for bit (C11) ----------------
+    repeat_phase()
 
     # ---- 8. train reference: the tiny step on the GPU vs the CPU path ------------
     train_reference_phase(device)
@@ -2363,6 +2597,8 @@ def main() -> None:
         "copy": ("copy_ladder.cu", "scripts/bench_quad_build.py:76"),
         "bcast_quarters": ("copy_ladder.cu", "scripts/bench_quad_build.py:92"),
         "fetch7": ("copy_ladder.cu", "scripts/bench_quad_build.py:110"),
+        "blended_encode_fwd": ("blended_encode.cu", "nersemble_tpu/ops/hash_encoding.py:545"),
+        "blended_encode_bwd": ("blended_encode.cu", "nersemble_tpu/ops/hash_encoding.py:593"),
     }
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda",

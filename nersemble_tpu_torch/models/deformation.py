@@ -11,7 +11,7 @@ and the backward.
 import torch
 
 from nersemble_tpu_torch.config import SE3DeformationFieldConfig
-from nersemble_tpu_torch.ops.fused_mlp import fused_mlp_apply
+from nersemble_tpu_torch.ops.fused_mlp import mlp_apply
 from nersemble_tpu_torch.ops.mlp import apply_linear, init_linear, init_mlp
 from nersemble_tpu_torch.ops.posenc import posenc_out_dim, windowed_posenc
 from nersemble_tpu_torch.utils.se3 import se3_apply
@@ -35,15 +35,17 @@ def deformation_offsets(params, positions_normalized: torch.Tensor,
                         warp_code: torch.Tensor,
                         config: SE3DeformationFieldConfig,
                         window_param=None,
-                        compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                        compute_dtype: torch.dtype = torch.bfloat16,
+                        use_fused_mlp: bool = True) -> torch.Tensor:
     """[N, 3] AABB-normalized positions + [N, D] warp codes -> [N, 3]
-    offsets in normalized units."""
+    offsets in normalized units; the stem through the fused MLP or, with
+    ``use_fused_mlp=False``, the unfused ``apply_mlp``."""
     enc = windowed_posenc(positions_normalized, config.n_freq_pos,
                           min_freq_exp=0.0, max_freq_exp=config.n_freq_pos - 1,
                           include_input=True, window_param=window_param)
     stem_in = torch.cat([enc, warp_code.to(enc.dtype)], dim=-1)
     skips = tuple(config.skip_connections)
-    feat = fused_mlp_apply(params.stem, stem_in, "relu", compute_dtype, skips)
+    feat = mlp_apply(use_fused_mlp)(params.stem, stem_in, "relu", compute_dtype, skips)
     screw = apply_linear(params.head_rv, feat, compute_dtype)[:, :6]
     pos32 = positions_normalized.to(torch.float32)
     screw = screw.to(torch.float32)

@@ -6,7 +6,8 @@ Base: the blended hash-ensemble encoding, or the plain single-grid encoding
 cube (strict selector). Colour head: [direction encoding (shifted view
 direction, or its SH basis of degree 1-4), geo features, optional per-image
 appearance embedding (zeros at eval)] -> 64-wide bias-free MLP -> sigmoid.
-Both MLPs run through kernel B1-fwd on CUDA.
+Both MLPs run through kernel B1-fwd on CUDA, or, with
+``use_fused_mlp=False``, as the JAX package's unfused chain.
 """
 
 from typing import Dict, Optional, Tuple
@@ -17,7 +18,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from nersemble_tpu_torch.config import ModelConfig
-from nersemble_tpu_torch.ops.fused_mlp import fused_mlp_apply
+from nersemble_tpu_torch.ops.fused_mlp import mlp_apply
 from nersemble_tpu_torch.ops.hash_encoding import (
     HashGridLevels,
     build_quad_table,
@@ -31,16 +32,7 @@ from nersemble_tpu_torch.ops.trunc_exp import trunc_exp
 from nersemble_tpu_torch.utils.params import normal, uniform
 
 
-def _require_supported(config: ModelConfig) -> None:
-    if not config.use_fused_mlp:
-        # fused_mlp_apply is the one MLP path: on CPU tensors its plain
-        # version computes exactly what apply_mlp (the JAX package's unfused
-        # path) does, and on CUDA the MLPs run through kernel B1-fwd
-        raise NotImplementedError("use_fused_mlp=False has no separate path")
-
-
 def build_levels(config: ModelConfig) -> HashGridLevels:
-    _require_supported(config)
     if config.use_hash_ensemble:
         hc = config.hash_ensemble.hash_encoding
         return HashGridLevels.create(hc.n_levels, hc.log2_hashmap_size,
@@ -71,7 +63,6 @@ def direction_encoding_dim(config: ModelConfig) -> int:
 
 def init_field(generator: torch.Generator, config: ModelConfig,
                levels: HashGridLevels) -> Dict:
-    _require_supported(config)
     row_width, f_l = table_row_width(config)
     params = {
         "table": uniform((levels.total_entries, row_width), -1e-4, 1e-4,
@@ -173,7 +164,8 @@ def field_density(fparams: Dict, positions_world: torch.Tensor,
                 he.hash_encoding.interpolation == "Smoothstep")
         else:
             base_in = hash_encode(fparams["table_quad"], norm, levels)
-    h = fused_mlp_apply(fparams["mlp_base"], base_in, None, compute_dtype)
+    h = mlp_apply(config.use_fused_mlp)(fparams["mlp_base"], base_in, None,
+                                        compute_dtype)
     density = trunc_exp(h[..., 0]) * selector
     return density, h[..., 1:]
 
@@ -201,4 +193,5 @@ def field_rgb(fparams: Dict, directions: torch.Tensor, geo: torch.Tensor,
             inputs.append(torch.zeros(directions.shape[0], emb.shape[-1],
                                       dtype=emb.dtype, device=emb.device))
     h = torch.cat([i.to(torch.float32) for i in inputs], dim=-1)
-    return fused_mlp_apply(fparams["mlp_head"], h, "sigmoid", compute_dtype)
+    return mlp_apply(config.use_fused_mlp)(fparams["mlp_head"], h, "sigmoid",
+                                           compute_dtype)

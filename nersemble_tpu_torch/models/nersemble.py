@@ -196,7 +196,7 @@ class NeRSembleModel:
         offsets = deformation_offsets(
             params.deformation, norm, tc_def, cfg.deformation_field,
             window_param=sched.get("window_deform"),
-            compute_dtype=self.compute_dtype)
+            compute_dtype=self.compute_dtype, use_fused_mlp=cfg.use_fused_mlp)
         return positions + offsets, offsets
 
     def _density(self, params, fparams, pos, ts, sched):

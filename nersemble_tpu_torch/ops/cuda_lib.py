@@ -21,7 +21,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("fused_mlp_fwd.cu", "fused_mlp_bwd.cu", "quad_build.cu",
-           "quad_fold.cu", "gather_rows.cu", "copy_ladder.cu")
+           "quad_fold.cu", "gather_rows.cu", "copy_ladder.cu",
+           "blended_encode.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +47,12 @@ _SIGNATURES = {
     "ladder_bcast": (_VOID_P, _VOID_P, _LL, _LL, _LL, _VOID_P),
     # r0..r6, out, n_rows, row_bytes, block_rows, stream
     "ladder_fetch7": (*(_VOID_P,) * 8, _LL, _LL, _LL, _VOID_P),
+    # table, entry_idx, wy, fx, fz, code, out, cg, bh, n, L, H, W, FL,
+    # elem_bytes, stream
+    "blended_encode_fwd": (*(_VOID_P,) * 9, *(_LL,) * 6, _VOID_P),
+    # gbar, cg, bh, code, wy, fx, fz, skey, perm, partial, d_table, d_code,
+    # d_wy, d_fx, d_fz, n, L, H, W, FL, E, elem_bytes, stream
+    "blended_encode_bwd": (*(_VOID_P,) * 15, *(_LL,) * 7, _VOID_P),
 }
 
 _library = None  # the loaded CDLL, once per process

@@ -17,7 +17,7 @@ import torch
 from torch.profiler import record_function
 
 from nersemble_tpu_torch.ops import cuda_lib
-from nersemble_tpu_torch.ops.mlp import activate, round_to
+from nersemble_tpu_torch.ops.mlp import activate, apply_mlp, round_to
 
 MAX_LAYERS = 8      # csrc/fused_mlp_fwd.cu MLP_MAX_LAYERS
 MAX_WIDTH = 128     # widest layer one warpgroup's accumulators hold
@@ -647,3 +647,10 @@ def fused_mlp_apply(params, x: torch.Tensor,
     return _FusedMLP.apply(x, params, out_activation, compute_dtype,
                            tuple(skip_connections), *tensors)
 
+
+def mlp_apply(use_fused_mlp: bool):
+    """The MLP chain of the ``use_fused_mlp`` config flag: ``fused_mlp_apply``
+    (kernels B1-fwd / B2 on CUDA, their plain versions on the CPU), or the
+    JAX package's unfused ``apply_mlp``, one matmul per layer on every
+    device."""
+    return fused_mlp_apply if use_fused_mlp else apply_mlp

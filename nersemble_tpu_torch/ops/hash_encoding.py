@@ -9,22 +9,26 @@ The xz-quad table [E, 4W] packs each entry with its z-, x- and
 xz-successors, so one gathered row serves four cell corners (the module
 docstring of the JAX file has the full design).
 
-The blended encode is plain PyTorch here: gather the rows as
-[N, 2 corners, L, 4 quarters, H tables, F_l], then sum over tables,
-quarters and corners. The JAX version rounds ``rows * code`` to the table
-dtype before its f32 sum; this does the same (the product is taken in the
-table dtype). Its backward is JAX's analytic one (``_BlendedEncode``); the
-hand kernel for both directions is ROADMAP A3. The single-grid field's
-plain encode (``hash_encode``) is the same function without the blend.
+The blended encode gathers the rows as [N, 2 corners, L, 4 quarters, H
+tables, F_l], then sums over tables, quarters and corners. The JAX version
+rounds ``rows * code`` to the table dtype before its f32 sum; this does the
+same (the product is taken in the table dtype). Its backward is JAX's
+analytic one (``_BlendedEncode``). On CUDA tensors both directions run the
+hand kernels A3-fwd / A3-bwd (``csrc/blended_encode.cu``; the backward's
+table gradient in a fixed order, without atomics), on CPU tensors their
+plain versions (``blended_encode_fwd_plain`` / ``_bwd_plain``). The
+single-grid field's plain encode (``hash_encode``) is the same function
+without the blend.
 """
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from nersemble_tpu_torch.ops import cuda_lib
 from nersemble_tpu_torch.ops.quad_kernel import N_QUARTERS, quad_build
 from nersemble_tpu_torch.utils.device import device_constant
 
@@ -33,6 +37,10 @@ _PRIMES = (2654435761, 805459861, 3674653429)
 # TPU quad kernel's block size (nersemble_tpu/ops/quad_pallas.py BLOCK) and
 # is part of the table layout now; the CUDA kernel has no block constraint.
 LAYOUT_BLOCK = 2048
+
+LAUNCHES = 0       # A3-fwd launches since the last reset (chip_smoke.py reads it)
+BWD_LAUNCHES = 0   # A3-bwd launches since the last reset
+TABLE_CHUNK = 64   # csrc/blended_encode.cu BE_CHUNK: sorted rows per chunk
 
 
 @dataclass(frozen=True)
@@ -142,8 +150,282 @@ def _quad_weights(fx: torch.Tensor, fz: torch.Tensor) -> torch.Tensor:
     return torch.stack([gx * gz, gx * fz, fx * gz, fx * fz], dim=-1)
 
 
+def _sum_tables(terms: torch.Tensor, width: int) -> torch.Tensor:
+    """The f32 sum over the table axis (-2) of ``terms`` [..., H, Fl] in
+    kernel A3-fwd's order: each lane's tables (8 elements of a row of
+    ``width`` per lane) left to right, then the lanes pairwise, neighbours
+    first. The residual CG rounds this sum to the table dtype, so the two
+    versions agree bit for bit."""
+    H, Fl = terms.shape[-2:]
+    per_lane = max(1, min(width, 8) // Fl)
+    if H % per_lane:
+        per_lane = H
+    runs = terms.to(torch.float32).unflatten(-2, (H // per_lane, per_lane))
+    acc = runs[..., 0, :]
+    for i in range(1, per_lane):
+        acc = acc + runs[..., i, :]  # [..., lanes, Fl]
+    while acc.shape[-2] > 1:
+        odd = acc[..., -1:, :] if acc.shape[-2] % 2 else None
+        acc = acc[..., 0:acc.shape[-2] - 1:2, :] + acc[..., 1::2, :]
+        if odd is not None:
+            acc = torch.cat([acc, odd], dim=-2)
+    return acc[..., 0, :]
+
+
+def blended_encode_fwd_plain(quad_table, code, wy, fx, fz, entry_idx,
+                             n_levels: int, features_per_logical: int,
+                             keep_residuals: bool):
+    """``_blended_fwd_impl`` in plain PyTorch: (out [n, L*Fl] f32, CG
+    [n,2,L,4,Fl] and BH [n,L,H,Fl] in the table dtype, or None without
+    residuals; BH is None without a code). The CPU path, and kernel A3-fwd's
+    reference on the card."""
+    n, L, Fl = wy.shape[0], n_levels, features_per_logical
+    W = quad_table.shape[1] // N_QUARTERS
+    H = W // Fl
+    dt = quad_table.dtype
+    rows = quad_table[entry_idx.reshape(-1)].view(n, 2, L, N_QUARTERS, H, Fl)
+    if code is None:  # the plain encode: one table, no blend
+        cg = rows[:, :, :, :, 0].to(torch.float32)  # [n,2,L,4,Fl]
+    else:
+        # per-logical-table blend, product rounded to the table dtype as in JAX
+        code_t = code.to(dt)[:, None, None, None, :, None]
+        cg = _sum_tables(rows * code_t, W)  # [n,2,L,4,Fl]
+    u = _quad_weights(fx, fz)  # [n,L,4]
+    g = torch.sum(cg * u[:, None, :, :, None], dim=3)  # [n,2,L,Fl]
+    out = g[:, 0] * wy[:, :L, None] + g[:, 1] * wy[:, L:, None]
+    CG = bh = None
+    if keep_residuals:
+        if code is not None:
+            wu = (wy.view(n, 2, L)[..., None] * u[:, None]).to(dt)  # [n,2,L,4]
+            b = rows[:, 0] * wu[:, 0, :, :, None, None] \
+                + rows[:, 1] * wu[:, 1, :, :, None, None]  # [n,L,4,H,Fl] dt
+            b = b.to(torch.float32)  # quarters (q0 + q1) + (q2 + q3), as A3-fwd
+            bh = ((b[:, :, 0] + b[:, :, 1]) + (b[:, :, 2] + b[:, :, 3])).to(dt)  # [n,L,H,Fl]
+        CG = cg.to(dt)
+    return out.reshape(n, L * Fl), CG, bh
+
+
+def _row_gradients(gbar, code, wy, fx, fz, dtype):
+    """The gradient of every gathered row, [n, 2, L, 4, (H,) Fl] in
+    ``dtype``: (gbar * u * wy) rounded, times the rounded code."""
+    n, L = fx.shape
+    Fl = gbar.numel() // (n * L)
+    u5 = _quad_weights(fx, fz)[:, None, :, :, None]  # [n,1,L,4,1]
+    w5 = wy.view(n, 2, L)[:, :, :, None, None]  # [n,2,L,1,1]
+    d_rows = (gbar.to(torch.float32).reshape(n, 1, L, 1, Fl) * u5 * w5).to(dtype)
+    if code is None:
+        return d_rows
+    return d_rows[:, :, :, :, None, :] * code.to(dtype)[:, None, None, None, :, None]
+
+
+def blended_encode_bwd_plain(gbar, CG, BH, code, entry_idx, wy, fx, fz,
+                             table_shape, need_table: bool = True):
+    """``_blended_vjp_bwd`` in plain PyTorch: (d quad table [E, 4W] in the
+    table dtype, or None unless ``need_table``; d code [n, H] or None; d wy
+    [n, 2L], d fx, d fz [n, L]). The table gradient is scattered into an f32
+    accumulator with ``index_add_`` (atomics, in no fixed order on the card)
+    and cast once. The CPU path, and kernel A3-bwd's reference on the
+    card."""
+    n, _, L, _, Fl = CG.shape
+    E, W4 = table_shape
+    dt = CG.dtype
+    gbar = gbar.to(torch.float32).reshape(n, 1, L, 1, Fl)
+    cg = CG.to(torch.float32)
+    u = _quad_weights(fx, fz)
+    u5 = u[:, None, :, :, None]  # [n,1,L,4,1]
+    w5 = wy.view(n, 2, L)[:, :, :, None, None]  # [n,2,L,1,1]
+
+    d_wy = torch.sum(cg * u5 * gbar, dim=(3, 4)).reshape(n, 2 * L)
+    core = cg * w5 * gbar  # [n,2,L,4,Fl]
+    gx, gz = 1.0 - fx, 1.0 - fz
+    pat_fx = torch.stack([-gz, -fz, gz, fz], dim=-1)[:, None, :, :, None]
+    pat_fz = torch.stack([-gx, gx, -fx, fx], dim=-1)[:, None, :, :, None]
+    d_fx = torch.sum(core * pat_fx, dim=(1, 3, 4))
+    d_fz = torch.sum(core * pat_fz, dim=(1, 3, 4))
+    d_code = None
+    if code is not None:
+        # d code[h] = sum_{l,f} BH[l,h,f] * gbar[l,f], product in the table dtype
+        gb = gbar.reshape(n, L, 1, Fl).to(dt)
+        d_code = torch.sum(BH * gb, dim=(1, 3), dtype=torch.float32)
+    if not need_table:
+        return None, d_code, d_wy, d_fx, d_fz
+    d_rows = _row_gradients(gbar, code, wy, fx, fz, dt)
+    acc = torch.zeros(E, W4, dtype=torch.float32, device=CG.device)
+    acc.index_add_(0, entry_idx.reshape(-1),
+                   d_rows.reshape(-1, W4).to(torch.float32))
+    return acc.to(dt), d_code, d_wy, d_fx, d_fz
+
+
+# kernel A3 against its plain version (chip_smoke.py, the card tests): the
+# outputs, the residuals and the per-sample gradients are the plain
+# version's roundings with the f32 sums in another order
+MAX_ERR_REL = 2.0 ** -9  # of max |plain|
+MEAN_ERR_REL = 1e-5      # of mean |plain|
+_MANTISSA_BITS = {torch.bfloat16: 8, torch.float32: 24}
+
+
+def compare_to_plain(ours, refs, names) -> Dict[str, Dict[str, float]]:
+    """Per named tensor: max abs error (also relative to max |plain|) and
+    mean abs error against the plain version's, with their limits; raises
+    AssertionError when a limit is exceeded. None pairs are skipped."""
+    out = {}
+    for name, a, b in zip(names, ours, refs):
+        if a is None and b is None:
+            continue
+        err = (a.float() - b.float()).abs()
+        scale = float(b.float().abs().max())
+        res = {"max_abs": float(err.max()),
+               "max_rel": float(err.max()) / scale if scale else 0.0,
+               "max_tol": MAX_ERR_REL * scale,
+               "mean_abs": float(err.mean()),
+               "mean_tol": MEAN_ERR_REL * float(b.float().abs().mean())}
+        if not (res["max_abs"] <= res["max_tol"] and res["mean_abs"] <= res["mean_tol"]):
+            raise AssertionError(f"blended encode {name} differs from its plain "
+                                 f"version: {res}")
+        out[name] = res
+    return out
+
+
+def table_grad_mass(gbar, code, entry_idx, wy, fx, fz, table_shape, dtype):
+    """Per table-gradient row and entry: (the rows of the n*2L that reach it
+    [E] int64, the f32 sum of the |row gradient| values reaching it [E, 4W]):
+    the scale of the error of an f32 sum of those rows in another order."""
+    E, W4 = table_shape
+    flat = entry_idx.reshape(-1)
+    rows = _row_gradients(gbar, code, wy, fx, fz, dtype)
+    mass = torch.zeros(E, W4, dtype=torch.float32, device=flat.device)
+    mass.index_add_(0, flat, rows.reshape(-1, W4).to(torch.float32).abs())
+    return torch.bincount(flat, minlength=E), mass
+
+
+def compare_table_grads(ours: torch.Tensor, ref: torch.Tensor, count: torch.Tensor,
+                        mass: torch.Tensor, rows: int = 1 << 20) -> Dict[str, float]:
+    """The table gradient against the plain version's: both sum each
+    entry's k rows in f32 (in other orders) and round once to the table
+    dtype, so an entry may differ by one table-dtype ulp (at the larger
+    magnitude of the two) plus twice the f32 error bound of a k-term sum in
+    any order, k * 2^-24 * sum |row| each (``table_grad_mass``); past one
+    ulp only where the rows cancel. Returns the unequal entries, the
+    largest distance in ulps and the largest share of the bound; raises
+    past the bound."""
+    bits = _MANTISSA_BITS[ref.dtype]
+    unequal, past_ulp, worst_ulps, worst_share = 0, 0, 0.0, 0.0
+    for lo in range(0, ref.shape[0], rows):
+        a, b = ours[lo:lo + rows].float(), ref[lo:lo + rows].float()
+        _, exp = torch.frexp(torch.maximum(a.abs(), b.abs()))
+        ulp = torch.ldexp(torch.ones_like(a), exp - bits)
+        diff = (a - b).abs()
+        reorder = 2.0 ** -23 * count[lo:lo + rows, None].float() * mass[lo:lo + rows]
+        unequal += int((diff > 0).sum())
+        past_ulp += int((diff > ulp).sum())
+        worst_ulps = max(worst_ulps, float((diff / ulp).max()))
+        worst_share = max(worst_share, float((diff / (ulp + reorder)).max()))
+    res = {"unequal": unequal, "past_one_ulp": past_ulp, "max_ulps": worst_ulps,
+           "max_share": worst_share, "entries": ref.numel()}
+    if worst_share > 1.0:
+        raise AssertionError(f"blended encode table gradient past its bound "
+                             f"against its plain version: {res}")
+    return res
+
+
+def _kernel_shape(quad_table, code, n_levels: int, features_per_logical: int):
+    """(W, H) of a quad table that kernels A3-fwd / A3-bwd take; raises,
+    naming the shape, on one they lack."""
+    E, W4 = quad_table.shape
+    Fl, W = features_per_logical, W4 // N_QUARTERS
+    H = W // Fl if Fl else 0
+    ok = (quad_table.dtype in (torch.bfloat16, torch.float32)
+          and quad_table.is_contiguous() and quad_table.data_ptr() % 16 == 0
+          and W4 == N_QUARTERS * W and W4 % 8 == 0 and 0 < W4 <= 1024
+          and Fl in (1, 2, 4, 8) and H * Fl == W
+          and (code is not None or (H == 1 and Fl >= 2))
+          and (code is None or tuple(code.shape) == (code.shape[0], H)))
+    if not ok:
+        raise ValueError(
+            f"blended encode kernel: no variant for a {quad_table.dtype} quad "
+            f"table {tuple(quad_table.shape)} with {Fl} features per table"
+            + ("" if code is None else f" and a code {tuple(code.shape)}")
+            + "; it takes bf16 or f32 rows of whole 8-element chunks up to "
+              "4W = 1024 elements, 1, 2, 4 or 8 features per table")
+    return W, H
+
+
+def blended_encode_fwd_cuda(quad_table, code, wy, fx, fz, entry_idx,
+                            n_levels: int, features_per_logical: int,
+                            keep_residuals: bool):
+    """Kernel A3-fwd on CUDA tensors; returns what
+    ``blended_encode_fwd_plain`` returns."""
+    global LAUNCHES
+    if not quad_table.is_cuda:
+        raise ValueError("blended_encode_fwd_cuda takes CUDA tensors")
+    W, H = _kernel_shape(quad_table, code, n_levels, features_per_logical)
+    n, L, Fl, dt = wy.shape[0], n_levels, features_per_logical, quad_table.dtype
+    out = torch.empty(n, L * Fl, dtype=torch.float32, device=wy.device)
+    CG = BH = None
+    if keep_residuals:
+        CG = torch.empty(n, 2, L, N_QUARTERS, Fl, dtype=dt, device=wy.device)
+        if code is not None:
+            BH = torch.empty(n, L, H, Fl, dtype=dt, device=wy.device)
+    if n == 0:
+        return out, CG, BH
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    status = cuda_lib.library().blended_encode_fwd(
+        quad_table.data_ptr(), entry_idx.data_ptr(), wy.data_ptr(), fx.data_ptr(),
+        fz.data_ptr(), ptr(code), out.data_ptr(), ptr(CG), ptr(BH), n, L, H, W, Fl,
+        quad_table.element_size(),
+        torch.cuda.current_stream(wy.device).cuda_stream)
+    cuda_lib.check(status, "blended_encode_fwd")
+    LAUNCHES += 1
+    return out, CG, BH
+
+
+def blended_encode_bwd_cuda(gbar, CG, BH, code, entry_idx, wy, fx, fz,
+                            table_shape, need_table: bool = True):
+    """Kernel A3-bwd on CUDA tensors; returns what
+    ``blended_encode_bwd_plain`` returns. The table gradient is summed per
+    row in f32 in a fixed order (the stable sort of the entry indices) and
+    rounded once: bit for bit from run to run."""
+    global BWD_LAUNCHES
+    if not CG.is_cuda:
+        raise ValueError("blended_encode_bwd_cuda takes CUDA tensors")
+    n, _, L, _, Fl = CG.shape
+    E, W4 = table_shape
+    dt, dev = CG.dtype, CG.device
+    W, H = W4 // N_QUARTERS, (W4 // N_QUARTERS) // Fl
+    if code is not None and BH is None:
+        raise ValueError("the blended encode's backward needs its BH residual")
+    f32 = dict(dtype=torch.float32, device=dev)
+    gbar = gbar.to(torch.float32).contiguous()
+    d_code = None if code is None else torch.empty(n, H, **f32)
+    d_wy, d_fx, d_fz = (torch.empty(n, 2 * L, **f32), torch.empty(n, L, **f32),
+                        torch.empty(n, L, **f32))
+    d_table = skey = perm = partial = None
+    if need_table:
+        # index preparation: the entry indices as int32 keys in a stable sort
+        skey, perm = torch.sort(entry_idx.reshape(-1).to(torch.int32), stable=True)
+        d_table = torch.empty(E, W4, dtype=dt, device=dev)
+        chunks = -(-(n * 2 * L) // TABLE_CHUNK)
+        partial = torch.empty(2 * chunks, W4, **f32)
+    if n == 0:
+        if need_table:
+            d_table.zero_()
+        return d_table, d_code, d_wy, d_fx, d_fz
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    status = cuda_lib.library().blended_encode_bwd(
+        gbar.data_ptr(), CG.data_ptr(), ptr(BH), ptr(code), wy.data_ptr(),
+        fx.data_ptr(), fz.data_ptr(), ptr(skey), ptr(perm), ptr(partial),
+        ptr(d_table), ptr(d_code), d_wy.data_ptr(),
+        d_fx.data_ptr(), d_fz.data_ptr(), n, L, H, W, Fl, E, CG.element_size(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(status, "blended_encode_bwd")
+    BWD_LAUNCHES += 1
+    return d_table, d_code, d_wy, d_fx, d_fz
+
+
 class _BlendedEncode(torch.autograd.Function):
-    """``_blended_core`` with the analytic backward of ``_blended_vjp_bwd``.
+    """``_blended_core`` with the analytic backward of ``_blended_vjp_bwd``:
+    kernels A3-fwd / A3-bwd on CUDA tensors, their plain versions on CPU
+    tensors.
 
     The forward keeps two residuals in the table dtype, as JAX does:
     CG [n,2,L,4,Fl] (the code-blended quarters) and BH [n,L,H,Fl] (the
@@ -153,76 +435,45 @@ class _BlendedEncode(torch.autograd.Function):
     gradients of the quad table, the code and the weights wy, fx, fz (which
     autograd carries on to the positions through ``hash_grid_indices``).
 
-    The table gradient is scattered into an f32 [E, 4W] accumulator and cast
-    to the table dtype once. JAX accumulates its dense prefix in f32 too,
+    The table gradient sums every row's contributions in f32 and casts to
+    the table dtype once. JAX accumulates its dense prefix in f32 too,
     but its hashed levels in the table dtype (a bf16 add per scattered row):
     bf16 accumulation saturates on hot entries (ROADMAP C4), which this
     avoids; at bf16 the two differ by a few bf16 ulps on hashed entries that
     receive several rows (tests/test_torch_train_encode.py states the bound).
+    On the card A3-bwd sums each row in one fixed order (ROADMAP C11).
     """
 
     @staticmethod
     def forward(ctx, quad_table, code, wy, fx, fz, entry_idx, n_levels,
                 features_per_logical, keep_residuals):
-        n, L, Fl = wy.shape[0], n_levels, features_per_logical
-        W = quad_table.shape[1] // N_QUARTERS
-        H = W // Fl
-        dt = quad_table.dtype
-        rows = quad_table[entry_idx.reshape(-1)].view(n, 2, L, N_QUARTERS, H, Fl)
-        if code is None:  # the plain encode: one table, no blend
-            cg = rows[:, :, :, :, 0].to(torch.float32)  # [n,2,L,4,Fl]
-        else:
-            # per-logical-table blend, product rounded to the table dtype as in JAX
-            code_t = code.to(dt)[:, None, None, None, :, None]
-            cg = torch.sum(rows * code_t, dim=4, dtype=torch.float32)  # [n,2,L,4,Fl]
-        u = _quad_weights(fx, fz)  # [n,L,4]
-        g = torch.sum(cg * u[:, None, :, :, None], dim=3)  # [n,2,L,Fl]
-        out = g[:, 0] * wy[:, :L, None] + g[:, 1] * wy[:, L:, None]
+        with record_function("fwd:hash_encode"):
+            if quad_table.device.type == "cpu":
+                out, CG, BH = blended_encode_fwd_plain(
+                    quad_table, code, wy, fx, fz, entry_idx, n_levels,
+                    features_per_logical, keep_residuals)
+            else:
+                wy, fx, fz = wy.contiguous(), fx.contiguous(), fz.contiguous()
+                code = None if code is None else code.contiguous()
+                out, CG, BH = blended_encode_fwd_cuda(
+                    quad_table, code, wy, fx, fz, entry_idx.contiguous(),
+                    n_levels, features_per_logical, keep_residuals)
         if keep_residuals:
-            bh = None
-            if code is not None:
-                wu = (wy.view(n, 2, L)[..., None] * u[:, None]).to(dt)  # [n,2,L,4]
-                b = rows[:, 0] * wu[:, 0, :, :, None, None] \
-                    + rows[:, 1] * wu[:, 1, :, :, None, None]  # [n,L,4,H,Fl] dt
-                bh = torch.sum(b, dim=2, dtype=torch.float32).to(dt)  # [n,L,H,Fl]
-            ctx.save_for_backward(cg.to(dt), bh, code, entry_idx, wy, fx, fz)
-            ctx.table_shape = quad_table.shape
-            ctx.layout = (L, Fl)
-        return out.reshape(n, L * Fl)
+            ctx.save_for_backward(CG, BH, code, entry_idx, wy, fx, fz)
+            ctx.table_shape = tuple(quad_table.shape)
+        return out
 
     @staticmethod
     @record_function("bwd:hash_encode")
     def backward(ctx, gbar):
         CG, BH, code, entry_idx, wy, fx, fz = ctx.saved_tensors
-        L, Fl = ctx.layout
-        E, W4 = ctx.table_shape
-        n, dt = wy.shape[0], CG.dtype
-        gbar = gbar.to(torch.float32).reshape(n, 1, L, 1, Fl)
-        cg = CG.to(torch.float32)
-        u = _quad_weights(fx, fz)
-        u5 = u[:, None, :, :, None]  # [n,1,L,4,1]
-        w5 = wy.view(n, 2, L)[:, :, :, None, None]  # [n,2,L,1,1]
-
-        d_wy = torch.sum(cg * u5 * gbar, dim=(3, 4)).reshape(n, 2 * L)
-        core = cg * w5 * gbar  # [n,2,L,4,Fl]
-        gx, gz = 1.0 - fx, 1.0 - fz
-        pat_fx = torch.stack([-gz, -fz, gz, fz], dim=-1)[:, None, :, :, None]
-        pat_fz = torch.stack([-gx, gx, -fx, fx], dim=-1)[:, None, :, :, None]
-        d_fx = torch.sum(core * pat_fx, dim=(1, 3, 4))
-        d_fz = torch.sum(core * pat_fz, dim=(1, 3, 4))
-        # d rows = (gbar * u * wy) rounded, times the rounded code
-        m = (gbar * u5 * w5).to(dt)  # [n,2,L,4,Fl]
-        d_code, d_rows = None, m
-        if code is not None:
-            # d code[h] = sum_{l,f} BH[l,h,f] * gbar[l,f], product in the table dtype
-            gb = gbar.reshape(n, L, 1, Fl).to(dt)
-            d_code = torch.sum(BH * gb, dim=(1, 3), dtype=torch.float32)
-            d_rows = m[:, :, :, :, None, :] \
-                * code.to(dt)[:, None, None, None, :, None]
-        acc = torch.zeros(E, W4, dtype=torch.float32, device=CG.device)
-        acc.index_add_(0, entry_idx.reshape(-1),
-                       d_rows.reshape(-1, W4).to(torch.float32))
-        return (acc.to(dt), d_code, d_wy, d_fx, d_fz, None, None, None, None)
+        need_table = ctx.needs_input_grad[0]
+        bwd = blended_encode_bwd_plain if CG.device.type == "cpu" \
+            else blended_encode_bwd_cuda
+        d_table, d_code, d_wy, d_fx, d_fz = bwd(
+            gbar, CG, BH, code, entry_idx, wy, fx, fz, ctx.table_shape,
+            need_table)
+        return (d_table, d_code, d_wy, d_fx, d_fz, None, None, None, None)
 
 
 def hash_encode_blended(quad_table: torch.Tensor, x: torch.Tensor,

@@ -78,13 +78,12 @@ def run_steps(mesh, spec: Dict) -> Dict:
     (default the batches'), ``load`` (a checkpoint to resume from: its
     parameters, moments, grid and budget replace the others, and the steps
     go on from its step; else they start at ``first_step``, default 0),
-    ``device``, ``deterministic`` (PyTorch's
-    deterministic algorithms, warn only), ``out`` (the checkpoint rank 0
+    ``device``, ``out`` (the checkpoint rank 0
     writes at the last step; with no batches, of the loaded state) and
     ``params_out`` (the whole parameters alone, an npz of ``params.a.b.c``
     keys), ``first_mu_out`` (the first moments after the first step, 0.1
-    times its gradient, as ``mu.a.b.c``) and ``digest`` (return SHA-256 digests of the parameters and
-    first moments).
+    times its gradient, as ``mu.a.b.c``) and ``digest`` (return SHA-256
+    digests of the parameters, both Adam moments and the occupancy grid).
     Returns the logged values, the table layout, the kernels' launches in
     the steps, ms per step (host clock, synchronised), the collectives'
     host ms in each step, whether the ranks' replicas agree, whether JAX was
@@ -92,11 +91,9 @@ def run_steps(mesh, spec: Dict) -> Dict:
     from nersemble_tpu_torch.engine.checkpoints import params_from_numpy
     from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
     from nersemble_tpu_torch.models.nersemble import NeRSembleModel
-    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+    from nersemble_tpu_torch.ops import launch_counts
     from nersemble_tpu_torch.utils.cameras import add_contrast
 
-    if spec.get("deterministic"):  # index_add_'s sorted path on the card
-        torch.use_deterministic_algorithms(True, warn_only=True)
     device = torch.device(spec.get("device", "cpu"))
     if device.type == "cuda" and mesh is not None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -126,8 +123,7 @@ def run_steps(mesh, spec: Dict) -> Dict:
         trainer.start_step = spec.get("first_step", 0)
     rows = slice(None) if mesh is None else mesh.rows(n_rays)
     jitters = spec.get("jitters")
-    fused_mlp.LAUNCHES = fused_mlp.BWD_LAUNCHES = 0
-    quad_kernel.LAUNCHES = quad_kernel.FOLD_LAUNCHES = 0
+    launch_counts.reset()
     result = {"layout": trainer.table_layout, "loss": [], "losses": [],
               "num_samples": [], "num_budget_dropped": []}
     times, comm_ms = [], []
@@ -154,10 +150,7 @@ def run_steps(mesh, spec: Dict) -> Dict:
         if step == trainer.start_step and spec.get("first_mu_out"):
             _save(trainer, spec["first_mu_out"], ("mu",))
     last = trainer.start_step + len(batches) - 1  # the last step trained
-    result["launches"] = {"fused_mlp_fwd": fused_mlp.LAUNCHES,
-                          "fused_mlp_bwd": fused_mlp.BWD_LAUNCHES,
-                          "quad_build": quad_kernel.LAUNCHES,
-                          "quad_fold": quad_kernel.FOLD_LAUNCHES}
+    result["launches"] = launch_counts.read()
     result["ms_per_step"] = [1e3 * t for t in times]
     result["comm_ms_per_step"] = comm_ms
     replicated = [p for k, p in trainer.params.named_parameters()
@@ -172,7 +165,9 @@ def run_steps(mesh, spec: Dict) -> Dict:
     if spec.get("out"):
         trainer.save_checkpoint(spec["out"], last)
     if spec.get("digest"):
-        arrays = _arrays(trainer, ("params", "mu"))
+        arrays = _arrays(trainer, ("params", "mu", "nu"))
+        if trainer.is_chief:
+            arrays["grid_occs"] = trainer.grid_occs.cpu().numpy()
         result["digest"] = {k: hashlib.sha256(np.ascontiguousarray(v).tobytes())
                             .hexdigest() for k, v in arrays.items()}
     if spec.get("params_out"):

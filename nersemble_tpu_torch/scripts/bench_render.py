@@ -105,7 +105,7 @@ def main(argv=None) -> dict:
     from nersemble_tpu_torch.data.cameras import circle_around_axis, generate_image_rays
     from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
     from nersemble_tpu_torch.model_manager import NeRSembleModelFolder
-    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+    from nersemble_tpu_torch.ops import launch_counts
 
     env.NERSEMBLE_DATA_PATH = args.data_root
     env.NERSEMBLE_MODELS_PATH = args.models_root
@@ -181,7 +181,7 @@ def main(argv=None) -> dict:
             torch.from_numpy(o0).to(device), torch.from_numpy(d0).to(device))
             .float().mean())
 
-    launches0 = (fused_mlp.LAUNCHES, quad_kernel.LAUNCHES)
+    launches0 = launch_counts.read(launch_counts.FORWARD)
     render(0)  # warm-up: the quad table and the auto budget's probe
     if args.trace:
         from torch.profiler import ProfilerActivity, profile
@@ -222,8 +222,8 @@ def main(argv=None) -> dict:
             "device": name,
             "power_limit": power_limit,
             "launches_per_frame": {
-                "fused_mlp_fwd": (fused_mlp.LAUNCHES - launches0[0]) / n_rendered[0],
-                "quad_build": (quad_kernel.LAUNCHES - launches0[1]) / n_rendered[0]},
+                name: (count - launches0[name]) / n_rendered[0]
+                for name, count in launch_counts.read(launch_counts.FORWARD).items()},
         },
     }
     print(json.dumps(result))

@@ -19,8 +19,9 @@ render benchmark and the live viewer on that run.
    request, as the browser sees it.
 
 Each part prints its peak device memory and the launches of the port's
-kernels (B1-fwd, B2, B3, B4); the last line is one JSON object with all of
-it. Runs on the GPU unless ``--device cpu`` (the CPU path, at tiny sizes,
+kernels (B1-fwd, B2, B3, B4, A3-fwd, A3-bwd), the quality run also the
+SHA-256 of its last checkpoint's arrays (two runs that trained bit for bit
+print the same); the last line is one JSON object with all of it. Runs on the GPU unless ``--device cpu`` (the CPU path, at tiny sizes,
 is a rehearsal: its times are not the card's).
 
 Usage:
@@ -30,6 +31,7 @@ Usage:
 
 import argparse
 import contextlib
+import hashlib
 import json
 import socket
 import statistics
@@ -48,17 +50,15 @@ VIEW_WIDTH = 256
 
 
 def reset_launches() -> None:
-    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
-    fused_mlp.LAUNCHES = fused_mlp.BWD_LAUNCHES = 0
-    quad_kernel.LAUNCHES = quad_kernel.FOLD_LAUNCHES = 0
+    from nersemble_tpu_torch.ops import launch_counts, quad_kernel
+    launch_counts.reset()
     quad_kernel.NARROW_LAUNCHES = quad_kernel.NARROW_FOLD_LAUNCHES = 0
 
 
 def launches() -> dict:
     """The port's kernel launches since the last ``reset_launches``."""
-    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
-    return {"fused_mlp_fwd": fused_mlp.LAUNCHES, "fused_mlp_bwd": fused_mlp.BWD_LAUNCHES,
-            "quad_build": quad_kernel.LAUNCHES, "quad_fold": quad_kernel.FOLD_LAUNCHES,
+    from nersemble_tpu_torch.ops import launch_counts, quad_kernel
+    return {**launch_counts.read(),
             "quad_build narrow": quad_kernel.NARROW_LAUNCHES,
             "quad_fold narrow": quad_kernel.NARROW_FOLD_LAUNCHES}
 
@@ -181,8 +181,23 @@ def time_viewer(run_name: str, n_requests: int, device, width: int = VIEW_WIDTH)
     return replies
 
 
+def checkpoint_digest(run_dir: Path) -> str:
+    """SHA-256 over the parameters, optimizer state and grid of the run's
+    last checkpoint, key by key in sorted order: two runs that trained bit
+    for bit give the same digest."""
+    ckpt = sorted((run_dir / "checkpoints").glob("step-*.ckpt"))[-1]
+    digest = hashlib.sha256()
+    with np.load(ckpt) as data:
+        for key in sorted(k for k in data.files
+                          if k.startswith(("params/", "opt_state/", "grid_occs"))):
+            digest.update(key.encode())
+            digest.update(np.ascontiguousarray(data[key]).tobytes())
+    return digest.hexdigest()
+
+
 def train_scene(args, device) -> dict:
-    """Part 1: the quality run, its background PSNR and its ms/step."""
+    """Part 1: the quality run, its background PSNR, its ms/step and the
+    digest of its last checkpoint."""
     from nersemble_tpu_torch.scripts import quality_benchmark
 
     part = {}
@@ -195,13 +210,15 @@ def train_scene(args, device) -> dict:
         bg = background_psnr(run_dir.name, device)
     ms = logged_ms_per_step(run_dir)
     part.update(quality=quality, run=run_dir.name, background_psnr=bg,
-                ms_per_step_median=statistics.median(ms) if ms else None)
+                ms_per_step_median=statistics.median(ms) if ms else None,
+                checkpoint_digest=checkpoint_digest(run_dir))
     print(f"[trained-scene] {args.mode}: {args.steps} steps in "
           f"{quality['wall_clock_s']} s, median {part['ms_per_step_median']} ms/step "
           f"over the logged intervals; eval PSNR by step "
           f"{[(p['step'], p['eval_psnr']) for p in quality['eval_curve']]}, an all-"
           f"background image {bg:.3f} dB; peak memory {part['peak_gib']} GiB; "
-          f"launches {part['launches']}", flush=True)
+          f"launches {part['launches']}; last checkpoint's SHA-256 "
+          f"{part['checkpoint_digest']}", flush=True)
     return part
 
 

@@ -202,6 +202,19 @@ def test_bench_from_run_loads_grid_and_budget(tmp_path, capsys):
     assert fill != float(bench_grid(16).mean())
 
 
+def test_bench_frame_prints_its_json_line(capsys):
+    """scripts/bench_frame.py on the tiny config at 32x24 on the CPU: one JSON
+    line with the first frame's and each round's ms, the scene hitting."""
+    from nersemble_tpu_torch.scripts import bench_frame
+    result = bench_frame.main(["--tiny", "--device", "cpu", "--rounds", "2"])
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert len(lines) == 1 and json.loads(lines[0]) == result
+    assert result["frame"] == [32, 24] and len(result["ms_per_frame"]) == 2
+    assert result["first_frame_ms"] > 0 and result["hit_fraction"] > 0
+    assert result["device"] == "cpu"
+
+
 # -- the entry points default to the card ------------------------------------------------
 
 @pytest.fixture(scope="module")

@@ -167,8 +167,8 @@ def test_apply_mlp(dtype):
                          CASES)
 def test_fused_mlp_plain_equals_apply_mlp(name, d_in, d_out, n_layers, width,
                                           skips, bias, out_act):
-    """The unfused chain rounds at the same points, so the port needs one
-    MLP path (``use_fused_mlp=False`` is rejected, not a second route)."""
+    """The unfused chain (``use_fused_mlp=False``) rounds at the same points
+    as the fused chain's plain version."""
     params, x = _mlp_case(d_in, d_out, n_layers, width, skips, bias)
     p = params_from_numpy(params, "cpu")
     assert torch.equal(apply_mlp(p, t(x), out_act, torch.bfloat16, skips),

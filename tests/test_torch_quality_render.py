@@ -338,7 +338,8 @@ def test_bench_render_line(quality, flags, empty, capsys, monkeypatch):
     else:
         assert set(cells) == {"kept", "component"} and min(cells.values()) >= 0
     assert e["resolution"] == [44, 32] and e["rays_per_frame"] == 44 * 32
-    assert e["launches_per_frame"] == {"fused_mlp_fwd": 0.0, "quad_build": 0.0}  # CPU
+    assert e["launches_per_frame"] == {"fused_mlp_fwd": 0.0, "quad_build": 0.0,
+                                       "blended_encode_fwd": 0.0}  # CPU
     warned = "WARNING: trajectory renders (almost) nothing" in err
     assert warned == (e["mean_accumulation"] < 0.01)
     if empty is not None:

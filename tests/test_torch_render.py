@@ -176,8 +176,25 @@ def test_add_contrast_scales_like_the_parity_params():
         assert torch.equal(ours[key], theirs[key]), key
 
 
-def test_unfused_mlp_option_is_rejected():
-    cfg = flagship_model_config(tiny=True)
-    cfg.use_fused_mlp = False
-    with pytest.raises(NotImplementedError):
-        NeRSembleModel(cfg, "cpu")
+def test_unfused_mlp_option_is_rejected(grid):
+    """``use_fused_mlp=False`` was refused; it now runs the unfused chain
+    (``apply_mlp``, one matmul per layer) as the JAX package does: both
+    packages render the JAX-initialised tiny model with the flag alike."""
+    cfg_t, cfg_j = _configs(1.0)
+    cfg_t.use_fused_mlp = cfg_j.use_fused_mlp = False
+    jm = JaxModel(cfg_j)
+    params = _scaled_params(jm)
+    tm = NeRSembleModel(cfg_t, "cpu")
+    rays = example_rays(64, 8, seed=3)
+    j_out = jm.render_rays(jax.tree_util.tree_map(jnp.asarray, params),
+                           {k: jnp.asarray(v) for k, v in rays.items()},
+                           jm.binaries(jnp.asarray(grid)),
+                           {k: jnp.float32(v) for k, v in SCHEDS["end"].items()},
+                           rng=None, train=False)
+    t_out = tm.render_rays(params_from_numpy(params, "cpu"),
+                           {k: t(v) for k, v in rays.items()},
+                           tm.binaries(t(grid)), SCHEDS["end"])
+    assert n(j_out["accumulation"]).max() > 0.01
+    for key in ("rgb", "depth", "accumulation", "deformation"):
+        np.testing.assert_allclose(n(t_out[key]), n(j_out[key]), **TOL,
+                                   err_msg=key)
