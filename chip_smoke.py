@@ -41,20 +41,28 @@ Phases, each printing its own lines:
                   the flagship [6,537,216, 256] bf16 quad table at 73,728
                   and 98,304 samples, 16 tables ([6,537,216, 128]), the
                   single grid ([6,184,960, 8]), the flagship table in f32
-                  and 24 tables ([6,537,216, 192], the wide forward
-                  kernel), on positions half uniform, a quarter in the grid's
-                  centre block and a quarter at the origin (hot entries),
-                  with codes at the time embedding's contrast scale: the
-                  output, the residuals and the per-sample gradients within
-                  ops/hash_encoding.py MAX_ERR_REL (2^-9 of max |plain|) and
-                  MEAN_ERR_REL (1e-5 of mean |plain|), every table-gradient
-                  entry within one table-dtype ulp of the plain one plus
-                  the f32 error bound of its rows summed in two orders
+                  and 24 tables ([6,537,216, 192], a table count that is
+                  not a power of two), on positions half uniform, a quarter
+                  in the grid's centre block and a quarter at the origin
+                  (hot entries), with codes at the time embedding's
+                  contrast scale: CG and BH bit for bit, the output and
+                  the per-sample gradients within ops/hash_encoding.py
+                  MAX_ERR_REL (2^-9 of max |plain|) and MEAN_ERR_REL (1e-5
+                  of mean |plain|), every table-gradient entry within one
+                  table-dtype ulp of the plain one plus the f32 error bound
+                  of its rows summed in two orders
                   (hash_encoding.compare_table_grads; past one ulp only
                   where the rows cancel),
                   A3-bwd twice bit for bit; each timed beside its bound and
                   the plain version, A3-bwd also beside index_add_ of the
-                  materialised f32 rows alone (the flagship case);
+                  materialised f32 rows alone (the flagship case) and by
+                  its parts alone (sort, per-sample kernel, memset, chunk
+                  walk, spanning runs) beside the wrapper's wall time with
+                  the memset on a side stream; then the flagship digest
+                  case (scripts/encode_digests.py: seeded inputs that owe
+                  nothing to PyTorch's generators) must give the SHA-256
+                  digests of out, CG, BH and the four gradients that the
+                  kernels of commit 77061aa give (A3_DIGESTS);
  3b. copy kernels -- the measurement path's kernels vs their plain versions,
                   bit-exact, with the time of the one PyTorch call that
                   computes the same function: the row gather (P1) at the
@@ -269,11 +277,10 @@ PROFILE_RANGES = ("render:march", "render:sigma_probe", "render:field",
 OWN_KERNELS = ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel", "pack_stream_kernel",
                "partial_sum_kernel", "quad_build_kernel", "quad_fold_kernel",
                "quad_build_narrow_kernel", "quad_fold_narrow_kernel",
-               "be_fwd_kernel", "be_fwd_wide_kernel", "be_sample_kernel",
-               "be_chunk_kernel", "be_span_kernel")
+               "be_fwd_kernel", "be_sample_kernel", "be_chunk_kernel", "be_span_kernel")
 # A3 against its plain version: (case, quad table width, dtype, samples,
 # single grid); the first is the flagship table at the bench's budget; 24
-# tables (--n-hash-encodings 24) take the wide forward kernel
+# tables (--n-hash-encodings 24): a table count that is not a power of two
 ENCODE_CASES = [("flagship", 256, "bfloat16", 73728, False),
                 ("flagship", 256, "bfloat16", 98304, False),
                 ("16 tables", 128, "bfloat16", 73728, False),
@@ -281,6 +288,18 @@ ENCODE_CASES = [("flagship", 256, "bfloat16", 73728, False),
                 ("flagship f32", 256, "float32", 73728, False),
                 ("24 tables", 192, "bfloat16", 73728, False)]
 ENCODE_CODE_STD = 0.01 / math.sqrt(32)  # the time embedding's init (models/nersemble.py)
+# SHA-256 of the flagship digest case's outputs (scripts/encode_digests.py)
+# from the blended-encode kernels of commit 77061aa, on an NVIDIA H100 80GB
+# HBM3 at 700 W: the redesigned kernels must give the same bits
+A3_DIGESTS = {
+    "out": "fa82770a474854353f627f54c0481ccb7912bfaf7bebddf3bf908995c6dd2563",
+    "CG": "443dbc4daa700bacae4690cb3213dc2276875e34b88131e05eb10f9b8bad5468",
+    "BH": "a01df2c21ec816b72a442c5ecedd7b02471ac0b8fa550f59333a7a12868d2920",
+    "d_table": "b9629aadf60d109addd1961cdde9910f04c5d4b52d2ddf19468eaa5d7bf3283e",
+    "d_code": "e830595451b26c0efd27fcf60643706cfb78b20364c67c00bc393b59d4e720f9",
+    "d_wy": "bdb15ac14bdb6736a78952ce98404ccbeba4b7aed015dc57fac9358a6af9c63f",
+    "d_fx": "8a5f5b5ce27b663546258e22f1999e4160cc8d1c829874e508e5ae9395f93bfe",
+    "d_fz": "0a97eb717e39c5f7f03a917e0131c58ad1d840c4a6111632c567c4a3689531c0"}
 TRAIN_RAYS, TRAIN_STEPS = 4096, 10
 BENCH_ITERS = 5
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
@@ -884,8 +903,9 @@ def encode_kernel_phase(cfg, levels, device):
         ours = he.blended_encode_fwd_cuda(*args)
         refs = he.blended_encode_fwd_plain(*args)
         f_err = he.compare_to_plain(ours, refs, ("out", "CG", "BH"))
-        residuals_equal = all(a is None or torch.equal(a, b)
-                              for a, b in zip(ours[1:], refs[1:]))
+        if not all(a is None or torch.equal(a, b) for a, b in zip(ours[1:], refs[1:])):
+            raise AssertionError(f"A3-fwd {what}: CG or BH differs from the plain "
+                                 f"version's bits")
         del refs
         grads = [he.blended_encode_bwd_cuda(gbar, ours[1], ours[2], code, entry_idx,
                                             wy, fx, fz, shape) for _ in range(2)]
@@ -909,6 +929,8 @@ def encode_kernel_phase(cfg, levels, device):
         bk = cuda_time_ms(bwd)
         bp = cuda_time_ms(lambda: he.blended_encode_bwd_plain(
             gbar, ours[1], ours[2], code, entry_idx, wy, fx, fz, shape))
+        parts = encode_bwd_parts(he, (gbar, ours[1], ours[2], code, entry_idx, wy, fx,
+                                      fz, shape), bk)
         lib = None
         if what == ENCODE_CASES[0][0]:  # the scatter alone: index_add_ of f32 rows
             acc = torch.zeros(shape, dtype=torch.float32, device=device)
@@ -936,7 +958,8 @@ def encode_kernel_phase(cfg, levels, device):
             err = max(e["max_abs"] for e in errs.values())
             entry = kernel_entry(err, k_ms, p_ms, bound, l_ms)
             cases[kernel].append({"case": what, "samples": n, "table": list(shape),
-                                  "dtype": dtype, **entry})
+                                  "dtype": dtype, **entry,
+                                  **({"parts": parts} if kernel.endswith("bwd") else {})})
             if results[kernel] is None:
                 results[kernel] = entry
             log("kernels", f"{'A3-fwd' if kernel.endswith('fwd') else 'A3-bwd'} "
@@ -947,7 +970,7 @@ def encode_kernel_phase(cfg, levels, device):
                               if l_ms is not None else ""))
         log("kernels", f"A3 {what}: {distinct} distinct rows of "
                        f"{entry_idx.numel()} gathered ({gathered_gb:.3f} GB gathered); "
-                       f"residuals bit for bit: {residuals_equal}; "
+                       f"CG and BH bit for bit; "
                        f"forward against plain, share of the max / mean bounds "
                        + ", ".join(f"{k} {e['max_abs'] / max(e['max_tol'], 1e-38):.3g} / "
                                    f"{e['mean_abs'] / max(e['mean_tol'], 1e-38):.3g}"
@@ -961,11 +984,53 @@ def encode_kernel_phase(cfg, levels, device):
                          f"most {t_err['max_ulps']:.3g}, where rows cancel), "
                          f"{t_err['max_share']:.3g} of the bound; A3-bwd twice: "
                          f"bit for bit")
+        log("kernels", f"A3-bwd {what} parts alone, their serial sum and the "
+                       f"wrapper's wall with the memset on a side stream (ms): "
+                       + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
         del table, args, gbar, ours, code, wy, fx, fz, entry_idx
         torch.cuda.empty_cache()
     for kernel in results:
         results[kernel]["cases"] = cases[kernel]
+    encode_digest_check(device)
     return results
+
+
+def encode_bwd_parts(he, bwd_args, wall_ms: float) -> dict:
+    """A3-bwd's parts, each timed alone on the current stream (ms): the
+    sort of the entry keys, the per-sample kernel, the table's zeros, the
+    chunk walk and the spanning runs; and the wrapper's wall time, which
+    zeroes the table on a side stream while the sort and the per-sample
+    kernel run."""
+    import torch
+    from nersemble_tpu_torch.utils.timing import cuda_time_ms
+
+    plan = he.BlendedBwdPlan(*bwd_args)
+    stream = torch.cuda.current_stream()
+    parts = {"sort": cuda_time_ms(plan.sort), "sample": cuda_time_ms(plan.sample),
+             "memset": cuda_time_ms(lambda: plan.zero(stream)),
+             "chunk": cuda_time_ms(plan.chunks), "span": cuda_time_ms(plan.spans)}
+    parts["serial_sum"] = sum(parts.values())
+    parts["wall"] = wall_ms
+    del plan
+    return parts
+
+
+def encode_digest_check(device) -> None:
+    """The flagship case's outputs of A3-fwd and A3-bwd against the
+    digests of the kernels of commit 77061aa on the same inputs
+    (scripts/encode_digests.py): the redesigned pair sums in the same
+    orders, so every digest must match."""
+    import torch
+    from nersemble_tpu_torch.scripts.encode_digests import flagship_digests
+
+    ours = flagship_digests(device)
+    torch.cuda.empty_cache()
+    differ = sorted(k for k, v in A3_DIGESTS.items() if ours.get(k) != v)
+    if differ:
+        raise AssertionError(f"A3 on the flagship digest case: {differ} differ from "
+                             f"the earlier kernels' digests: {ours}")
+    log("kernels", f"A3 digest case: {len(ours)} outputs ({', '.join(ours)}) equal "
+                   f"the earlier kernels' SHA-256 bit for bit")
 
 
 def train_phase(cfg, device):

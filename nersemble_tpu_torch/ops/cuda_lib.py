@@ -50,9 +50,16 @@ _SIGNATURES = {
     # table, entry_idx, wy, fx, fz, code, out, cg, bh, n, L, H, W, FL,
     # elem_bytes, stream
     "blended_encode_fwd": (*(_VOID_P,) * 9, *(_LL,) * 6, _VOID_P),
-    # gbar, cg, bh, code, wy, fx, fz, skey, perm, partial, d_table, d_code,
-    # d_wy, d_fx, d_fz, n, L, H, W, FL, E, elem_bytes, stream
-    "blended_encode_bwd": (*(_VOID_P,) * 15, *(_LL,) * 7, _VOID_P),
+    # gbar, cg, bh, code, wy, fx, fz, mfac, coder, d_code, d_wy, d_fx, d_fz,
+    # n, L, H, W, FL, elem_bytes, stream
+    "blended_encode_bwd_sample": (*(_VOID_P,) * 13, *(_LL,) * 6, _VOID_P),
+    # skey, perm, mfac, coder, d_table, partial, n, L, H, W, FL, elem_bytes,
+    # stream
+    "blended_encode_bwd_chunks": (*(_VOID_P,) * 6, *(_LL,) * 6, _VOID_P),
+    # skey, partial, d_table, n, L, W, elem_bytes, stream
+    "blended_encode_bwd_spans": (*(_VOID_P,) * 3, *(_LL,) * 4, _VOID_P),
+    # d_table, bytes, stream
+    "blended_encode_zero": (_VOID_P, _LL, _VOID_P),
 }
 
 _library = None  # the loaded CDLL, once per process

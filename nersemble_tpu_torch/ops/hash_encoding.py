@@ -328,6 +328,10 @@ def compare_table_grads(ours: torch.Tensor, ref: torch.Tensor, count: torch.Tens
     return res
 
 
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def _kernel_shape(quad_table, code, n_levels: int, features_per_logical: int):
     """(W, H) of a quad table that kernels A3-fwd / A3-bwd take; raises,
     naming the shape, on one they lack."""
@@ -336,7 +340,7 @@ def _kernel_shape(quad_table, code, n_levels: int, features_per_logical: int):
     H = W // Fl if Fl else 0
     ok = (quad_table.dtype in (torch.bfloat16, torch.float32)
           and quad_table.is_contiguous() and quad_table.data_ptr() % 16 == 0
-          and W4 == N_QUARTERS * W and W4 % 8 == 0 and 0 < W4 <= 1024
+          and W4 == N_QUARTERS * W and W4 % 8 == 0 and 0 < W4 <= 1024 and E < 2 ** 31
           and Fl in (1, 2, 4, 8) and H * Fl == W
           and (code is not None or (H == 1 and Fl >= 2))
           and (code is None or tuple(code.shape) == (code.shape[0], H)))
@@ -368,10 +372,9 @@ def blended_encode_fwd_cuda(quad_table, code, wy, fx, fz, entry_idx,
             BH = torch.empty(n, L, H, Fl, dtype=dt, device=wy.device)
     if n == 0:
         return out, CG, BH
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     status = cuda_lib.library().blended_encode_fwd(
         quad_table.data_ptr(), entry_idx.data_ptr(), wy.data_ptr(), fx.data_ptr(),
-        fz.data_ptr(), ptr(code), out.data_ptr(), ptr(CG), ptr(BH), n, L, H, W, Fl,
+        fz.data_ptr(), _ptr(code), out.data_ptr(), _ptr(CG), _ptr(BH), n, L, H, W, Fl,
         quad_table.element_size(),
         torch.cuda.current_stream(wy.device).cuda_stream)
     cuda_lib.check(status, "blended_encode_fwd")
@@ -379,47 +382,150 @@ def blended_encode_fwd_cuda(quad_table, code, wy, fx, fz, entry_idx,
     return out, CG, BH
 
 
+def _scratch_widths(features_per_logical: int, n_tables: int, elem_bytes: int):
+    """(MP, HP): A3-bwd's scratch rows in elements, the row factor [4, Fl]
+    and the rounded code [H], each padded to whole 16-byte vectors
+    (csrc/blended_encode.cu be_pad)."""
+    per = 16 // elem_bytes
+    return (-(-N_QUARTERS * features_per_logical // per) * per,
+            -(-n_tables // per) * per)
+
+
+_SIDE_STREAMS: Dict[int, tuple] = {}  # device index -> (stream, fork, join)
+
+
+def _side_stream(device: torch.device):
+    """A3-bwd's second stream, where the table gradient is zeroed, and the
+    two events that fork it from and join it to the caller's stream;
+    created once per device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SIDE_STREAMS:
+        _SIDE_STREAMS[index] = (torch.cuda.Stream(device=index), torch.cuda.Event(),
+                                torch.cuda.Event())
+    return _SIDE_STREAMS[index]
+
+
+class BlendedBwdPlan:
+    """One A3-bwd call: its outputs, its scratch and its parts, each a
+    launch on the current stream. ``blended_encode_bwd_cuda`` runs them with
+    the zeroing on a side stream; chip_smoke.py times each part alone.
+
+    The parts: ``zero`` (the table gradient, rows no sample reached),
+    ``sort`` (the entry indices as int32 keys, a stable ``torch.sort``:
+    index preparation), ``sample`` (the per-sample gradients, each
+    position's rounded row factor and the rounded code rows), ``chunks``
+    (runs inside chunks of ``TABLE_CHUNK`` sorted positions) and ``spans``
+    (runs across chunks); the last two need the first three."""
+
+    def __init__(self, gbar, CG, BH, code, entry_idx, wy, fx, fz, table_shape,
+                 need_table: bool = True):
+        n, _, L, _, Fl = CG.shape
+        E, W4 = table_shape
+        dt, dev = CG.dtype, CG.device
+        W = W4 // N_QUARTERS
+        H = W // Fl
+        if code is not None and BH is None:
+            raise ValueError("the blended encode's backward needs its BH residual")
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.n, self.L, self.H, self.W, self.Fl = n, L, H, W, Fl
+        self.inputs = (gbar.to(torch.float32).contiguous(), CG, BH, code, entry_idx,
+                       wy, fx, fz)
+        self.d_code = None if code is None else torch.empty(n, H, **f32)
+        self.d_wy = torch.empty(n, 2 * L, **f32)
+        self.d_fx, self.d_fz = torch.empty(n, L, **f32), torch.empty(n, L, **f32)
+        self.d_table = self.mfac = self.coder = self.partial = None
+        self.skey = self.perm = None
+        if need_table:
+            self.d_table = torch.empty(E, W4, dtype=dt, device=dev)
+            mp, hp = _scratch_widths(Fl, H, CG.element_size())
+            self.mfac = torch.empty(n * 2 * L, mp, dtype=dt, device=dev)
+            if code is not None:
+                self.coder = torch.empty(n, hp, dtype=dt, device=dev)
+            chunks = -(-(n * 2 * L) // TABLE_CHUNK)
+            self.partial = torch.empty(2 * chunks, W4, **f32)
+
+    def _stream(self) -> int:
+        return torch.cuda.current_stream(self.inputs[1].device).cuda_stream
+
+    def _shape(self):
+        return (self.n, self.L, self.H, self.W, self.Fl, self.inputs[1].element_size())
+
+    def zero(self, stream) -> None:
+        d = self.d_table
+        cuda_lib.check(cuda_lib.library().blended_encode_zero(
+            d.data_ptr(), d.numel() * d.element_size(), stream.cuda_stream),
+            "blended_encode_zero")
+
+    def sort(self) -> None:
+        flat = self.inputs[4].reshape(-1).to(torch.int32)
+        self.skey, self.perm = torch.sort(flat, stable=True)
+
+    def sample(self) -> None:
+        gbar, CG, BH, code, _, wy, fx, fz = self.inputs
+        cuda_lib.check(cuda_lib.library().blended_encode_bwd_sample(
+            gbar.data_ptr(), CG.data_ptr(), _ptr(BH), _ptr(code), wy.data_ptr(),
+            fx.data_ptr(), fz.data_ptr(), _ptr(self.mfac), _ptr(self.coder),
+            _ptr(self.d_code), self.d_wy.data_ptr(), self.d_fx.data_ptr(),
+            self.d_fz.data_ptr(), *self._shape(), self._stream()),
+            "blended_encode_bwd_sample")
+
+    def chunks(self) -> None:
+        cuda_lib.check(cuda_lib.library().blended_encode_bwd_chunks(
+            self.skey.data_ptr(), self.perm.data_ptr(), self.mfac.data_ptr(),
+            _ptr(self.coder), self.d_table.data_ptr(), self.partial.data_ptr(),
+            *self._shape(), self._stream()), "blended_encode_bwd_chunks")
+
+    def spans(self) -> None:
+        n, L, _, W, _, es = self._shape()
+        cuda_lib.check(cuda_lib.library().blended_encode_bwd_spans(
+            self.skey.data_ptr(), self.partial.data_ptr(), self.d_table.data_ptr(),
+            n, L, W, es, self._stream()), "blended_encode_bwd_spans")
+
+    def outputs(self):
+        return self.d_table, self.d_code, self.d_wy, self.d_fx, self.d_fz
+
+
 def blended_encode_bwd_cuda(gbar, CG, BH, code, entry_idx, wy, fx, fz,
                             table_shape, need_table: bool = True):
     """Kernel A3-bwd on CUDA tensors; returns what
     ``blended_encode_bwd_plain`` returns. The table gradient is summed per
     row in f32 in a fixed order (the stable sort of the entry indices) and
-    rounded once: bit for bit from run to run."""
+    rounded once: bit for bit from run to run. Its zeros are written on a
+    side stream while the sort and the per-sample kernel run on the current
+    one (``BlendedBwdPlan``); an event joins the two before the table's
+    kernels."""
     global BWD_LAUNCHES
     if not CG.is_cuda:
         raise ValueError("blended_encode_bwd_cuda takes CUDA tensors")
-    n, _, L, _, Fl = CG.shape
-    E, W4 = table_shape
-    dt, dev = CG.dtype, CG.device
-    W, H = W4 // N_QUARTERS, (W4 // N_QUARTERS) // Fl
-    if code is not None and BH is None:
-        raise ValueError("the blended encode's backward needs its BH residual")
-    f32 = dict(dtype=torch.float32, device=dev)
-    gbar = gbar.to(torch.float32).contiguous()
-    d_code = None if code is None else torch.empty(n, H, **f32)
-    d_wy, d_fx, d_fz = (torch.empty(n, 2 * L, **f32), torch.empty(n, L, **f32),
-                        torch.empty(n, L, **f32))
-    d_table = skey = perm = partial = None
-    if need_table:
-        # index preparation: the entry indices as int32 keys in a stable sort
-        skey, perm = torch.sort(entry_idx.reshape(-1).to(torch.int32), stable=True)
-        d_table = torch.empty(E, W4, dtype=dt, device=dev)
-        chunks = -(-(n * 2 * L) // TABLE_CHUNK)
-        partial = torch.empty(2 * chunks, W4, **f32)
-    if n == 0:
+    plan = BlendedBwdPlan(gbar, CG, BH, code, entry_idx, wy, fx, fz, table_shape,
+                          need_table)
+    if plan.n == 0:
         if need_table:
-            d_table.zero_()
-        return d_table, d_code, d_wy, d_fx, d_fz
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    status = cuda_lib.library().blended_encode_bwd(
-        gbar.data_ptr(), CG.data_ptr(), ptr(BH), ptr(code), wy.data_ptr(),
-        fx.data_ptr(), fz.data_ptr(), ptr(skey), ptr(perm), ptr(partial),
-        ptr(d_table), ptr(d_code), d_wy.data_ptr(),
-        d_fx.data_ptr(), d_fz.data_ptr(), n, L, H, W, Fl, E, CG.element_size(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    cuda_lib.check(status, "blended_encode_bwd")
+            plan.d_table.zero_()
+        return plan.outputs()
+    if need_table:
+        stream = torch.cuda.current_stream(CG.device)
+        side, fork, join = _side_stream(CG.device)
+        fork.record(stream)
+        side.wait_event(fork)
+        plan.zero(side)
+        join.record(side)
+        try:
+            plan.sort()
+            plan.sample()
+        finally:
+            # d_table belongs to the current stream and is freed only after
+            # this wait is queued on it, so every later reuse of its memory
+            # is ordered after the zeros (no record_stream: a block it marks
+            # waits for the side stream on the host's clock, and a host that
+            # runs ahead then takes a fresh [E, 4W] block per call)
+            stream.wait_event(join)
+        plan.chunks()
+        plan.spans()
+    else:
+        plan.sample()
     BWD_LAUNCHES += 1
-    return d_table, d_code, d_wy, d_fx, d_fz
+    return plan.outputs()
 
 
 class _BlendedEncode(torch.autograd.Function):

@@ -19,9 +19,12 @@ fixture): the kernels against the plain version within
 and per-sample gradients (the residuals also bit for bit: they sum in
 the plain version's order), the table gradient within one table-dtype ulp
 plus the f32 error bound of its rows summed in two orders
-(``compare_table_grads``); the backward twice, bit for bit. JAX is
-imported only by the CPU parity tests, so that the card, which has no JAX,
-collects this file:
+(``compare_table_grads``); the backward twice, bit for bit; every row
+width the port runs, the forward without residuals, no samples, and the
+backward with its side stream against its parts run in turn. On the CPU
+also the forward's combination of table runs (a binary counter) against
+``_sum_tables``, bit for bit. JAX is imported only by the CPU parity
+tests, so that the card, which has no JAX, collects this file:
 ``python -m pytest --noconftest -m cuda tests/test_torch_encode_kernel.py``.
 """
 
@@ -190,8 +193,8 @@ def test_plain_single_grid_encode_matches_jax(jax_ref, dtype):
 # (quad table columns, features per table, with a code): every width the port
 # runs: the flagship's 32 tables, the dynamic quality run's 16, the tiny
 # configuration's 8, the feature-sharded slices of 2, 4 and 8 ranks, the
-# single grid; and table counts the lane layout lacks (12, 24 and 64
-# tables through --n-hash-encodings: the wide forward kernel)
+# single grid; and table counts that are not a power of two or past 32 (12,
+# 24 and 64 tables through --n-hash-encodings)
 PORT_WIDTHS = [(256, 2, True), (128, 2, True), (64, 2, True), (32, 2, True),
                (16, 2, True), (8, 2, False), (96, 2, True), (192, 2, True),
                (512, 2, True)]
@@ -203,6 +206,46 @@ def test_kernel_takes_every_width_the_port_runs(dtype, w4, fl, with_code):
     quad = torch.zeros(64, w4, dtype=dtype)
     code = torch.zeros(5, w4 // 4 // fl) if with_code else None
     assert the._kernel_shape(quad, code, 4, fl) == (w4 // 4, w4 // 4 // fl)
+
+
+def _binary_counter_sum(runs):
+    """A3-fwd's combination of per-run f32 sums (be_cg_runs): push each run,
+    merging with the block of the same size before it, then combine the
+    blocks left over, the smallest (rightmost) first."""
+    stack = {}
+    for r, run in enumerate(runs):
+        b = 0
+        while (r >> b) & 1:
+            run = np.float32(stack.pop(b) + run)
+            b += 1
+        stack[b] = run
+    total = None
+    for b in sorted(stack):
+        total = stack[b] if total is None else np.float32(stack[b] + total)
+    return total
+
+
+@pytest.mark.parametrize("n_runs", [1, 2, 3, 5, 6, 7, 8, 11, 16, 24, 32])
+def test_binary_counter_is_the_plain_table_order(n_runs):
+    """The forward kernel sums a CG slot's tables in runs of 8 elements and
+    combines the runs as a binary counter; that must be ``_sum_tables``'
+    level-by-level tree, bit for bit, for every run count it meets (W = 8
+    to 256 elements per quarter)."""
+    rng = np.random.default_rng(n_runs)
+    fl, per_run = 2, 4  # 4 tables of 2 features per 8-element run
+    terms = (rng.normal(size=(n_runs * per_run, fl))
+             * 10.0 ** rng.integers(-6, 6, size=(n_runs * per_run, 1))).astype(np.float32)
+    ours = []
+    for f in range(fl):
+        runs = []
+        for r in range(n_runs):
+            acc = np.float32(0.0)
+            for t in terms[r * per_run:(r + 1) * per_run, f]:
+                acc = np.float32(acc + t)
+            runs.append(acc)
+        ours.append(_binary_counter_sum(runs))
+    plain = the._sum_tables(torch.from_numpy(terms), n_runs * 8).numpy()
+    assert np.array_equal(np.array(ours, np.float32).view(np.uint32), plain.view(np.uint32))
 
 
 @pytest.mark.parametrize("w4,fl,dtype", [(2048, 2, torch.bfloat16), (12, 1, torch.bfloat16),
@@ -263,7 +306,7 @@ CARD_CASES = [
     (LEVELS, 8, 2, True, torch.bfloat16),    # a feature-sharded slice
     (SINGLE_LEVELS, 2, 2, False, torch.bfloat16),
     (SINGLE_LEVELS, 2, 2, False, torch.float32),
-    (LEVELS, 24, 2, True, torch.bfloat16),   # 12 tables: the wide forward kernel
+    (LEVELS, 24, 2, True, torch.bfloat16),   # 12 tables: not a power of two
     (LEVELS, 128, 2, True, torch.float32),   # 64 tables
 ]
 
@@ -288,12 +331,8 @@ def _card_case(device, levels, width, fl, with_code, dtype, n_samples, seed,
     return lv, args, gbar
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", CARD_CASES)
-@pytest.mark.parametrize("n_samples", [1, 37, 4096])
-def test_kernels_match_plain(cuda, case, n_samples):
-    lv, args, gbar = _card_case(cuda, *case, n_samples, seed=n_samples,
-                                hot=n_samples > 100)
+def _hold_kernels(args, gbar):
+    """Both kernels once against the plain version (one launch each)."""
     quad, code, wy, fx, fz, entry_idx = args[:6]
     before = (the.LAUNCHES, the.BWD_LAUNCHES)
     ours = the.blended_encode_fwd_cuda(*args)
@@ -314,6 +353,55 @@ def test_kernels_match_plain(cuda, case, n_samples):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES)
+@pytest.mark.parametrize("n_samples", [1, 37, 4096])
+def test_kernels_match_plain(cuda, case, n_samples):
+    _, args, gbar = _card_case(cuda, *case, n_samples, seed=n_samples,
+                               hot=n_samples > 100)
+    _hold_kernels(args, gbar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("w4,fl,with_code", PORT_WIDTHS)
+def test_kernels_match_plain_at_every_port_width(cuda, dtype, w4, fl, with_code):
+    """Every row width the port runs, table counts that are not a power of
+    two among them, at 301 samples: no multiple of a forward stage's
+    samples (1 to 32 at these widths)."""
+    levels = LEVELS if with_code else SINGLE_LEVELS
+    _, args, gbar = _card_case(cuda, levels, w4 // 4, fl, with_code, dtype, 301,
+                               seed=w4, hot=True)
+    _hold_kernels(args, gbar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [CARD_CASES[0], CARD_CASES[4], CARD_CASES[6],
+                                  CARD_CASES[7]])
+def test_forward_without_residuals(cuda, case):
+    """keep_residuals=False (the render): no CG or BH, the same output bit
+    for bit."""
+    _, args, _ = _card_case(cuda, *case, 4097, seed=5, hot=True)
+    kept = the.blended_encode_fwd_cuda(*args)
+    out, CG, BH = the.blended_encode_fwd_cuda(*args[:-1], False)
+    assert CG is None and BH is None
+    assert torch.equal(out, kept[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [CARD_CASES[0], CARD_CASES[4]])
+def test_kernels_take_no_samples(cuda, case):
+    lv, args, gbar = _card_case(cuda, *case, 0, seed=1)
+    quad, code, wy, fx, fz, entry_idx = args[:6]
+    out, CG, BH = the.blended_encode_fwd_cuda(*args)
+    assert out.shape == (0, lv.n_levels * case[2]) and CG.shape[0] == 0
+    grads = the.blended_encode_bwd_cuda(gbar, CG, BH, code, entry_idx, wy, fx, fz,
+                                        tuple(quad.shape))
+    torch.cuda.synchronize()
+    assert grads[0].shape == quad.shape and int(torch.count_nonzero(grads[0])) == 0
+    assert all(g is None or g.shape[0] == 0 for g in grads[1:])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", [CARD_CASES[0], CARD_CASES[4]])
 def test_kernel_backward_is_bit_for_bit(cuda, case):
     _, args, gbar = _card_case(cuda, *case, 20000, seed=7, hot=True)
@@ -322,6 +410,28 @@ def test_kernel_backward_is_bit_for_bit(cuda, case):
     runs = [the.blended_encode_bwd_cuda(gbar, CG, BH, code, entry_idx, wy, fx, fz,
                                         tuple(quad.shape)) for _ in range(2)]
     for a, b in zip(*runs):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [CARD_CASES[0], CARD_CASES[4]])
+def test_kernel_backward_side_stream_is_bit_for_bit(cuda, case):
+    """The hot-entry case with the table gradient zeroed on the side stream
+    while the sort and the per-sample kernel run (the wrapper) against the
+    same parts one after another on the current stream."""
+    _, args, gbar = _card_case(cuda, *case, 20000, seed=7, hot=True)
+    quad, code, wy, fx, fz, entry_idx = args[:6]
+    _, CG, BH = the.blended_encode_fwd_cuda(*args)
+    shape = tuple(quad.shape)
+    ours = the.blended_encode_bwd_cuda(gbar, CG, BH, code, entry_idx, wy, fx, fz, shape)
+    plan = the.BlendedBwdPlan(gbar, CG, BH, code, entry_idx, wy, fx, fz, shape)
+    plan.zero(torch.cuda.current_stream())
+    plan.sort()
+    plan.sample()
+    plan.chunks()
+    plan.spans()
+    torch.cuda.synchronize()
+    for a, b in zip(ours, plan.outputs()):
         assert (a is None and b is None) or torch.equal(a, b)
 
 
