@@ -31,8 +31,12 @@ Phases, each printing its own lines:
                   bound for the bf16 split it runs and the bound of the
                   f32-product route; then B3 and B4 on narrow rows, the
                   single-grid field's [6,184,960, 2] bf16 table (4-byte rows)
-                  and its [6,184,960, 8] gradient (4-byte quarters),
-                  bit-exact, timed beside their bound, and B1-fwd and B2 on
+                  and its [6,184,960, 8] gradient (4-byte quarters), and at
+                  the width one rank of four builds under the feature-sharded
+                  table ([6,537,216, 16] bf16, 32-byte rows, and its [E, 64]
+                  gradient), bit-exact, timed beside their bound (B3 also
+                  beside index_select, the narrow ones also by their device
+                  time under torch.profiler), and B1-fwd and B2 on
                   the colour head at the other configurations' input widths
                   31 (SH degree 4), 50 (appearance embedding) and 63 (both)
                   at 98,304 rows, within the same bounds, with the share of
@@ -266,6 +270,7 @@ FRAME_H, FRAME_W = 802, 550      # the reference's 3208x2200 at downscale 4
 CHUNK = 8192                     # the render CLI's default --n-rays 2^13
 TIMESTEPS = (0, 3, 7)
 MLP_ROWS = 98304                 # the flagship sample-chunk cap
+QUAD_SMALL_ITERS = 50            # timed calls of B3/B4 on the narrow and sharded rows
 REF_H, REF_W, REF_CHUNK = 32, 24, 256
 # GPU vs CPU render of the reference frame: the same plain code but for the
 # two kernels (B3 bit-exact, B1-fwd summing in another order) differs by
@@ -275,8 +280,8 @@ REF_TOL = dict(rtol=0.0, atol=1e-4)
 PROFILE_RANGES = ("render:march", "render:sigma_probe", "render:field",
                   "field:hash_encode", "fwd:hash_encode")
 OWN_KERNELS = ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel", "pack_stream_kernel",
-               "partial_sum_kernel", "quad_build_kernel", "quad_fold_kernel",
-               "quad_build_narrow_kernel", "quad_fold_narrow_kernel",
+               "partial_sum_kernel", "quad_build_tma_kernel", "quad_build_rows_kernel",
+               "quad_fold_kernel", "quad_build_narrow_kernel", "quad_fold_narrow_kernel",
                "be_fwd_kernel", "be_sample_kernel", "be_chunk_kernel", "be_span_kernel")
 # A3 against its plain version: (case, quad table width, dtype, samples,
 # single grid); the first is the flagship table at the bench's budget; 24
@@ -716,39 +721,49 @@ def kernel_phase(cfg, levels, device):
     torch.cuda.empty_cache()
 
     # the single-grid field's table: B3 on rows of 4 bytes (2 bf16 features)
-    # and B4 on its gradient's 4-byte quarters
+    # and B4 on its gradient's 4-byte quarters; then the rows that one rank
+    # of four builds under the feature-sharded table (table_layout "tp": 8
+    # of the 32 logical tables, [E, 16] bf16, 32-byte rows) and its
+    # gradient's quarters. Each timed over QUAD_SMALL_ITERS calls: a narrow
+    # call's wrapper takes about as long on the host as its kernel on the
+    # card, so B3/B4 narrow also print their device time under torch.profiler
     sg_levels = single_grid_levels()
-    table = ((torch.rand(sg_levels.total_entries, 2, generator=gen,
-                         device=device) - 0.5) * 2e-4).to(torch.bfloat16)
-    grad = ((torch.rand(sg_levels.total_entries, 8, generator=gen,
-                        device=device) - 0.5) * 2e-3).to(torch.bfloat16)
-    for kernel, what, x, run, plain_fn in (
-            ("quad_build", "B3 quad_build", table, quad_kernel.quad_build_cuda,
-             quad_kernel.quad_build_plain),
-            ("quad_fold", "B4 quad_fold", grad, quad_kernel.quad_fold_cuda,
-             quad_kernel.quad_fold_plain)):
-        out, plain = run(x, sg_levels), plain_fn(x, sg_levels)
-        torch.cuda.synchronize()
-        if not torch.equal(out, plain):
-            raise AssertionError(f"{what} on narrow rows differs from its plain version")
-        shape = tuple(out.shape)
-        del out, plain
-        k_ms = cuda_time_ms(lambda: run(x, sg_levels))
-        p_ms = cuda_time_ms(lambda: plain_fn(x, sg_levels))
-        l_ms = quad_library_ms(x, sg_levels, "narrow rows") if kernel == "quad_build" \
-            else None
-        moved = x.numel() * x.element_size() * (5 if kernel == "quad_build" else 1.25)
-        bound = bound_ms(moved)
-        results[kernel].update(narrow_shape=list(x.shape), narrow_ms=k_ms,
-                               narrow_plain_ms=p_ms, narrow_bound_ms=bound[0],
-                               narrow_library_ms=l_ms)
-        log("kernels", f"{what} narrow rows {tuple(x.shape)} -> {shape} bf16: "
-                       f"bit-exact; kernel {k_ms:.4f} ms ({moved / k_ms / 1e6:.0f} GB/s, "
-                       f"bound {bound[0]:.4f} ms, {100 * bound[0] / k_ms:.1f}% of it), "
-                       f"plain {p_ms:.3f} ms"
-                       + (f", index_select {l_ms:.4f} ms" if l_ms is not None else ""))
-    del table, grad
-    torch.cuda.empty_cache()
+    for key, lv, width in (("narrow", sg_levels, 2), ("sharded", levels, 16)):
+        table = ((torch.rand(lv.total_entries, width, generator=gen,
+                             device=device) - 0.5) * 2e-4).to(torch.bfloat16)
+        grad = ((torch.rand(lv.total_entries, 4 * width, generator=gen,
+                            device=device) - 0.5) * 2e-3).to(torch.bfloat16)
+        for kernel, what, x, run, plain_fn in (
+                ("quad_build", "B3 quad_build", table, quad_kernel.quad_build_cuda,
+                 quad_kernel.quad_build_plain),
+                ("quad_fold", "B4 quad_fold", grad, quad_kernel.quad_fold_cuda,
+                 quad_kernel.quad_fold_plain)):
+            out, plain = run(x, lv), plain_fn(x, lv)
+            torch.cuda.synchronize()
+            if not torch.equal(out, plain):
+                raise AssertionError(f"{what} on {key} rows differs from its plain version")
+            shape = tuple(out.shape)
+            del out, plain
+            k_ms = cuda_time_ms(lambda: run(x, lv), QUAD_SMALL_ITERS)
+            p_ms = cuda_time_ms(lambda: plain_fn(x, lv))
+            l_ms = quad_library_ms(x, lv, f"{key} rows") if kernel == "quad_build" else None
+            moved = x.numel() * x.element_size() * (5 if kernel == "quad_build" else 1.25)
+            bound = bound_ms(moved)
+            device_ms = kernel_device_ms(lambda: run(x, lv), f"{kernel}_narrow_kernel",
+                                         QUAD_SMALL_ITERS) if key == "narrow" else None
+            results[kernel].update({f"{key}_shape": list(x.shape), f"{key}_ms": k_ms,
+                                    f"{key}_plain_ms": p_ms, f"{key}_bound_ms": bound[0],
+                                    f"{key}_library_ms": l_ms})
+            if device_ms is not None:
+                results[kernel][f"{key}_device_ms"] = device_ms
+            log("kernels", f"{what} {key} rows {tuple(x.shape)} -> {shape} bf16: "
+                           f"bit-exact; kernel {k_ms:.4f} ms ({moved / k_ms / 1e6:.0f} GB/s, "
+                           f"bound {bound[0]:.4f} ms, {100 * bound[0] / k_ms:.1f}% of it), "
+                           f"plain {p_ms:.3f} ms"
+                           + (f", device time {device_ms:.4f} ms" if device_ms else "")
+                           + (f", index_select {l_ms:.4f} ms" if l_ms is not None else ""))
+        del table, grad
+        torch.cuda.empty_cache()
 
     def check_mlp(name, d_in, d_out, n_layers, w, skips, bias, act):
         """B1-fwd and B2 on one MLP at MLP_ROWS rows against their plain

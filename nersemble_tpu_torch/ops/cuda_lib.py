@@ -23,6 +23,7 @@ BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("fused_mlp_fwd.cu", "fused_mlp_bwd.cu", "quad_build.cu",
            "quad_fold.cu", "gather_rows.cu", "copy_ladder.cu",
            "blended_encode.cu")
+HEADERS = ("quad_layout.cuh",)  # included by sources; part of the build's hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -79,7 +80,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libnersemble_kernels_{digest.hexdigest()[:16]}.so"
 

@@ -10,6 +10,7 @@ backward is ``quad_fold``. On CPU tensors they run ``quad_build_plain`` /
 Both kernels are bit-exact against their plain versions.
 """
 
+import functools
 from typing import List, Tuple
 
 import torch
@@ -18,7 +19,12 @@ from torch.profiler import record_function
 from nersemble_tpu_torch.ops import cuda_lib
 
 N_QUARTERS = 4
-MAX_LEVELS = 32  # csrc/quad_build.cu QB_MAX_LEVELS, csrc/quad_fold.cu QF_MAX_LEVELS
+MAX_LEVELS = 32  # csrc/quad_layout.cuh QUAD_MAX_LEVELS
+# csrc/quad_layout.cuh QUAD_GROUP: every level offset, size and roll stride
+# is a multiple of this many rows (HashGridLevels.create), so an aligned
+# group of rows lies in one level and its rolled rows never wrap
+ROW_GROUP = 32
+MAX_ROWS = 2 ** 31 - 1
 
 LAUNCHES = 0       # B3 launches since the last reset (chip_smoke.py reads it)
 FOLD_LAUNCHES = 0  # B4 launches since the last reset
@@ -39,6 +45,20 @@ def _kernel_width(nbytes: int, ptr: int) -> bool:
     if _narrow(nbytes):
         return ptr % nbytes == 0
     return nbytes % 16 == 0 and 0 < nbytes <= 4096 and ptr % 16 == 0
+
+
+def check_layout(levels) -> None:
+    """Raise unless the kernels take ``levels``: at most ``MAX_LEVELS``
+    levels, under 2^31 rows, and every level offset, size and wrapped roll
+    shift a multiple of ``ROW_GROUP`` rows."""
+    if levels.n_levels > MAX_LEVELS:
+        raise ValueError(f"the kernels take <= {MAX_LEVELS} levels")
+    if levels.total_entries > MAX_ROWS:
+        raise ValueError(f"the kernels take < 2^31 rows, not {levels.total_entries}")
+    meta = kernel_layout(levels)
+    if any(v % ROW_GROUP for v in meta[1:]):
+        raise ValueError(f"the kernels take level offsets, sizes and roll shifts "
+                         f"in multiples of {ROW_GROUP} rows, not {meta[1:]}")
 
 
 def quarter_strides(levels) -> List[Tuple[int, ...]]:
@@ -69,9 +89,18 @@ def kernel_layout(levels) -> List[int]:
     return [levels.n_levels, *levels.offsets, *levels.sizes, *shifts]
 
 
+@functools.lru_cache(maxsize=64)
+def _kernel_meta(levels):
+    """``check_layout``, then ``kernel_layout`` as the kernels' host int64
+    argument: built once per layout, not per launch."""
+    check_layout(levels)
+    return cuda_lib.int64_array(kernel_layout(levels))
+
+
 def quad_build_cuda(table: torch.Tensor, levels) -> torch.Tensor:
     """Launch kernel B3 on a contiguous CUDA table [E, W]."""
     global LAUNCHES, NARROW_LAUNCHES
+    meta = _kernel_meta(levels)
     if not table.is_cuda:
         raise ValueError("quad_build_cuda takes a CUDA tensor")
     if table.dim() != 2 or not table.is_contiguous():
@@ -79,14 +108,11 @@ def quad_build_cuda(table: torch.Tensor, levels) -> torch.Tensor:
     if table.shape[0] != levels.total_entries:
         raise ValueError(f"table has {table.shape[0]} rows, the layout "
                          f"{levels.total_entries}")
-    if levels.n_levels > MAX_LEVELS:
-        raise ValueError(f"the kernel takes <= {MAX_LEVELS} levels")
     row_bytes = table.shape[1] * table.element_size()
     if not _kernel_width(row_bytes, table.data_ptr()):
         raise ValueError(f"rows of {row_bytes} B: the kernel takes rows of 4 "
                          "or 8 B or 16-byte chunks of rows up to 4096 B, "
                          "aligned to their loads")
-    meta = cuda_lib.int64_array(kernel_layout(levels))
     out = torch.empty(table.shape[0], N_QUARTERS * table.shape[1],
                       dtype=table.dtype, device=table.device)
     status = cuda_lib.library().quad_build(
@@ -121,6 +147,7 @@ def quad_fold_cuda(g: torch.Tensor, levels) -> torch.Tensor:
     """Launch kernel B4 on a contiguous CUDA quad gradient [E, 4W] (bf16 or
     f32)."""
     global FOLD_LAUNCHES, NARROW_FOLD_LAUNCHES
+    meta = _kernel_meta(levels)
     if not g.is_cuda:
         raise ValueError("quad_fold_cuda takes a CUDA tensor")
     if g.dim() != 2 or not g.is_contiguous() or g.shape[1] % N_QUARTERS:
@@ -129,8 +156,6 @@ def quad_fold_cuda(g: torch.Tensor, levels) -> torch.Tensor:
         raise ValueError(f"the fold kernel takes bf16 or f32, not {g.dtype}")
     if g.shape[0] != levels.total_entries:
         raise ValueError(f"g has {g.shape[0]} rows, the layout {levels.total_entries}")
-    if levels.n_levels > MAX_LEVELS:
-        raise ValueError(f"the kernel takes <= {MAX_LEVELS} levels")
     width = g.shape[1] // N_QUARTERS
     quarter_bytes = width * g.element_size()
     if not _kernel_width(quarter_bytes, g.data_ptr()):
@@ -140,8 +165,7 @@ def quad_fold_cuda(g: torch.Tensor, levels) -> torch.Tensor:
     out = torch.empty(g.shape[0], width, dtype=g.dtype, device=g.device)
     status = cuda_lib.library().quad_fold(
         g.data_ptr(), out.data_ptr(), g.shape[0], quarter_bytes,
-        g.element_size(), cuda_lib.int64_array(kernel_layout(levels)),
-        torch.cuda.current_stream(g.device).cuda_stream)
+        g.element_size(), meta, torch.cuda.current_stream(g.device).cuda_stream)
     cuda_lib.check(status, "quad_fold")
     FOLD_LAUNCHES += 1
     NARROW_FOLD_LAUNCHES += _narrow(quarter_bytes)

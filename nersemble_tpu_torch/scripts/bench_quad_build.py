@@ -18,13 +18,17 @@ must be bit-exact, or the script raises.
 
 ``--diag`` runs the build's cost ladder instead, each rung a kernel held
 bit-exact to its plain version: copy (P2) -> broadcast-quarters (P3) ->
-seven-fetch (P4) -> the real build (B3); each rung prints its ms, the
-bytes it must move and GB/s. ``--block`` is the ladder's rows per thread
-block (the Pallas block; the level layout keeps its 2048-row padding).
+seven-fetch (P4) -> the real build (B3) -> B3 on the same table with every
+roll stride set to 0 (each output row's four quarters are its own row, so
+a source row's four reads come back to back: the build without its
+scattered re-reads); each rung prints its ms, the bytes it must move and
+GB/s. ``--block`` is the ladder's rows per thread block (the Pallas block;
+the level layout keeps its 2048-row padding).
 Times are CUDA-event means after a warm-up.
 """
 
 import argparse
+import dataclasses
 from typing import Optional, Sequence
 
 import torch
@@ -115,6 +119,8 @@ def run_diagnostics(block: int = copy_kernels.BLOCK) -> dict:
           f"{-(-E // block)} blocks", flush=True)
     in_bytes, out4_bytes = E * W * 2, 4 * E * W * 2
     seven = [x] * 7
+    unrolled = dataclasses.replace(levels, x_strides=(0,) * levels.n_levels,
+                                   z_strides=(0,) * levels.n_levels)
     rungs = [
         ("copy   [B,W]->[B,W]   ", lambda: copy_kernels.copy_cuda(x, block),
          lambda: copy_kernels.copy_plain(x), 2 * in_bytes),
@@ -124,6 +130,9 @@ def run_diagnostics(block: int = copy_kernels.BLOCK) -> dict:
          lambda: copy_kernels.fetch7_plain(*seven), in_bytes + out4_bytes),
         ("build  (B3)           ", lambda: quad_kernel.quad_build_cuda(table, levels),
          lambda: quad_kernel.quad_build_plain(table, levels),
+         levels.total_entries * W * 2 * 5),
+        ("build0 (B3, no rolls)  ", lambda: quad_kernel.quad_build_cuda(table, unrolled),
+         lambda: quad_kernel.quad_build_plain(table, unrolled),
          levels.total_entries * W * 2 * 5),
     ]
     results = {}
@@ -147,7 +156,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="skip the (b)/(c) alternative formulations")
     ap.add_argument("--diag", action="store_true",
                     help="run the build's cost ladder: copy (P2) -> "
-                         "broadcast-quarters (P3) -> seven-fetch (P4) -> B3")
+                         "broadcast-quarters (P3) -> seven-fetch (P4) -> B3 "
+                         "-> B3 with every roll stride 0")
     ap.add_argument("--block", type=int, default=copy_kernels.BLOCK,
                     help="the ladder's rows per thread block")
     return ap.parse_args(argv)

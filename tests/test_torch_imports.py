@@ -129,9 +129,11 @@ def test_no_int_float_bitcasts_in_the_port():
 
 
 def test_cuda_sources_include_only_the_toolkit():
-    """csrc/ builds with nvcc alone: no PyTorch, JAX or XLA headers."""
-    allowed = {"cuda_runtime.h", "cuda_bf16.h", "stdint.h"}
-    for path in CSRC.glob("*.cu"):
+    """csrc/ builds with nvcc alone: no PyTorch, JAX or XLA headers (the
+    toolkit's runtime and tensor-map types, and csrc/'s own headers)."""
+    allowed = {"cuda_runtime.h", "cuda_bf16.h", "stdint.h", "cuda.h",
+               "cudaTypedefs.h"} | {p.name for p in CSRC.glob("*.cuh")}
+    for path in [*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]:
         includes = set(re.findall(r'^#include\s*[<"]([^>"]+)[>"]',
                                   path.read_text(), re.MULTILINE))
         assert includes <= allowed, (path.name, includes - allowed)

@@ -5,6 +5,7 @@ and nvcc, and skips without them (the decision is made inside the fixture,
 never at import). On the card: ``python -m pytest -m cuda tests/``.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -272,6 +273,72 @@ def test_quad_kernels_take_narrow_rows(cuda, layout, dtype):
         (before[0] + 1, before[1] + 1)
     assert torch.equal(out, quad_kernel.quad_build_plain(table, levels))
     assert torch.equal(folded, quad_kernel.quad_fold_plain(grad, levels))
+
+
+FLAGSHIP = (16, 19, 16, 1.4472692012786865)
+
+
+def _quad_layout(name):
+    """The card tests' level layouts: ragged 1024-row hashed levels, padded
+    dense levels, 512-row hashed levels (the CLI tests' tiny single grid),
+    the single grid, the flagship, and the flagship with every roll stride
+    0 (each quarter of a row is the row itself)."""
+    if name == "flagship no rolls":
+        lv = HashGridLevels.create(*FLAGSHIP)
+        return dataclasses.replace(lv, x_strides=(0,) * lv.n_levels,
+                                   z_strides=(0,) * lv.n_levels)
+    return HashGridLevels.create(*{
+        "tiny": (4, 10, 4, 1.5), "padded": (6, 12, 4, 1.5),
+        "cli tiny": (4, 9, 16, float(np.exp((np.log(32) - np.log(16)) / 3))),
+        "single grid": SINGLE_GRID, "flagship": FLAGSHIP}[name])
+
+
+# every row width the wrapper routes differently (narrow 4 and 8 B, the
+# output-major 16-64 B rows, the source-major 128 and 512 B rows) on the
+# small layouts; the full-size ones up to 128 B (a 512 B flagship table and
+# its plain build would take tens of GB)
+QUAD_WIDTH_CASES = [(layout, row_bytes)
+                    for layout in ("tiny", "padded", "cli tiny", "single grid",
+                                   "flagship", "flagship no rolls")
+                    for row_bytes in (4, 8, 16, 32, 64, 128, 512)
+                    if row_bytes <= 128 or layout in ("tiny", "padded", "cli tiny")]
+
+
+@pytest.mark.parametrize("layout,row_bytes", QUAD_WIDTH_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quad_kernels_at_every_width(cuda, layout, dtype, row_bytes):
+    """B3 on rows of each width and B4 on quarters of the same widths,
+    bit-exact against the plain versions, with their launch counters."""
+    levels = _quad_layout(layout)
+    width = row_bytes // torch.tensor([], dtype=dtype).element_size()
+    g = torch.Generator(device=cuda).manual_seed(row_bytes)
+    table = torch.randn(levels.total_entries, width, generator=g,
+                        device=cuda).to(dtype)
+    before = (quad_kernel.LAUNCHES, quad_kernel.FOLD_LAUNCHES,
+              quad_kernel.NARROW_LAUNCHES, quad_kernel.NARROW_FOLD_LAUNCHES)
+    out = quad_kernel.quad_build(table, levels)
+    torch.cuda.synchronize()
+    assert torch.equal(out, quad_kernel.quad_build_plain(table, levels))
+    del out, table
+    grad = torch.randn(levels.total_entries, 4 * width, generator=g,
+                       device=cuda).to(dtype)
+    folded = quad_kernel.quad_fold(grad, levels)
+    torch.cuda.synchronize()
+    assert torch.equal(folded, quad_kernel.quad_fold_plain(grad, levels))
+    narrow = row_bytes in (4, 8)
+    assert (quad_kernel.LAUNCHES, quad_kernel.FOLD_LAUNCHES,
+            quad_kernel.NARROW_LAUNCHES, quad_kernel.NARROW_FOLD_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1, before[2] + narrow, before[3] + narrow)
+
+
+def test_quad_kernels_refuse_a_layout_off_the_row_groups(cuda):
+    levels = HashGridLevels.create(4, 10, 4, 1.5)
+    odd = dataclasses.replace(levels, x_strides=tuple(s + 16 for s in levels.x_strides))
+    table = torch.zeros(levels.total_entries, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiples"):
+        quad_kernel.quad_build(table, odd)
+    with pytest.raises(ValueError, match="multiples"):
+        quad_kernel.quad_fold(torch.zeros_like(table), odd)
 
 
 def test_train_step_on_cuda_matches_cpu(cuda):
