@@ -31,12 +31,17 @@ Phases, each printing its own lines:
                   bound for the bf16 split it runs and the bound of the
                   f32-product route; then B3 and B4 on narrow rows, the
                   single-grid field's [6,184,960, 2] bf16 table (4-byte rows)
-                  and its [6,184,960, 8] gradient (4-byte quarters), and at
+                  and its [6,184,960, 8] gradient (4-byte quarters), at
                   the width one rank of four builds under the feature-sharded
                   table ([6,537,216, 16] bf16, 32-byte rows, and its [E, 64]
-                  gradient), bit-exact, timed beside their bound (B3 also
+                  gradient), and on the single grid's column of one feature
+                  that each of two ranks holds under that layout
+                  ([6,184,960, 1]: 2-byte rows and quarters in bf16, 4-byte
+                  ones in f32), bit-exact, timed beside their bound (B3 also
                   beside index_select, the narrow ones also by their device
-                  time under torch.profiler), and B1-fwd and B2 on
+                  time under torch.profiler; B4 on 2-byte quarters by its
+                  whole-row loads and by 2-byte quarter loads), and B1-fwd
+                  and B2 on
                   the colour head at the other configurations' input widths
                   31 (SH degree 4), 50 (appearance embedding) and 63 (both)
                   at 98,304 rows, within the same bounds, with the share of
@@ -44,9 +49,11 @@ Phases, each printing its own lines:
                   (A3-fwd, A3-bwd) against its plain version (ENCODE_CASES):
                   the flagship [6,537,216, 256] bf16 quad table at 73,728
                   and 98,304 samples, 16 tables ([6,537,216, 128]), the
-                  single grid ([6,184,960, 8]), the flagship table in f32
-                  and 24 tables ([6,537,216, 192], a table count that is
-                  not a power of two), on positions half uniform, a quarter
+                  single grid ([6,184,960, 8]), the flagship table in f32,
+                  24 tables ([6,537,216, 192], a table count that is
+                  not a power of two) and the single grid's column of one
+                  feature ([6,184,960, 4] in bf16 and f32; A3-fwd also by
+                  its device time), on positions half uniform, a quarter
                   in the grid's centre block and a quarter at the origin
                   (hot entries), with codes at the time embedding's
                   contrast scale: CG and BH bit for bit, the output and
@@ -242,14 +249,33 @@ Phases, each printing its own lines:
                   (c) with two or more cards visible: ZeRO-3 over NCCL on
                   all of them, its first step's gradients against one rank
                   as in (b), then bench_projection; with one card, a line
-                  says (c) was not run.
+                  says (c) was not run. (d) the single-grid field at the
+                  train CLI's defaults ([6,184,960, 2] bf16 table) in the
+                  feature-sharded layout over two gloo ranks on this card,
+                  one column each (B3 on 2-byte rows, B4 on 2-byte
+                  quarters, A3 on quad rows of 4 elements: their narrow
+                  launch counts must be > 0), and one rank: the first
+                  step's gradients within the same bounds (the table's at
+                  the bf16 bound), whether the three steps end bit for bit
+                  (printed), and two runs of two ranks bit for bit
+                  (SHA-256). (e) on a 128x176 synthetic capture, the train
+                  CLI with --vis viewer (single grid, learning rate 0, two
+                  steps, a request queued during step 0;
+                  parallel/compare.viewer_run) over two gloo ranks and on
+                  one rank: each reply a PNG, the frames within atol 5e-5
+                  rtol 1e-4 (tests/test_torch_parallel_io.py's render
+                  bound), B1-fwd, B3 and A3-fwd launched; then the
+                  evaluate CLI on the two-rank run (its config says
+                  data_axis_size 2: two gloo ranks) and on a copy that says
+                  1: PNGs within one 8-bit level, metrics within rtol 1e-4.
 Then one JSON line with the ten kernels (launches on the training path
 for B1-B4 and A3 and on the measurement path for P1-P4, times, the bound
-and the library call's time; A3 with every case of phase 3; B3/B4 also with their narrow-row time and bound (B3
-beside its library call, index_select at a cached quad index), B1-fwd and
-B2 with the variant heads', and B1-B4 with their launches in phase 14's
-runs (a) and (b), phase 15's quality run and render bench and phase 16's
-ranks), and the last line
+and the library call's time; A3 with every case of phase 3; B3/B4 also
+with their narrow-row, sharded-row and one-feature column times and bounds
+(B3 beside its library call, index_select at a cached quad index), B1-fwd
+and B2 with the variant heads', and B1-B4 with their launches in phase
+14's runs (a) and (b), phase 15's quality run and render bench and phase
+16's ranks), and the last line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
 and the last line is not printed. Without a CUDA device nothing runs.
 """
@@ -282,7 +308,9 @@ PROFILE_RANGES = ("render:march", "render:sigma_probe", "render:field",
 OWN_KERNELS = ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel", "pack_stream_kernel",
                "partial_sum_kernel", "quad_build_tma_kernel", "quad_build_rows_kernel",
                "quad_fold_kernel", "quad_build_narrow_kernel", "quad_fold_narrow_kernel",
-               "be_fwd_kernel", "be_sample_kernel", "be_chunk_kernel", "be_span_kernel")
+               "quad_build_half_kernel", "quad_fold_half_kernel",
+               "be_fwd_kernel", "be_fwd_narrow_kernel", "be_sample_kernel",
+               "be_chunk_kernel", "be_span_kernel")
 # A3 against its plain version: (case, quad table width, dtype, samples,
 # single grid); the first is the flagship table at the bench's budget; 24
 # tables (--n-hash-encodings 24): a table count that is not a power of two
@@ -291,7 +319,9 @@ ENCODE_CASES = [("flagship", 256, "bfloat16", 73728, False),
                 ("16 tables", 128, "bfloat16", 73728, False),
                 ("single grid", 8, "bfloat16", 73728, True),
                 ("flagship f32", 256, "float32", 73728, False),
-                ("24 tables", 192, "bfloat16", 73728, False)]
+                ("24 tables", 192, "bfloat16", 73728, False),
+                ("single grid column", 4, "bfloat16", 73728, True),
+                ("single grid column f32", 4, "float32", 73728, True)]
 ENCODE_CODE_STD = 0.01 / math.sqrt(32)  # the time embedding's init (models/nersemble.py)
 # SHA-256 of the flagship digest case's outputs (scripts/encode_digests.py)
 # from the blended-encode kernels of commit 77061aa, on an NVIDIA H100 80GB
@@ -423,6 +453,21 @@ PAR_TOL = {"atol": 5e-5, "rtol": 1e-3}
 # apply_linear's round_to: each rank rounds its share before the sum)
 PAR_GRAD_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (1e-2, 2e-3)}
 PAR_BF16_GRADS = ("deformation.head_rv.w",)
+# (e): the viewer and the evaluate CLI over two gloo ranks on this card on a
+# small capture (the single-grid model at the train CLI's defaults, at
+# learning rate 0: both runs hold the same parameters), held to one rank at
+# tests/test_torch_parallel_io.py's render bound; PNGs within one 8-bit level
+SERVE_RANKS_SIZE = (128, 176)
+SERVE_RANKS_TOL = {"atol": 5e-5, "rtol": 1e-4}
+SERVE_RANKS_TRAIN = ["30", "SYN-1", "--device", "cuda", "--vis", "viewer",
+                     "--no-use-hash-ensemble",
+                     "--viewer-port", "0", "--max-num-iterations", "2",
+                     "--lr-main", "0", "--lr-deformation-field", "0",
+                     "--lr-embeddings", "0", "--steps-per-eval-batch", "0",
+                     "--steps-per-eval-image", "0", "--steps-per-eval-all-images", "0",
+                     "--steps-per-save", "1000", "--dist-backend", "gloo"]
+SERVE_RANKS_EVAL = ["--max-eval-timesteps", "2", "--n-rays-eval", str(CHUNK),
+                    "--no-use-occupancy-grid-filtering"]
 # the train path's hand kernels (ops/launch_counts.py)
 TRAIN_KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "quad_build", "quad_fold",
                  "blended_encode_fwd", "blended_encode_bwd")
@@ -727,12 +772,20 @@ def kernel_phase(cfg, levels, device):
     # gradient's quarters. Each timed over QUAD_SMALL_ITERS calls: a narrow
     # call's wrapper takes about as long on the host as its kernel on the
     # card, so B3/B4 narrow also print their device time under torch.profiler
+    # the single grid's column of one feature, what each of two ranks holds
+    # under the feature-sharded layout ([E, 1]: 2-byte rows and quarters in
+    # bf16, quad_build_half_kernel / quad_fold_half_kernel; 4-byte ones in
+    # f32, the narrow kernels), timed the same way
     sg_levels = single_grid_levels()
-    for key, lv, width in (("narrow", sg_levels, 2), ("sharded", levels, 16)):
+    for key, lv, width, dtype, device_kernel in (
+            ("narrow", sg_levels, 2, torch.bfloat16, "narrow"),
+            ("sharded", levels, 16, torch.bfloat16, None),
+            ("column", sg_levels, 1, torch.bfloat16, "half"),
+            ("column_f32", sg_levels, 1, torch.float32, "narrow")):
         table = ((torch.rand(lv.total_entries, width, generator=gen,
-                             device=device) - 0.5) * 2e-4).to(torch.bfloat16)
+                             device=device) - 0.5) * 2e-4).to(dtype)
         grad = ((torch.rand(lv.total_entries, 4 * width, generator=gen,
-                            device=device) - 0.5) * 2e-3).to(torch.bfloat16)
+                            device=device) - 0.5) * 2e-3).to(dtype)
         for kernel, what, x, run, plain_fn in (
                 ("quad_build", "B3 quad_build", table, quad_kernel.quad_build_cuda,
                  quad_kernel.quad_build_plain),
@@ -749,18 +802,21 @@ def kernel_phase(cfg, levels, device):
             l_ms = quad_library_ms(x, lv, f"{key} rows") if kernel == "quad_build" else None
             moved = x.numel() * x.element_size() * (5 if kernel == "quad_build" else 1.25)
             bound = bound_ms(moved)
-            device_ms = kernel_device_ms(lambda: run(x, lv), f"{kernel}_narrow_kernel",
-                                         QUAD_SMALL_ITERS) if key == "narrow" else None
+            device_ms = kernel_device_ms(
+                lambda: run(x, lv), f"{kernel}_{device_kernel}_kernel",
+                QUAD_SMALL_ITERS) if device_kernel else None
             results[kernel].update({f"{key}_shape": list(x.shape), f"{key}_ms": k_ms,
                                     f"{key}_plain_ms": p_ms, f"{key}_bound_ms": bound[0],
                                     f"{key}_library_ms": l_ms})
             if device_ms is not None:
                 results[kernel][f"{key}_device_ms"] = device_ms
-            log("kernels", f"{what} {key} rows {tuple(x.shape)} -> {shape} bf16: "
-                           f"bit-exact; kernel {k_ms:.4f} ms ({moved / k_ms / 1e6:.0f} GB/s, "
-                           f"bound {bound[0]:.4f} ms, {100 * bound[0] / k_ms:.1f}% of it), "
-                           f"plain {p_ms:.3f} ms"
-                           + (f", device time {device_ms:.4f} ms" if device_ms else "")
+            log("kernels", f"{what} {key} rows {tuple(x.shape)} -> {shape} "
+                           f"{str(dtype)[6:]}: bit-exact; kernel {k_ms:.4f} ms "
+                           f"({moved / k_ms / 1e6:.0f} GB/s, bound {bound[0]:.4f} ms, "
+                           f"{100 * bound[0] / k_ms:.1f}% of it), plain {p_ms:.3f} ms"
+                           + (f", device time {device_ms:.4f} ms ({device_kernel} kernel, "
+                              f"{100 * bound[0] / device_ms:.1f}% of the bound)"
+                              if device_ms else "")
                            + (f", index_select {l_ms:.4f} ms" if l_ms is not None else ""))
         del table, grad
         torch.cuda.empty_cache()
@@ -911,7 +967,8 @@ def encode_kernel_phase(cfg, levels, device):
         dt = getattr(torch, dtype)
         table = ((torch.rand(lv.total_entries, width, generator=gen, device=device)
                   - 0.5) * 2e-4 * 3e3).to(dt)  # the contrast-scaled table's range
-        args, gbar = encode_inputs(lv, table, n, 2, not single, gen)
+        fl = width // 4 if single else 2
+        args, gbar = encode_inputs(lv, table, n, fl, not single, gen)
         _, code, wy, fx, fz, entry_idx = args[:6]
         shape = tuple(table.shape)
 
@@ -921,6 +978,7 @@ def encode_kernel_phase(cfg, levels, device):
         if not all(a is None or torch.equal(a, b) for a, b in zip(ours[1:], refs[1:])):
             raise AssertionError(f"A3-fwd {what}: CG or BH differs from the plain "
                                  f"version's bits")
+        out_bits = torch.equal(ours[0], refs[0])
         del refs
         grads = [he.blended_encode_bwd_cuda(gbar, ours[1], ours[2], code, entry_idx,
                                             wy, fx, fz, shape) for _ in range(2)]
@@ -942,12 +1000,15 @@ def encode_kernel_phase(cfg, levels, device):
             gbar, ours[1], ours[2], code, entry_idx, wy, fx, fz, shape)
         fk, fp = cuda_time_ms(fwd), cuda_time_ms(lambda: he.blended_encode_fwd_plain(*args))
         bk = cuda_time_ms(bwd)
+        # a one-feature forward is a ~20 us kernel: its wrapper's host time
+        # is comparable, so its device time too
+        fd = kernel_device_ms(fwd, "be_fwd_narrow_kernel") if width == 4 else None
         bp = cuda_time_ms(lambda: he.blended_encode_bwd_plain(
             gbar, ours[1], ours[2], code, entry_idx, wy, fx, fz, shape))
         parts = encode_bwd_parts(he, (gbar, ours[1], ours[2], code, entry_idx, wy, fx,
                                       fz, shape), bk)
         lib = None
-        if what == ENCODE_CASES[0][0]:  # the scatter alone: index_add_ of f32 rows
+        if what == ENCODE_CASES[0][0] or width == 4:  # the scatter alone: index_add_ of f32 rows
             acc = torch.zeros(shape, dtype=torch.float32, device=device)
             rows = torch.randn(entry_idx.numel(), shape[1], generator=gen, device=device)
             flat = entry_idx.reshape(-1)
@@ -972,9 +1033,11 @@ def encode_kernel_phase(cfg, levels, device):
                     "max_abs": t_abs, **t_err}}, lib)):
             err = max(e["max_abs"] for e in errs.values())
             entry = kernel_entry(err, k_ms, p_ms, bound, l_ms)
+            extra = {"parts": parts} if kernel.endswith("bwd") else {"out_bit_for_bit": out_bits}
+            if fd is not None and kernel.endswith("fwd"):
+                extra["device_ms"] = fd
             cases[kernel].append({"case": what, "samples": n, "table": list(shape),
-                                  "dtype": dtype, **entry,
-                                  **({"parts": parts} if kernel.endswith("bwd") else {})})
+                                  "dtype": dtype, **entry, **extra})
             if results[kernel] is None:
                 results[kernel] = entry
             log("kernels", f"{'A3-fwd' if kernel.endswith('fwd') else 'A3-bwd'} "
@@ -982,10 +1045,14 @@ def encode_kernel_phase(cfg, levels, device):
                            f"{k_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
                            f"{100 * bound[0] / k_ms:.1f}% of it; plain {p_ms:.3f} ms"
                            + (f"; index_add_ of the f32 rows alone {l_ms:.3f} ms"
-                              if l_ms is not None else ""))
+                              if l_ms is not None else "")
+                           + (f"; device time {fd:.4f} ms ({100 * bound[0] / fd:.1f}% "
+                              f"of the bound)" if fd is not None and kernel.endswith("fwd")
+                              else ""))
         log("kernels", f"A3 {what}: {distinct} distinct rows of "
                        f"{entry_idx.numel()} gathered ({gathered_gb:.3f} GB gathered); "
-                       f"CG and BH bit for bit; "
+                       f"CG and BH bit for bit, out "
+                       f"{'bit for bit' if out_bits else 'within the bounds'}; "
                        f"forward against plain, share of the max / mean bounds "
                        + ", ".join(f"{k} {e['max_abs'] / max(e['max_tol'], 1e-38):.3g} / "
                                    f"{e['mean_abs'] / max(e['mean_tol'], 1e-38):.3g}"
@@ -2340,12 +2407,12 @@ def _parallel_runs(out_dir) -> dict:
         if hold and worst[1] > 1.0:
             raise AssertionError(f"{what}: {worst[0]} at {worst[1]:.3f} of the bound")
 
-    def gradients(what, got, ref):
+    def gradients(what, got, ref, bf16_leaves=PAR_BF16_GRADS):
         """The first moments after the first step within PAR_GRAD_TOL."""
         shares = {}
         for key, value in ref.items():
             leaf = key[len("mu."):]
-            rtol, atol = PAR_GRAD_TOL["bfloat16" if leaf in PAR_BF16_GRADS else "float32"]
+            rtol, atol = PAR_GRAD_TOL["bfloat16" if leaf in bf16_leaves else "float32"]
             scale = float(np.abs(value).max())
             share = float((np.abs(got[key] - value) / (atol * scale + rtol * np.abs(value))
                            ).max()) if scale > 0 else 0.0
@@ -2392,6 +2459,11 @@ def _parallel_runs(out_dir) -> dict:
             if count <= 0:
                 raise AssertionError(f"({run}) the parallel path never launched {kernel}")
 
+    # (d) the feature-sharded single grid over two gloo ranks on this card
+    launches["d"] = _grid_tp_runs(spec, out_dir, plain, ranks, gradients, load, out)
+    # (e) the viewer and the evaluate CLI over two gloo ranks on this card
+    launches["e"] = _serve_ranks_runs(out_dir)
+
     # (c) every visible card over NCCL
     n = torch.cuda.device_count()
     if n < 2:
@@ -2407,6 +2479,139 @@ def _parallel_runs(out_dir) -> dict:
     log("parallel", f"(c) bench_projection over {n} cards: {json.dumps(projection)}")
     launches["c"] = many["launches"]
     return launches
+
+
+def _grid_tp_runs(spec, out_dir, plain, ranks, gradients, load, out) -> dict:
+    """Phase 16 (d): the flagship steps on the single-grid field at the
+    train CLI's defaults ([6,184,960, 2] bf16 table) in the feature-sharded
+    layout over two gloo ranks sharing this card, each rank one column
+    (B3 on 2-byte rows, B4 on 2-byte quarters, A3 on quad rows of 4
+    elements), against one rank: the first step's gradients within
+    PAR_GRAD_TOL (the table's at the bf16 bound: it passes the bf16 quad),
+    whether the three steps end bit for bit (printed), and two runs bit
+    for bit (SHA-256). Returns the run's launches, the narrow ones too."""
+    d_cfg = copy.deepcopy(spec["config"])
+    d_cfg.use_hash_ensemble, d_cfg.hash_ensemble = False, None
+    d = dict(spec, config=d_cfg, layout="tp", digest=True)
+    plain("(d) one rank, single grid", dict(d, first_mu_out=str(out_dir / "d_one_mu.npz"),
+                                            **out("d_one")))
+    first, second = ranks("(d) two gloo ranks, single grid", 2, "gloo", [
+        dict(d, first_mu_out=str(out_dir / "d_tp_mu.npz"), **out("d_tp")), d])
+    gradients("(d) the feature-sharded single grid on two gloo ranks vs one rank",
+              load("d_tp_mu"), load("d_one_mu"), PAR_BF16_GRADS + ("field.table",))
+    one, two = load("d_one"), load("d_tp")
+    unequal = {k: int((one[k] != two[k]).sum()) for k in one if (one[k] != two[k]).any()}
+    mu_one, mu_two = load("d_one_mu"), load("d_tp_mu")
+    mu_unequal = [k for k in mu_one if not np.array_equal(mu_one[k], mu_two[k])]
+    log("parallel", f"(d) two ranks vs one rank after {PAR_STEPS} steps: "
+                    + ("bit for bit" if not unequal else f"unequal entries {unequal}")
+                    + "; the first step's gradients "
+                    + ("bit for bit" if not mu_unequal else f"unequal in {mu_unequal}"))
+    differ = [k for k, v in first["digest"].items() if second["digest"][k] != v]
+    if differ or first["loss"] != second["loss"]:
+        raise AssertionError(f"(d) two runs differ: leaves {differ}, losses "
+                             f"{first['loss']} vs {second['loss']}")
+    log("parallel", f"(d) two runs of two ranks: losses and {len(first['digest'])} "
+                    f"leaves bit for bit (SHA-256); narrow launches "
+                    f"{first['narrow_launches']}")
+    for kernel, count in first["narrow_launches"].items():
+        if count <= 0:
+            raise AssertionError(f"(d) no {kernel} launch")
+    return {**first["launches"], **first["narrow_launches"]}
+
+
+def _serve_ranks_runs(out_dir) -> dict:
+    """Phase 16 (e): on a small synthetic capture, the train CLI with
+    ``--vis viewer`` (the single-grid model at learning rate 0, two steps, a
+    request queued during step 0: ``parallel/compare.viewer_run``) over two
+    gloo ranks sharing this card and on one rank: both replies PNGs, the
+    frames within SERVE_RANKS_TOL; then the evaluate CLI on the two-rank run
+    (config data_axis_size 2: two gloo ranks) and on a copy that says 1: the
+    PNGs within one 8-bit level, every metric within SERVE_RANKS_TOL's
+    rtol. Returns the two-rank viewer run's launches (rank 0)."""
+    import shutil
+
+    import torch
+    from nersemble_tpu_torch import env
+    from nersemble_tpu_torch.config import TrainConfig
+    from nersemble_tpu_torch.parallel import compare, launch
+    from nersemble_tpu_torch.scripts import evaluate_nersemble
+    from nersemble_tpu_torch.utils import png
+    from nersemble_tpu_torch.utils.synthetic_capture import write_capture
+
+    root = out_dir / "serve"
+    write_capture(root / "data", 30, "SYN-1", 3, SERVE_RANKS_SIZE)
+    saved = {name: getattr(env, name) for name in launch.ENV_ROOTS}
+    roots = {"NERSEMBLE_DATA_PATH": str(root / "data"),
+             "NERSEMBLE_MODELS_PATH": str(root / "models"),
+             "NERSEMBLE_RENDERS_PATH": str(root / "renders")}
+    query = {"channel": "rgb", "width": SERVE_VIEW_WIDTH, "az": 0.3}
+    try:
+        for name, value in roots.items():
+            setattr(env, name, value)
+        torch.cuda.empty_cache()
+        start = time.perf_counter()
+        one = compare.viewer_run(None, {
+            "argv": SERVE_RANKS_TRAIN + ["--name", "one", "--data-axis-size", "1"],
+            "roots": roots, "query": query, "out": str(out_dir / "e_one.npz")})
+        one_s = time.perf_counter() - start
+        torch.cuda.empty_cache()
+        start = time.perf_counter()
+        (two,) = launch.spawn(compare.run_many, 2, "gloo", "cuda", [("viewer_run", {
+            "argv": SERVE_RANKS_TRAIN + ["--name", "two", "--data-axis-size", "2"],
+            "roots": roots, "query": query, "out": str(out_dir / "e_two.npz")})])
+        two_s = time.perf_counter() - start
+        for what, result in (("one rank", one), ("two gloo ranks", two)):
+            log("parallel", f"(e) --vis viewer, {what}: layout {result['layout']}, "
+                            f"reply {result['status']} {result['ctype']}, frames "
+                            f"{result['frames']}, launches {result['launches']}")
+            if (result["status"], result["ctype"], result["frames"]) != (200, "image/png", 1):
+                raise AssertionError(f"(e) the viewer over {what} did not serve its frame")
+        a, b = np.load(out_dir / "e_two.npz"), np.load(out_dir / "e_one.npz")
+        err = float(np.abs(a["frame"] - b["frame"]).max())
+        np.testing.assert_allclose(a["frame"], b["frame"], **SERVE_RANKS_TOL)
+        if not a["frame"].max() > 0 or np.abs(a["png"].astype(int) - b["png"].astype(int)).max() > 1:
+            raise AssertionError("(e) the viewer's frame is black or its PNG differs")
+        log("parallel", f"(e) the viewer's frame {list(a['frame'].shape)} over two ranks "
+                        f"vs one rank: max abs err {err:.3g} (tol {SERVE_RANKS_TOL}); runs "
+                        f"{one_s:.1f} s / {two_s:.1f} s with set-up")
+        for kernel in ("fused_mlp_fwd", "quad_build", "blended_encode_fwd"):
+            if two["launches"][kernel] <= 0:
+                raise AssertionError(f"(e) the two-rank viewer run never launched {kernel}")
+
+        runs = root / "models" / "nersemble"
+        (two_dir,) = runs.glob("NERS-*-two")
+        one_dir = runs / "NERS-099-copy"
+        shutil.copytree(two_dir, one_dir)
+        config = TrainConfig.load(one_dir / "config.yml")
+        config.parallel.data_axis_size = 1
+        config.save(one_dir / "config.yml")
+        results, seconds = {}, {}
+        for what, run in (("two gloo ranks", two_dir.name), ("one rank", one_dir.name)):
+            torch.cuda.empty_cache()
+            start = time.perf_counter()
+            results[what] = evaluate_nersemble.main([run] + SERVE_RANKS_EVAL).to_dict()
+            seconds[what] = time.perf_counter() - start
+        pngs = [{p.relative_to(d): png.imread(p) for p in (d / "evaluation").rglob("*.png")}
+                for d in (two_dir, one_dir)]
+        if pngs[0].keys() != pngs[1].keys() or not pngs[0]:
+            raise AssertionError(f"(e) the evaluate CLI wrote {len(pngs[0])} / "
+                                 f"{len(pngs[1])} images")
+        level = max(int(np.abs(pngs[0][k].astype(int) - pngs[1][k].astype(int)).max())
+                    for k in pngs[0])
+        mean_two, mean_one = (results[w]["mean"]["regular"] for w in results)
+        worst = max(abs(mean_two[k] - v) / max(abs(v), 1e-12)
+                    for k, v in mean_one.items() if v is not None)
+        log("parallel", f"(e) the evaluate CLI over two gloo ranks vs one rank: "
+                        f"{len(pngs[0])} images, PNGs within {level} 8-bit level(s), "
+                        f"mean metrics {mean_two} vs {mean_one} (worst rel {worst:.3g}); "
+                        f"{seconds['two gloo ranks']:.1f} s / {seconds['one rank']:.1f} s")
+        if level > 1 or worst > SERVE_RANKS_TOL["rtol"]:
+            raise AssertionError("(e) the evaluate CLI over two ranks differs from one rank")
+    finally:
+        for name, value in saved.items():
+            setattr(env, name, value)
+    return two["launches"]
 
 
 def trained_scene_phase(device) -> dict:

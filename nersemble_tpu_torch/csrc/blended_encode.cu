@@ -51,7 +51,13 @@
 //     dtype once per element, u_q and round(wy * u_q), into the other of two
 //     buffer sets.
 // The single grid (no code) takes one thread per (unit, level) and one
-// barrier per stage. With residuals off (render) BH and the residual stores
+// barrier per stage. Quad rows of 4 elements (one feature: the single
+// grid's column that one rank of two holds under the feature-sharded
+// layout) are 8 bytes in bf16, which no bulk copy takes (its size is a
+// multiple of 16 bytes): be_fwd_narrow_kernel takes one thread per
+// (sample, level), reads its two rows with read-only vector loads and sums
+// in the single grid's order for W = 1 and 2, so a rank's column of
+// features equals the whole table's column bit for bit. With residuals off (render) BH and the residual stores
 // are skipped; the f32 CG sums are still formed, since `out` is built from
 // them. A bf16 product or sum of two bf16 values takes one packed
 // fma.rn.bf16x2: the product of two bf16 values is exact in f32 and the f32
@@ -84,6 +90,8 @@
 //  * be_span_kernel: one group per chunk whose last run starts in it and
 //    goes on past its end sums that run's pieces in chunk order, rounds
 //    once and writes the row. Every sum has one fixed order.
+// Rows of 4 elements (W = 1) take one lane per chunk, each lane the whole
+// row (P = 4 elements in place of 8).
 // A hot entry (every padded sample lands on one corner per level) costs at
 // most BE_CHUNK steps in one group plus its chunks' count in another. The
 // memset writes at the card's bandwidth and fills every SM, so the sort and
@@ -236,6 +244,21 @@ __device__ __forceinline__ void be_store(T* p, const float (&v)[N]) {
 #pragma unroll
         for (int i = 0; i < PER; ++i) e[i] = be_cast<T>(v[k * PER + i]);
         reinterpret_cast<uint4*>(p)[k] = raw;
+    }
+}
+
+// P elements of a table row: 16-byte stores, or one 8-byte store (4 bf16)
+template <typename T, int P>
+__device__ __forceinline__ void be_store_row(T* p, const float (&v)[P]) {
+    if constexpr (P * sizeof(T) % 16 == 0) {
+        be_store<T, P>(p, v);
+    } else {
+        static_assert(P * sizeof(T) == 8, "a row piece of 8 bytes");
+        uint2 raw;
+        T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+        for (int i = 0; i < P; ++i) e[i] = be_cast<T>(v[i]);
+        *reinterpret_cast<uint2*>(p) = raw;
     }
 }
 
@@ -712,6 +735,53 @@ be_fwd_kernel(const __grid_constant__ FwdPlan p) {
     be_cp_wait<0>();
 }
 
+// a quad row of 4 elements in f32 (one 8-byte load in bf16, 16 in f32)
+__device__ __forceinline__ void be_row4(const bf16* table, long long row, float (&v)[4]) {
+    const uint2 r = __ldg(reinterpret_cast<const uint2*>(table) + row);
+    v[0] = be_lo(r.x);
+    v[1] = be_hi(r.x);
+    v[2] = be_lo(r.y);
+    v[3] = be_hi(r.y);
+}
+__device__ __forceinline__ void be_row4(const float* table, long long row, float (&v)[4]) {
+    const float4 r = __ldg(reinterpret_cast<const float4*>(table) + row);
+    v[0] = r.x;
+    v[1] = r.y;
+    v[2] = r.z;
+    v[3] = r.w;
+}
+
+// A3-fwd on quad rows of 4 elements (W = FL = 1, no code): one thread per
+// (sample, level) i = s * L + l. CG (cg, unless null) and `out` as the
+// single-grid path of be_fwd_kernel forms them: cg_q = 0 + row_q, then
+// ((z(p0) + p1) + p2) + p3 per corner, then corner 0 * wy0 + corner 1 * wy1.
+template <typename T>
+__global__ void __launch_bounds__(256)
+be_fwd_narrow_kernel(const T* __restrict__ table, const long long* __restrict__ entry_idx,
+                     const float* __restrict__ wy, const float* __restrict__ fx,
+                     const float* __restrict__ fz, float* __restrict__ out,
+                     T* __restrict__ cg, long long n, int L) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n * L) return;
+    const long long s = i / L;
+    const int l = (int)(i - s * L);
+    const Quarters u(fx[i], fz[i]);
+    float g[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+        const long long j = s * 2 * L + c * L + l;  // entry_idx, wy and CG's row
+        float v[4];
+        be_row4(table, entry_idx[j], v);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = __fadd_rn(0.0f, v[q]);
+        if (cg != nullptr) be_store_row<T, 4>(cg + j * 4, v);
+        g[c] = be_quarter_sum(__fmul_rn(v[0], u.u[0]), __fmul_rn(v[1], u.u[1]),
+                              __fmul_rn(v[2], u.u[2]), __fmul_rn(v[3], u.u[3]), 0);
+    }
+    out[i] = __fadd_rn(__fmul_rn(g[0], wy[s * 2 * L + l]),
+                       __fmul_rn(g[1], wy[s * 2 * L + L + l]));
+}
+
 // ---------------------------------------------------------------------------
 // A3-bwd, per sample: one warp per sample. With mfac, also each position's
 // rounded row factor [4][FL] (MP elements, zero padded to 16 bytes) and,
@@ -796,16 +866,16 @@ be_sample_kernel(const float* __restrict__ gbar, const T* __restrict__ cg_res,
 }
 
 // A3-bwd: the table gradient of one chunk of sorted positions per group of R
-// lanes (R = 4W/8, any count: no shuffles), each lane 8 elements of the row.
-// The block's chunks are staged first: keys, factor vectors, code rows.
-// ALIGNED: W a multiple of 8 (a lane's elements lie in one quarter).
-template <typename T, int FL, bool CODE, bool ALIGNED>
+// lanes (R = 4W/P, any count: no shuffles), each lane P elements of the row
+// (8; 4 where the row is 4 elements, R = 1). The block's chunks are staged
+// first: keys, factor vectors, code rows. ALIGNED: W a multiple of 8 (a
+// lane's elements lie in one quarter).
+template <typename T, int FL, bool CODE, bool ALIGNED, int P>
 __global__ void __launch_bounds__(256)
 be_chunk_kernel(const int* __restrict__ skey, const long long* __restrict__ perm,
                 long long total, const T* __restrict__ mfac, const T* __restrict__ coder,
                 T* __restrict__ d_table, float* __restrict__ partial,
                 int L, int W, int R, int CPB, int HP) {
-    constexpr int P = BE_P;
     constexpr int MP = Factor<T, FL>::MP;
     constexpr int PER = 16 / (int)sizeof(T);
     extern __shared__ __align__(16) unsigned char be_sm[];
@@ -874,12 +944,14 @@ be_chunk_kernel(const int* __restrict__ skey, const long long* __restrict__ perm
         const bool head = a > lo || key_before != key;
         const bool end = b < hi || key_after != key;
         if (head && end) {
-            be_store<T, P>(d_table + (long long)key * W4 + k0, acc);
+            be_store_row<T, P>(d_table + (long long)key * W4 + k0, acc);
         } else {
             const int slot = a == lo ? 0 : 1;
-            float* dst = partial + ((lo / BE_CHUNK) * 2 + slot) * W4 + k0;
-            reinterpret_cast<float4*>(dst)[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-            reinterpret_cast<float4*>(dst)[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+            float4* dst = reinterpret_cast<float4*>(
+                partial + ((lo / BE_CHUNK) * 2 + slot) * W4 + k0);
+#pragma unroll
+            for (int k = 0; k < P / 4; ++k)
+                dst[k] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
         }
 #pragma unroll
         for (int e = 0; e < P; ++e) acc[e] = 0.0f;
@@ -926,12 +998,11 @@ be_chunk_kernel(const int* __restrict__ skey, const long long* __restrict__ perm
 // last run starts in it and goes on past its end: the run's pieces, c0's
 // (slot 0 if the run covers c0's first position, else slot 1) and then
 // slot 0 of each following chunk the run reaches, summed in chunk order.
-template <typename T>
+template <typename T, int P>
 __global__ void __launch_bounds__(256)
 be_span_kernel(const int* __restrict__ skey, long long total,
                const float* __restrict__ partial, T* __restrict__ d_table,
                int W4, int R) {
-    constexpr int P = BE_P;
     constexpr int UNROLL = 4;  // chunks whose loads are in flight together
     const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     const long long c0 = tid / R;
@@ -943,18 +1014,21 @@ be_span_kernel(const int* __restrict__ skey, long long total,
     const bool covers_lo = skey[lo] == key;
     if (covers_lo && lo > 0 && skey[lo - 1] == key) return;  // begun in an earlier chunk
     const long long n_chunks = (total + BE_CHUNK - 1) / BE_CHUNK;
+    constexpr int V = P / 4;  // float4 pieces of a lane's elements
     float acc[P];
     {
         const float4* src = reinterpret_cast<const float4*>(
             partial + (c0 * 2 + (covers_lo ? 0 : 1)) * W4 + t * P);
-        const float4 a = src[0], b = src[1];
-        acc[0] = a.x; acc[1] = a.y; acc[2] = a.z; acc[3] = a.w;
-        acc[4] = b.x; acc[5] = b.y; acc[6] = b.z; acc[7] = b.w;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+            const float4 a = src[k];
+            acc[4 * k] = a.x; acc[4 * k + 1] = a.y; acc[4 * k + 2] = a.z; acc[4 * k + 3] = a.w;
+        }
     }
     bool going = true;
     for (long long c = c0 + 1; going && c < n_chunks; c += UNROLL) {
         int keys[UNROLL];
-        float4 v[UNROLL][2];
+        float4 v[UNROLL][V];
 #pragma unroll
         for (int k = 0; k < UNROLL; ++k) {
             keys[k] = -1;
@@ -962,26 +1036,25 @@ be_span_kernel(const int* __restrict__ skey, long long total,
                 keys[k] = skey[(c + k) * BE_CHUNK];
                 const float4* src = reinterpret_cast<const float4*>(
                     partial + (c + k) * 2 * W4 + t * P);
-                v[k][0] = src[0];
-                v[k][1] = src[1];
+#pragma unroll
+                for (int x = 0; x < V; ++x) v[k][x] = src[x];
             }
         }
 #pragma unroll
         for (int k = 0; k < UNROLL; ++k) {
             going = going && keys[k] == key;
             if (going) {
-                acc[0] = __fadd_rn(acc[0], v[k][0].x);
-                acc[1] = __fadd_rn(acc[1], v[k][0].y);
-                acc[2] = __fadd_rn(acc[2], v[k][0].z);
-                acc[3] = __fadd_rn(acc[3], v[k][0].w);
-                acc[4] = __fadd_rn(acc[4], v[k][1].x);
-                acc[5] = __fadd_rn(acc[5], v[k][1].y);
-                acc[6] = __fadd_rn(acc[6], v[k][1].z);
-                acc[7] = __fadd_rn(acc[7], v[k][1].w);
+#pragma unroll
+                for (int x = 0; x < V; ++x) {
+                    acc[4 * x] = __fadd_rn(acc[4 * x], v[k][x].x);
+                    acc[4 * x + 1] = __fadd_rn(acc[4 * x + 1], v[k][x].y);
+                    acc[4 * x + 2] = __fadd_rn(acc[4 * x + 2], v[k][x].z);
+                    acc[4 * x + 3] = __fadd_rn(acc[4 * x + 3], v[k][x].w);
+                }
             }
         }
     }
-    be_store<T, P>(d_table + (long long)key * W4 + t * P, acc);
+    be_store_row<T, P>(d_table + (long long)key * W4 + t * P, acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -997,14 +1070,18 @@ static int be_align16(long long v) { return (int)((v + 15) / 16 * 16); }
 
 // the shapes the kernels take: FL in {1, 2, 4, 8}, rows of whole 8-element
 // chunks (4W a multiple of 8) up to 4W = 1024, and with no code one table
-// (W = FL)
+// (W = FL), also of one feature (rows of 4 elements)
 static bool be_valid(long long W, long long FL, long long H, bool has_code,
                      long long elem_bytes) {
-    if (be_log2(FL) < 0 || FL > BE_P || H < 1 || H * FL != W || (4 * W) % BE_P
-        || 4 * W > 128 * BE_P || (!has_code && H != 1))
+    if (be_log2(FL) < 0 || FL > BE_P || H < 1 || H * FL != W
+        || ((4 * W) % BE_P && (has_code || W != 1)) || 4 * W > 128 * BE_P
+        || (!has_code && H != 1))
         return false;
     return elem_bytes == 2 || elem_bytes == 4;
 }
+
+// elements a lane of the backward's chunk and span kernels holds
+static int be_lane_elems(long long W) { return W == 1 ? 4 : BE_P; }
 
 static BeDiv be_div(unsigned d) {
     BeDiv v{0u, 0u};
@@ -1148,6 +1225,19 @@ extern "C" int blended_encode_fwd(const void* table, const void* entry_idx,
         || n * 2 * L >= (1LL << 31))
         return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
+    if (W == 1) {  // rows of 4 elements: no bulk copy takes them
+        const unsigned grid = (unsigned)((n * L + 255) / 256);
+        cudaStream_t st = (cudaStream_t)stream;
+        if (elem_bytes == 2)
+            be_fwd_narrow_kernel<bf16><<<grid, 256, 0, st>>>(
+                (const bf16*)table, (const long long*)entry_idx, (const float*)wy,
+                (const float*)fx, (const float*)fz, (float*)out, (bf16*)cg, n, (int)L);
+        else
+            be_fwd_narrow_kernel<float><<<grid, 256, 0, st>>>(
+                (const float*)table, (const long long*)entry_idx, (const float*)wy,
+                (const float*)fx, (const float*)fz, (float*)out, (float*)cg, n, (int)L);
+        return (int)cudaGetLastError();
+    }
     FwdPlan p{};
     if (!be_fwd_plan(p, n, (int)L, (int)H, (int)W, (int)FL, (int)elem_bytes, has_code))
         return (int)cudaErrorInvalidValue;
@@ -1238,12 +1328,12 @@ extern "C" int blended_encode_bwd_sample(const void* gbar, const void* cg, const
                                      st);
 }
 
-template <typename T, int FL, bool CODE, bool ALIGNED>
+template <typename T, int FL, bool CODE, bool ALIGNED, int P>
 static int be_launch_chunks(const void* skey, const void* perm, const void* mfac,
                             const void* coder, void* d_table, void* partial,
                             long long total, int L, int H, int W, cudaStream_t st) {
-    auto kernel = be_chunk_kernel<T, FL, CODE, ALIGNED>;
-    const int R = 4 * W / BE_P;
+    auto kernel = be_chunk_kernel<T, FL, CODE, ALIGNED, P>;
+    const int R = 4 * W / P;
     const int HP = CODE ? (int)be_pad(H, sizeof(T)) : 0;
     const long long per_pos = 4 + (Factor<T, FL>::MP + HP) * (long long)sizeof(T);
     long long cpb = BE_THREADS / R;
@@ -1258,7 +1348,7 @@ static int be_launch_chunks(const void* skey, const void* perm, const void* mfac
                                    (int)smem);
     if (err != cudaSuccess) return (int)err;
     const long long n_chunks = (total + BE_CHUNK - 1) / BE_CHUNK;
-    be_chunk_kernel<T, FL, CODE, ALIGNED><<<(unsigned)((n_chunks + cpb - 1) / cpb),
+    be_chunk_kernel<T, FL, CODE, ALIGNED, P><<<(unsigned)((n_chunks + cpb - 1) / cpb),
                                              (unsigned)(R * cpb), (size_t)smem, st>>>(
         (const int*)skey, (const long long*)perm, total, (const T*)mfac, (const T*)coder,
         (T*)d_table, (float*)partial, L, W, R, (int)cpb, HP);
@@ -1269,11 +1359,16 @@ template <typename T, int FL, bool CODE>
 static int be_chunks_aligned(const void* skey, const void* perm, const void* mfac,
                              const void* coder, void* d_table, void* partial,
                              long long total, int L, int H, int W, cudaStream_t st) {
+    if constexpr (FL == 1 && !CODE) {
+        if (W == 1)  // rows of 4 elements: a lane each
+            return be_launch_chunks<T, 1, false, false, 4>(skey, perm, mfac, coder, d_table,
+                                                           partial, total, L, H, W, st);
+    }
     if (W % BE_P == 0)
-        return be_launch_chunks<T, FL, CODE, true>(skey, perm, mfac, coder, d_table, partial,
-                                                   total, L, H, W, st);
-    return be_launch_chunks<T, FL, CODE, false>(skey, perm, mfac, coder, d_table, partial,
-                                                total, L, H, W, st);
+        return be_launch_chunks<T, FL, CODE, true, BE_P>(skey, perm, mfac, coder, d_table,
+                                                         partial, total, L, H, W, st);
+    return be_launch_chunks<T, FL, CODE, false, BE_P>(skey, perm, mfac, coder, d_table,
+                                                      partial, total, L, H, W, st);
 }
 
 template <typename T, bool CODE>
@@ -1325,20 +1420,24 @@ extern "C" int blended_encode_bwd_chunks(const void* skey, const void* perm,
 extern "C" int blended_encode_bwd_spans(const void* skey, const void* partial,
                                         void* d_table, long long n, long long L,
                                         long long W, long long elem_bytes, void* stream) {
-    if (n < 0 || L < 1 || W < 1 || (4 * W) % BE_P || 4 * W > 128 * BE_P
+    if (n < 0 || L < 1 || W < 1 || ((4 * W) % BE_P && W != 1) || 4 * W > 128 * BE_P
         || n * 2 * L >= (1LL << 31) || (elem_bytes != 2 && elem_bytes != 4))
         return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
     const long long total = n * 2 * L, n_chunks = (total + BE_CHUNK - 1) / BE_CHUNK;
-    const int W4 = (int)(4 * W), R = W4 / BE_P;
+    const int W4 = (int)(4 * W), P = be_lane_elems(W), R = W4 / P;
     const unsigned grid = (unsigned)((n_chunks * R + 255) / 256);
     cudaStream_t st = (cudaStream_t)stream;
-    if (elem_bytes == 2)
-        be_span_kernel<bf16><<<grid, 256, 0, st>>>((const int*)skey, total,
-                                                   (const float*)partial, (bf16*)d_table, W4, R);
+    const int* k = (const int*)skey;
+    const float* part = (const float*)partial;
+    if (elem_bytes == 2 && P == 4)
+        be_span_kernel<bf16, 4><<<grid, 256, 0, st>>>(k, total, part, (bf16*)d_table, W4, R);
+    else if (elem_bytes == 2)
+        be_span_kernel<bf16, BE_P><<<grid, 256, 0, st>>>(k, total, part, (bf16*)d_table, W4, R);
+    else if (P == 4)
+        be_span_kernel<float, 4><<<grid, 256, 0, st>>>(k, total, part, (float*)d_table, W4, R);
     else
-        be_span_kernel<float><<<grid, 256, 0, st>>>((const int*)skey, total,
-                                                    (const float*)partial, (float*)d_table, W4, R);
+        be_span_kernel<float, BE_P><<<grid, 256, 0, st>>>(k, total, part, (float*)d_table, W4, R);
     return (int)cudaGetLastError();
 }
 

@@ -50,6 +50,16 @@
 // written). A warp builds one 32-row group: it finds the group's level with
 // one ballot (quad_layout.cuh), each quarter load reads 32 (or 16)
 // consecutive rows, and each store of the warp is 512 contiguous bytes.
+//
+// Rows of 2 bytes (one bf16 feature: the single-grid table's column that
+// one rank of two holds under the feature-sharded layout, [6,184,960, 1]),
+// quad_build_half_kernel: output-major, a warp builds two 32-row groups.
+// A group's output is one contiguous 256-byte run of 16 chunks of 16
+// bytes, and each of 16 lanes owns one chunk: rows e and e + 1 (e even),
+// whose four quarters it reads as one 4-byte word per quarter (the two
+// rows' sources are neighbours: every shift is a multiple of 32 rows) and
+// interleaves with byte permutes. Each quarter load of a group is one
+// contiguous 64-byte run.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -187,6 +197,31 @@ quad_build_narrow_kernel(const uint32_t* __restrict__ table, uint4* __restrict__
     }
 }
 
+// Lanes 0-15 build group row0 and lanes 16-31 group row0 + 32, lane j of a
+// half the rows 2j and 2j + 1 of its group. Both groups' levels are found
+// by the whole warp (one ballot each) before a lane past the rows returns.
+__global__ void __launch_bounds__(256)
+quad_build_half_kernel(const uint32_t* __restrict__ pairs, uint4* __restrict__ out,
+                       int n_rows, const __grid_constant__ QuadLayout layout) {
+    __shared__ LevelTable levels;
+    const LaneLevel mine = lane_level(layout, levels);
+    const int lane = threadIdx.x & 31, half = lane >> 4;
+    const int row0 = (blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32) * 2 * QUAD_GROUP;
+    if (row0 >= n_rows) return;  // warp-uniform: n_rows is a multiple of 32
+    const int l0 = level_of(row0, mine), l1 = level_of(row0 + QUAD_GROUP, mine);
+    const Group grp = group_of(mine, half ? l1 : l0);
+    const int e = row0 + half * QUAD_GROUP + 2 * (lane & 15);
+    if (e >= n_rows) return;
+    // a word holds rows 2k (low half) and 2k + 1 (high half)
+    const uint32_t q0 = __ldg(pairs + (e >> 1));
+    const uint32_t q1 = __ldg(pairs + (rolled_forward(e, grp, grp.shift[0]) >> 1));
+    const uint32_t q2 = __ldg(pairs + (rolled_forward(e, grp, grp.shift[1]) >> 1));
+    const uint32_t q3 = __ldg(pairs + (rolled_forward(e, grp, grp.shift[2]) >> 1));
+    // row e: q0, q1, q2, q3 of the low halves; row e + 1: of the high halves
+    out[e >> 1] = make_uint4(__byte_perm(q0, q1, 0x5410), __byte_perm(q2, q3, 0x5410),
+                             __byte_perm(q0, q1, 0x7632), __byte_perm(q2, q3, 0x7632));
+}
+
 // One thread per 16-byte chunk of an output row; block (4 * cpq, rows), at
 // most 1024 threads (one 4096-byte row).
 __global__ void quad_build_rows_kernel(const uint4* __restrict__ table,
@@ -285,23 +320,31 @@ static int launch_tma(const void* table, void* out, long long n_rows,
     return (int)cudaGetLastError();
 }
 
-// table/out: device pointers (out 16-byte aligned, table aligned to its
-// rows or to 16 bytes), rows of row_bytes (4, 8, or a multiple of 16 up to
-// 4096) contiguous, under 2^31 rows. meta: host int64 [n_levels,
+// table/out: device pointers (out 16-byte aligned, table aligned to 4
+// bytes for 2-byte rows, to its rows for 4 and 8, else to 16 bytes), rows
+// of row_bytes (2, 4, 8, or a multiple of 16 up to 4096) contiguous, under
+// 2^31 rows. meta: host int64 [n_levels,
 // offsets..., sizes..., shift_z..., shift_x..., shift_xz...] (read_layout's
 // invariant). Returns cudaGetLastError().
 extern "C" int quad_build(const void* table, void* out, long long n_rows,
                           long long row_bytes, const long long* meta,
                           void* stream) {
     QuadLayout layout;
-    const bool narrow = row_bytes == 4 || row_bytes == 8;
+    const bool narrow = row_bytes == 2 || row_bytes == 4 || row_bytes == 8;
     if ((row_bytes % 16 != 0 && !narrow) || row_bytes > 4096 || n_rows < 0
         || n_rows >= (1LL << 31) || !read_layout(meta, n_rows, layout)
-        || (uintptr_t)table % (narrow ? row_bytes : 16) != 0
+        || (uintptr_t)table % (row_bytes == 2 ? 4 : narrow ? row_bytes : 16) != 0
         || (uintptr_t)out % 16 != 0)
         return (int)cudaErrorInvalidValue;
     if (n_rows == 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
+    if (row_bytes == 2) {
+        const long long per_block = 8LL * 2 * QUAD_GROUP;
+        const unsigned grid = (unsigned)((n_rows + per_block - 1) / per_block);
+        quad_build_half_kernel<<<grid, 256, 0, st>>>((const uint32_t*)table, (uint4*)out,
+                                                     (int)n_rows, layout);
+        return (int)cudaGetLastError();
+    }
     if (narrow) {
         const long long per_block = 8LL * QUAD_GROUP;
         const unsigned grid = (unsigned)((n_rows + per_block - 1) / per_block);

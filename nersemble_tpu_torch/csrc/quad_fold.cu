@@ -38,6 +38,19 @@
 // or 256 contiguous bytes.
 // What still bounds it: a quarter is a quarter of its row's 32-byte
 // sectors, so the loads move four times the gradient's bytes out of L2.
+//
+// Quarters of 2 bytes (one bf16 feature: the gradient of the single-grid
+// column that one rank of two holds, [6,184,960, 4]) take
+// quad_fold_half_kernel. A warp folds two 32-row groups, each lane of a
+// half the rows e and e + 1 (e even) of its group: a 32-bit store per lane,
+// one 64-byte run per group. Each output group reads quarter q from one
+// 32-row source group of 8-byte rows, a 256-byte span: the kernel loads the
+// whole span (16 bytes per lane: both rows' four quarters) and picks the
+// quarter in registers. Loading the two 2-byte quarters alone was measured
+// too: a source group's span reaches the SM once per quarter, four times in
+// all, either way, and the two ran alike on an H100 80GB HBM3 at 700 W
+// (0.0287 ms device time each on [6,184,960, 4] bf16, chip_smoke.py phase
+// 3), so only the whole-row loads are kept.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -141,8 +154,54 @@ quad_fold_narrow_kernel(const Q* __restrict__ g, Q* __restrict__ out,
     }
 }
 
+// the bf16 value in half `hi` (0: low, 1: high) of a word, in f32
+__device__ __forceinline__ float fold_half(uint32_t word, int hi) {
+    const __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(&word);
+    return hi ? __high2float(pair) : __low2float(pair);
+}
+
+// Lanes 0-15 fold group row0 and lanes 16-31 group row0 + 32, lane j of a
+// half the rows 2j and 2j + 1 of its group (e, e + 1). The rows' quarter q
+// comes from source rows s and s + 1 (s even: every shift is a multiple of
+// 32 rows), quarter q of each.
+__global__ void __launch_bounds__(256)
+quad_fold_half_kernel(const uint4* __restrict__ g, uint32_t* __restrict__ out,
+                      int n_rows, const __grid_constant__ QuadLayout layout) {
+    __shared__ LevelTable levels;
+    const LaneLevel mine = lane_level(layout, levels);
+    const int lane = threadIdx.x & 31, half = lane >> 4;
+    const int row0 = (blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32) * 2 * QUAD_GROUP;
+    if (row0 >= n_rows) return;  // warp-uniform: n_rows is a multiple of 32
+    const int l0 = level_of(row0, mine), l1 = level_of(row0 + QUAD_GROUP, mine);
+    const Group grp = group_of(mine, half ? l1 : l0);
+    const int e = row0 + half * QUAD_GROUP + 2 * (lane & 15);
+    if (e >= n_rows) return;
+    // a uint4 is rows s and s + 1: quarters 0, 1 in .x / .z, 2, 3 in .y / .w
+    uint4 v[4];
+    v[0] = __ldg(g + (e >> 1));
+#pragma unroll
+    for (int q = 1; q < 4; ++q)
+        v[q] = __ldg(g + (rolled_back(e, grp, grp.shift[q - 1]) >> 1));
+    uint32_t lo[4], hi[4];  // quarter q of rows e and e + 1, in the low half
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const uint32_t a = q < 2 ? v[q].x : v[q].y, b = q < 2 ? v[q].z : v[q].w;
+        lo[q] = q & 1 ? a >> 16 : a & 0xffffu;
+        hi[q] = q & 1 ? b >> 16 : b & 0xffffu;
+    }
+    float a = fold_half(lo[0], 0), b = fold_half(hi[0], 0);
+#pragma unroll
+    for (int q = 1; q < 4; ++q) {
+        a += fold_half(lo[q], 0);
+        b += fold_half(hi[q], 0);
+    }
+    const __nv_bfloat162 pair = __floats2bfloat162_rn(a, b);  // .x: row e
+    out[e >> 1] = *reinterpret_cast<const uint32_t*>(&pair);
+}
+
 // g: [n_rows, 4W] device, out: [n_rows, W] device, rows contiguous;
-// quarter_bytes = W * elem_bytes (4, 8, or a multiple of 16 up to 4096);
+// quarter_bytes = W * elem_bytes (2 (bf16 only), 4, 8, or a multiple of 16
+// up to 4096);
 // elem_bytes 2 (bf16) or 4 (f32). meta: host int64 [n_levels, offsets...,
 // sizes..., shift_z..., shift_x..., shift_xz...] (B3's layout argument).
 // Returns cudaGetLastError().
@@ -150,15 +209,23 @@ extern "C" int quad_fold(const void* g, void* out, long long n_rows,
                          long long quarter_bytes, long long elem_bytes,
                          const long long* meta, void* stream) {
     QuadLayout layout;
+    const bool half = quarter_bytes == 2;
     const bool narrow = quarter_bytes == 4 || quarter_bytes == 8;
-    if ((quarter_bytes % 16 != 0 && !narrow) || quarter_bytes > 4096 || n_rows < 0
-        || n_rows >= (1LL << 31) || (elem_bytes != 2 && elem_bytes != 4)
-        || !read_layout(meta, n_rows, layout)
-        || (uintptr_t)g % (narrow ? quarter_bytes : 16) != 0
-        || (uintptr_t)out % (narrow ? quarter_bytes : 16) != 0)
+    if ((quarter_bytes % 16 != 0 && !narrow && !half) || quarter_bytes > 4096
+        || n_rows < 0 || n_rows >= (1LL << 31) || (elem_bytes != 2 && elem_bytes != 4)
+        || (half && elem_bytes != 2) || !read_layout(meta, n_rows, layout)
+        || (uintptr_t)g % (half ? 16 : narrow ? quarter_bytes : 16) != 0
+        || (uintptr_t)out % (half ? 4 : narrow ? quarter_bytes : 16) != 0)
         return (int)cudaErrorInvalidValue;
     if (n_rows == 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
+    if (half) {
+        const long long per_block = 8LL * 2 * QUAD_GROUP;
+        const unsigned grid = (unsigned)((n_rows + per_block - 1) / per_block);
+        quad_fold_half_kernel<<<grid, 256, 0, st>>>(
+            (const uint4*)g, (uint32_t*)out, (int)n_rows, layout);
+        return (int)cudaGetLastError();
+    }
     if (narrow) {
         const long long per_block = 8LL * QUAD_GROUP * QF_ROWS_PER_LANE;
         const unsigned grid = (unsigned)((n_rows + per_block - 1) / per_block);

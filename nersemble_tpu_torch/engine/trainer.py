@@ -149,6 +149,7 @@ class NeRSembleTrainer:
         self.writer: Optional[MetricsWriter] = None
         self.train_config: Optional[TrainConfig] = None
         self._eval_only = eval_only
+        self._viewer_ranks = False  # from_train_config: the viewer over ranks
 
         scfg = self.config.sampling
         R, S = n_rays, scfg.max_samples_per_ray
@@ -175,7 +176,9 @@ class NeRSembleTrainer:
         """The JAX trainer's choice (trainer.py:86-93, 183-235): the
         feature-sharded table when asked and the row width divides, else
         the ZeRO-3 table or sharded moments when asked and the entries
-        divide, else replicated; one rank is always replicated."""
+        divide, else replicated; one rank is always replicated. The single
+        grid's features shard one column at a time; the hash ensemble's
+        only in whole logical tables (the one split the port lacks)."""
         mesh = self.mesh
         if mesh is None or mesh.size == 1:
             return "replicated"
@@ -185,10 +188,11 @@ class NeRSembleTrainer:
             if W % n:
                 print(f"[nersemble-torch] shard_hash_tables disabled: row width "
                       f"{W} not divisible by {n} devices")
-            elif not self.config.use_hash_ensemble or (W // n) % f_l:
-                print(f"[nersemble-torch] shard_hash_tables disabled: the "
-                      f"port shards whole logical tables of the hash "
-                      f"ensemble ({W // f_l} tables over {n} ranks)")
+            elif self.config.use_hash_ensemble and (W // n) % f_l:
+                print(f"[nersemble-torch] shard_hash_tables disabled: {W // n} "
+                      f"columns per rank would cut a logical table of the hash "
+                      f"ensemble ({W // f_l} tables of {f_l} features over {n} "
+                      f"ranks)")
             else:
                 self.model.table_layout = ("cols", mesh)
                 return "tp"
@@ -519,10 +523,6 @@ class NeRSembleTrainer:
         ``mesh``: this rank of a run over several ranks (parallel/launch.py
         starts them); the table's layout follows ``config.parallel``."""
         device = resolve_device(device)
-        if mesh is not None and mesh.size > 1 and config.vis == "viewer":
-            raise NotImplementedError(
-                "--vis viewer serves requests between steps on one rank; over "
-                f"{mesh.size} ranks it would need a per-step broadcast")
         dm = NeRSembleDataManager(config.data.participant_id,
                                   config.data.sequence_name)
         dataparser = NeRSembleDataParser(config.data, data_manager=dm)
@@ -570,7 +570,11 @@ class NeRSembleTrainer:
                                     mode="csv" if config.vis == "viewer"
                                     else config.vis)
         self.viewer = None
-        if config.vis == "viewer":
+        # over several ranks every rank takes part in serving (rank 0 holds
+        # the server): _service_viewer
+        self._viewer_ranks = config.vis == "viewer" and mesh is not None \
+            and mesh.size > 1
+        if config.vis == "viewer" and self.is_chief:
             from nersemble_tpu_torch.viewer import ViewerServer
             _, distance = self.viewer_defaults()
             self.viewer = ViewerServer(state={
@@ -585,8 +589,9 @@ class NeRSembleTrainer:
             others = self.params.field.table.numel() * (self.mesh.size - 1)
             counts = {k: v + (others if k in ("field", "total") else 0)
                       for k, v in counts.items()}
-        print("[nersemble-torch] parameters: "
-              + "  ".join(f"{k}={v:,}" for k, v in counts.items()))
+        if self.is_chief:
+            print("[nersemble-torch] parameters: "
+                  + "  ".join(f"{k}={v:,}" for k, v in counts.items()))
         self.writer.put_scalars(self.start_step,
                                 {f"params/{k}": v for k, v in counts.items()})
         return self
@@ -796,7 +801,16 @@ class NeRSembleTrainer:
 
     def _service_viewer(self, step: int) -> None:
         """Serve the viewer's pending requests on this thread (none waiting:
-        no device work and no read)."""
+        no device work and no read). Over several ranks rank 0 shares them
+        with every rank, one small host message when there are none, and
+        every rank renders each (viewer/server.py ``serve_over_ranks``)."""
+        if self._viewer_ranks:
+            from nersemble_tpu_torch.viewer import serve_over_ranks
+            if self.viewer is not None:
+                self.viewer.update_state(step=step)
+            serve_over_ranks(self.viewer, self.mesh,
+                             lambda p: self.viewer_render(p, step))
+            return
         if self.viewer is None:
             return
         self.viewer.update_state(step=step)
@@ -946,6 +960,7 @@ class NeRSembleTrainer:
         t0 = time.time()
         self.load_checkpoint(path, load_opt=not self._eval_only)
         self.checkpoint_load_s = time.time() - t0
-        print(f"[nersemble-torch] {path.name} loaded in "
-              f"{self.checkpoint_load_s:.1f} s: step {self.start_step - 1}, "
-              f"budget {self._budget}")
+        if self.is_chief:
+            print(f"[nersemble-torch] {path.name} loaded in "
+                  f"{self.checkpoint_load_s:.1f} s: step {self.start_step - 1}, "
+                  f"budget {self._budget}")

@@ -100,8 +100,9 @@ def prepare_field(field_params, config: ModelConfig,
     are all-gathered (half the bytes of f32 at bf16) and the quad is built
     on the whole table; the backward reduce-scatters the folded gradient in
     the table dtype onto the shard. ``("cols", mesh)``, the feature-sharded
-    table, holds [E, W/n] columns, the rank's logical tables: the quad is
-    built on them and the encode blends them (``encode_tables``)."""
+    table, holds [E, W/n] columns, the rank's logical tables (or, on the
+    single grid, its features): the quad is built on them and the encode
+    blends them (``encode_tables``) or encodes them (``encode_grid``)."""
     dtype = getattr(torch, config.table_dtype)
     table = field_params.table
     kind, mesh = table_layout or (None, None)
@@ -143,6 +144,30 @@ def encode_tables(fparams: Dict, norm: torch.Tensor, code: torch.Tensor,
     return mesh.reduce_scatter_rows_grad(part)
 
 
+def encode_grid(fparams: Dict, norm: torch.Tensor,
+                levels: HashGridLevels) -> torch.Tensor:
+    """``hash_encode`` of the prepared single-grid quad table, [N, L*W].
+    Under the feature-sharded layout (``fparams["tp_mesh"]``) each rank
+    holds w = W/n columns and encodes them over the rows of every rank
+    (positions all-gathered); each rank's [rows, L, w] features go into
+    its slot of a zero [rows, L, W] buffer, which is reduce-scattered back
+    to each rank's rows: every entry is one rank's value plus zeros, exact.
+    Rows that every rank holds alike (``fparams["tp_rows"] ==
+    "replicated"``, the occupancy update) are encoded in place and the
+    ranks' columns all-gathered."""
+    mesh = fparams.get("tp_mesh")
+    quad = fparams["table_quad"]
+    if mesh is None:
+        return hash_encode(quad, norm, levels)
+    L, w, n = levels.n_levels, quad.shape[1] // 4, mesh.size
+    if fparams.get("tp_rows") == "replicated":
+        part = mesh.all_gather_rows(hash_encode(quad, norm, levels))  # [n*N, L*w]
+        return part.view(n, -1, L, w).permute(1, 2, 0, 3).reshape(-1, L * n * w)
+    part = hash_encode(quad, mesh.all_gather_rows_grad(norm), levels).view(-1, L, w)
+    slots = F.pad(part, (mesh.rank * w, (n - 1 - mesh.rank) * w))  # [rows, L, W]
+    return mesh.reduce_scatter_rows_grad(slots.reshape(-1, L * n * w))
+
+
 def field_density(fparams: Dict, positions_world: torch.Tensor,
                   time_codes: Optional[torch.Tensor], config: ModelConfig,
                   levels: HashGridLevels, aabb_min, aabb_max,
@@ -163,7 +188,7 @@ def field_density(fparams: Dict, positions_world: torch.Tensor,
                 fparams, norm, code, levels, table_row_width(config)[1],
                 he.hash_encoding.interpolation == "Smoothstep")
         else:
-            base_in = hash_encode(fparams["table_quad"], norm, levels)
+            base_in = encode_grid(fparams, norm, levels)
     h = mlp_apply(config.use_fused_mlp)(fparams["mlp_base"], base_in, None,
                                         compute_dtype)
     density = trunc_exp(h[..., 0]) * selector

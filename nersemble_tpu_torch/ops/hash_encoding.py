@@ -40,6 +40,9 @@ LAYOUT_BLOCK = 2048
 
 LAUNCHES = 0       # A3-fwd launches since the last reset (chip_smoke.py reads it)
 BWD_LAUNCHES = 0   # A3-bwd launches since the last reset
+# of those, the launches on quad rows of 4 elements (one feature, no code)
+NARROW_LAUNCHES = 0
+NARROW_BWD_LAUNCHES = 0
 TABLE_CHUNK = 64   # csrc/blended_encode.cu BE_CHUNK: sorted rows per chunk
 
 
@@ -172,6 +175,18 @@ def _sum_tables(terms: torch.Tensor, width: int) -> torch.Tensor:
     return acc[..., 0, :]
 
 
+def _sum_quarters(p: torch.Tensor) -> torch.Tensor:
+    """The single grid's f32 sum over the quarter axis (3) of ``p``
+    [n, 2, L, 4, Fl], left to right from zero, as kernel A3-fwd sums it for
+    one table of 1 or 2 features: a feature's value does not depend on the
+    other features of its row, so a rank's column of the feature-sharded
+    single grid gives the whole table's column bit for bit."""
+    acc = 0.0 + p[:, :, :, 0]
+    for q in range(1, N_QUARTERS):
+        acc = acc + p[:, :, :, q]
+    return acc
+
+
 def blended_encode_fwd_plain(quad_table, code, wy, fx, fz, entry_idx,
                              n_levels: int, features_per_logical: int,
                              keep_residuals: bool):
@@ -184,14 +199,15 @@ def blended_encode_fwd_plain(quad_table, code, wy, fx, fz, entry_idx,
     H = W // Fl
     dt = quad_table.dtype
     rows = quad_table[entry_idx.reshape(-1)].view(n, 2, L, N_QUARTERS, H, Fl)
+    u = _quad_weights(fx, fz)  # [n,L,4]
     if code is None:  # the plain encode: one table, no blend
         cg = rows[:, :, :, :, 0].to(torch.float32)  # [n,2,L,4,Fl]
+        g = _sum_quarters(cg * u[:, None, :, :, None])  # [n,2,L,Fl]
     else:
         # per-logical-table blend, product rounded to the table dtype as in JAX
         code_t = code.to(dt)[:, None, None, None, :, None]
         cg = _sum_tables(rows * code_t, W)  # [n,2,L,4,Fl]
-    u = _quad_weights(fx, fz)  # [n,L,4]
-    g = torch.sum(cg * u[:, None, :, :, None], dim=3)  # [n,2,L,Fl]
+        g = torch.sum(cg * u[:, None, :, :, None], dim=3)  # [n,2,L,Fl]
     out = g[:, 0] * wy[:, :L, None] + g[:, 1] * wy[:, L:, None]
     CG = bh = None
     if keep_residuals:
@@ -340,9 +356,10 @@ def _kernel_shape(quad_table, code, n_levels: int, features_per_logical: int):
     H = W // Fl if Fl else 0
     ok = (quad_table.dtype in (torch.bfloat16, torch.float32)
           and quad_table.is_contiguous() and quad_table.data_ptr() % 16 == 0
-          and W4 == N_QUARTERS * W and W4 % 8 == 0 and 0 < W4 <= 1024 and E < 2 ** 31
+          and W4 == N_QUARTERS * W and 0 < W4 <= 1024 and E < 2 ** 31
+          and (W4 % 8 == 0 or (code is None and W4 == N_QUARTERS))
           and Fl in (1, 2, 4, 8) and H * Fl == W
-          and (code is not None or (H == 1 and Fl >= 2))
+          and (code is not None or H == 1)
           and (code is None or tuple(code.shape) == (code.shape[0], H)))
     if not ok:
         raise ValueError(
@@ -350,7 +367,9 @@ def _kernel_shape(quad_table, code, n_levels: int, features_per_logical: int):
             f"table {tuple(quad_table.shape)} with {Fl} features per table"
             + ("" if code is None else f" and a code {tuple(code.shape)}")
             + "; it takes bf16 or f32 rows of whole 8-element chunks up to "
-              "4W = 1024 elements, 1, 2, 4 or 8 features per table")
+              "4W = 1024 elements, 1, 2, 4 or 8 features per table, and "
+              "without a code one table of 1, 2, 4 or 8 features (a row of "
+              "4 elements: the single grid's column of one feature)")
     return W, H
 
 
@@ -359,7 +378,7 @@ def blended_encode_fwd_cuda(quad_table, code, wy, fx, fz, entry_idx,
                             keep_residuals: bool):
     """Kernel A3-fwd on CUDA tensors; returns what
     ``blended_encode_fwd_plain`` returns."""
-    global LAUNCHES
+    global LAUNCHES, NARROW_LAUNCHES
     if not quad_table.is_cuda:
         raise ValueError("blended_encode_fwd_cuda takes CUDA tensors")
     W, H = _kernel_shape(quad_table, code, n_levels, features_per_logical)
@@ -379,6 +398,7 @@ def blended_encode_fwd_cuda(quad_table, code, wy, fx, fz, entry_idx,
         torch.cuda.current_stream(wy.device).cuda_stream)
     cuda_lib.check(status, "blended_encode_fwd")
     LAUNCHES += 1
+    NARROW_LAUNCHES += W == 1
     return out, CG, BH
 
 
@@ -494,7 +514,7 @@ def blended_encode_bwd_cuda(gbar, CG, BH, code, entry_idx, wy, fx, fz,
     side stream while the sort and the per-sample kernel run on the current
     one (``BlendedBwdPlan``); an event joins the two before the table's
     kernels."""
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, NARROW_BWD_LAUNCHES
     if not CG.is_cuda:
         raise ValueError("blended_encode_bwd_cuda takes CUDA tensors")
     plan = BlendedBwdPlan(gbar, CG, BH, code, entry_idx, wy, fx, fz, table_shape,
@@ -525,6 +545,7 @@ def blended_encode_bwd_cuda(gbar, CG, BH, code, entry_idx, wy, fx, fz,
     else:
         plan.sample()
     BWD_LAUNCHES += 1
+    NARROW_BWD_LAUNCHES += plan.W == 1
     return plan.outputs()
 
 

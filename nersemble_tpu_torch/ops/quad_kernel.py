@@ -28,20 +28,26 @@ MAX_ROWS = 2 ** 31 - 1
 
 LAUNCHES = 0       # B3 launches since the last reset (chip_smoke.py reads it)
 FOLD_LAUNCHES = 0  # B4 launches since the last reset
-# of those, the launches on narrow rows (B3) or quarters (B4) of 4 or 8 bytes
+# of those, the launches on narrow rows (B3) or quarters (B4) of 2, 4 or 8
+# bytes
 NARROW_LAUNCHES = 0
 NARROW_FOLD_LAUNCHES = 0
 
 
 def _narrow(nbytes: int) -> bool:
-    """Rows (B3) or quarters (B4) of 4 or 8 bytes: the single-grid table's
-    2 features in bf16 or f32."""
-    return nbytes in (4, 8)
+    """Rows (B3) or quarters (B4) of 2, 4 or 8 bytes: the single-grid
+    table's 2 features in bf16 or f32, or the one feature of a rank's
+    column under the feature-sharded layout."""
+    return nbytes in (2, 4, 8)
 
 
-def _kernel_width(nbytes: int, ptr: int) -> bool:
-    """Row or quarter sizes the kernels take (narrow ones, or 16-byte chunks
-    up to 4096 bytes), at a data pointer aligned to the kernel's loads."""
+def _kernel_width(nbytes: int, ptr: int, fold: bool = False) -> bool:
+    """Row (B3) or quarter (``fold``: B4) sizes the kernels take (narrow
+    ones, or 16-byte chunks up to 4096 bytes), at a data pointer aligned to
+    the kernel's loads: B3 reads 2-byte rows in pairs (4 bytes), B4 reads
+    2-byte quarters' whole rows (16 bytes for two)."""
+    if nbytes == 2:
+        return ptr % (16 if fold else 4) == 0
     if _narrow(nbytes):
         return ptr % nbytes == 0
     return nbytes % 16 == 0 and 0 < nbytes <= 4096 and ptr % 16 == 0
@@ -110,8 +116,8 @@ def quad_build_cuda(table: torch.Tensor, levels) -> torch.Tensor:
                          f"{levels.total_entries}")
     row_bytes = table.shape[1] * table.element_size()
     if not _kernel_width(row_bytes, table.data_ptr()):
-        raise ValueError(f"rows of {row_bytes} B: the kernel takes rows of 4 "
-                         "or 8 B or 16-byte chunks of rows up to 4096 B, "
+        raise ValueError(f"rows of {row_bytes} B: the kernel takes rows of 2, "
+                         "4 or 8 B or 16-byte chunks of rows up to 4096 B, "
                          "aligned to their loads")
     out = torch.empty(table.shape[0], N_QUARTERS * table.shape[1],
                       dtype=table.dtype, device=table.device)
@@ -158,10 +164,10 @@ def quad_fold_cuda(g: torch.Tensor, levels) -> torch.Tensor:
         raise ValueError(f"g has {g.shape[0]} rows, the layout {levels.total_entries}")
     width = g.shape[1] // N_QUARTERS
     quarter_bytes = width * g.element_size()
-    if not _kernel_width(quarter_bytes, g.data_ptr()):
+    if not _kernel_width(quarter_bytes, g.data_ptr(), fold=True):
         raise ValueError(f"quarters of {quarter_bytes} B: the kernel folds "
-                         "quarters of 4 or 8 B or 16-byte chunks of quarters "
-                         "up to 4096 B, aligned to their loads")
+                         "quarters of 2 (bf16), 4 or 8 B or 16-byte chunks of "
+                         "quarters up to 4096 B, aligned to their loads")
     out = torch.empty(g.shape[0], width, dtype=g.dtype, device=g.device)
     status = cuda_lib.library().quad_fold(
         g.data_ptr(), out.data_ptr(), g.shape[0], quarter_bytes,

@@ -2,6 +2,9 @@
 the multi-device layouts (the port's counterpart of
 tests/test_table_sharding.py and the JAX trainer's multi-device tests).
 
+``viewer_run`` holds the viewer over ranks to one rank the same way, and
+``features`` the feature-sharded single grid's encode.
+
 ``run_steps(mesh, spec)`` runs on every rank of a mesh (``launch.spawn``)
 or on one process (``mesh`` None): it builds a ``NeRSembleTrainer`` from
 the whole parameters of ``spec``, takes each rank's rows of every batch,
@@ -14,7 +17,11 @@ on the card, the tests on the CPU.
 
 import hashlib
 import sys
+import threading
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
 from typing import Dict, List
 
 import numpy as np
@@ -151,6 +158,7 @@ def run_steps(mesh, spec: Dict) -> Dict:
             _save(trainer, spec["first_mu_out"], ("mu",))
     last = trainer.start_step + len(batches) - 1  # the last step trained
     result["launches"] = launch_counts.read()
+    result["narrow_launches"] = launch_counts.read(launch_counts.NARROW)
     result["ms_per_step"] = [1e3 * t for t in times]
     result["comm_ms_per_step"] = comm_ms
     replicated = [p for k, p in trainer.params.named_parameters()
@@ -275,8 +283,108 @@ def render(mesh, spec: Dict) -> Dict:
     return {"layout": trainer.table_layout, "auto_budget": renderer.auto_budget}
 
 
+def features(mesh, spec: Dict) -> Dict:
+    """The single grid's features [N, L*W] of ``spec["positions"]`` (whole,
+    [N, 3] in the unit cube) through the prepared field of a trainer in
+    ``spec``'s layout (``run_steps``' keys ``config``, ``layout``,
+    ``params``): each rank encodes its rows (the training and render way)
+    and, as the occupancy update does, all of them; rank 0 writes both to
+    ``spec["out"]`` as ``rows`` (gathered) and ``replicated``."""
+    from nersemble_tpu_torch.engine.checkpoints import params_from_numpy
+    from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
+    from nersemble_tpu_torch.models.field import encode_grid
+
+    device = torch.device("cpu")
+    trainer = NeRSembleTrainer(
+        spec["config"], n_rays=64, device=device,
+        params=params_from_numpy(spec["params"], device), mesh=mesh,
+        parallel=LAYOUTS[spec["layout"]], eval_only=True)
+    fparams = trainer.model.prepare_field(trainer.params)
+    levels = trainer.model.levels
+    x = torch.from_numpy(np.asarray(spec["positions"], np.float32))
+    rows = slice(None) if mesh is None else mesh.rows(x.shape[0])
+    with torch.no_grad():
+        mine = encode_grid(fparams, x[rows], levels)
+        if mesh is not None:
+            mine = mesh.all_gather_rows(mine)
+        fparams["tp_rows"] = "replicated"
+        everyone = encode_grid(fparams, x, levels)
+    if trainer.is_chief:
+        np.savez(spec["out"], rows=mine.numpy(), replicated=everyone.numpy())
+    return {"layout": trainer.table_layout}
+
+
+def _fetch(url: str, reply: Dict) -> None:
+    """GET ``url`` into ``reply`` (status, content type, body)."""
+    try:
+        with urllib.request.urlopen(url, timeout=300) as resp:
+            reply.update(status=resp.status, ctype=resp.headers["Content-Type"],
+                         body=resp.read())
+    except urllib.error.HTTPError as err:
+        reply.update(status=err.code, ctype=err.headers["Content-Type"], body=err.read())
+
+
+def viewer_run(mesh, spec: Dict) -> Dict:
+    """The train CLI's run of ``spec["argv"]`` (its flags; ``--vis viewer``
+    among them) on this rank (``mesh`` None: one process), with
+    ``spec["roots"]`` as the env module's path roots. At step 0 rank 0
+    starts a client that asks the viewer for ``spec["query"]`` and waits
+    until the request is queued, so that it is served after step 0; every
+    rank records the frames its ``viewer_render`` returns, and the rank
+    ``spec["fail_rank"]`` (optional) raises in it instead. Rank 0 writes
+    the first frame and the decoded reply to ``spec["out"]`` (``frame``,
+    ``png``) and returns the reply's status and content type, the frames
+    rendered, the last step, the table's layout and the kernels' launches
+    in the run."""
+    from nersemble_tpu_torch import env
+    from nersemble_tpu_torch.ops import launch_counts
+    from nersemble_tpu_torch.scripts import train_nersemble
+    from nersemble_tpu_torch.utils import png
+
+    for name, value in spec["roots"].items():
+        setattr(env, name, value)
+    reply, frames, clients, layout = {}, [], [], []
+
+    def hook(trainer, step, phase):
+        if (step, phase) != (0, "begin"):
+            return
+        layout.append(trainer.table_layout)
+        render = trainer.viewer_render
+
+        def recorded(params, step):
+            if mesh is not None and mesh.rank == spec.get("fail_rank"):
+                raise RuntimeError(f"a render that fails on rank {mesh.rank}")
+            frame = render(params, step)
+            frames.append(np.asarray(frame))
+            return frame
+
+        trainer.viewer_render = recorded
+        if trainer.viewer is not None:
+            url = trainer.viewer.url + "render?" + urllib.parse.urlencode(spec["query"])
+            clients.append(threading.Thread(target=_fetch, args=(url, reply)))
+            clients[0].start()
+            deadline = time.time() + 60
+            while not trainer.viewer.pending() and time.time() < deadline:
+                time.sleep(0.01)
+
+    launch_counts.reset()
+    try:
+        result = train_nersemble.run(spec["argv"], mesh, hook)
+    finally:
+        for client in clients:
+            client.join(timeout=60)
+    if mesh is not None and mesh.rank != 0:
+        return {}
+    np.savez(spec["out"], frame=frames[0], png=png.decode(reply["body"]))
+    return {"status": reply["status"], "ctype": reply["ctype"], "frames": len(frames),
+            "step": result["step"], "layout": layout[0],
+            "launches": launch_counts.read()}
+
+
 def run_many(mesh, jobs: List[tuple]) -> List[Dict]:
     """``[(name, spec), ...]`` of ``run_steps`` / ``kept_mask`` / ``render``
-    in one set of ranks (one start-up for several comparisons)."""
-    fns = {"run_steps": run_steps, "kept_mask": kept_mask, "render": render}
+    / ``features`` / ``viewer_run`` in one set of ranks (one start-up for
+    several comparisons)."""
+    fns = {"run_steps": run_steps, "kept_mask": kept_mask, "render": render,
+           "features": features, "viewer_run": viewer_run}
     return [fns[name](mesh, spec) for name, spec in jobs]

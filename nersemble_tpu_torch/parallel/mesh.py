@@ -15,15 +15,18 @@ NCCL with one card per rank, gloo with CPU tensors in the tests. gloo takes
 no CUDA tensors for these calls, so a gloo group on the card stages each
 call through page-locked host copies (it waits for the device there), and
 it runs reduce-scatter as an all-reduce and a slice, which every gloo build
-supports.
+supports. Host objects (a run's name, the viewer's requests) go over a
+host group, gloo over CPU memory (the world group itself when it is gloo),
+so sharing them never touches a card.
 """
 
 import datetime
 import functools
 import os
 import time
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -74,9 +77,12 @@ class DataMesh:
     """One data-parallel axis of ``size`` ranks (``size`` 1 without a
     group)."""
 
-    def __init__(self, group=None, backend: Optional[str] = None):
+    def __init__(self, group=None, backend: Optional[str] = None, host_group=None):
         self.group = group
         self.backend = backend
+        # gloo over CPU memory: host objects, never a card
+        self.host_group = host_group if host_group is not None \
+            else (group if backend == "gloo" else None)
         self.size = dist.get_world_size(group) if group is not None else 1
         self.rank = dist.get_rank(group) if group is not None else 0
         self.comm_calls, self.comm_s = 0, 0.0  # see _collective
@@ -157,12 +163,27 @@ class DataMesh:
         return x
 
     def broadcast_object(self, obj, src: int = 0):
-        """A picklable host object of rank ``src`` on every rank."""
+        """A picklable host object of rank ``src`` on every rank (over the
+        host group)."""
         if self.group is None:
             return obj
         box = [obj]
-        dist.broadcast_object_list(box, src, group=self.group)
+        dist.broadcast_object_list(box, src, group=self.host_group)
         return box[0]
+
+    def share_items(self, items: Optional[List], src: int = 0) -> List:
+        """Rank ``src``'s list of picklable host objects on every rank (the
+        others pass None): one broadcast of its length over the host group
+        and, unless it is empty, one of the items. No device work and no
+        read of a tensor's value, so an empty list costs one small host
+        message (the viewer's steps without a request)."""
+        if self.group is None:
+            return list(items)
+        count = np.array([len(items) if self.rank == src else 0], np.int64)
+        dist.broadcast(torch.from_numpy(count), src, group=self.host_group)
+        if count[0] == 0:
+            return []
+        return self.broadcast_object(items if self.rank == src else None, src)
 
     def barrier(self) -> None:
         if self.group is not None:
@@ -231,7 +252,9 @@ def init(backend: str, device, rank: Optional[int] = None,
     else:
         kwargs.update(init_method="env://", rank=rank, world_size=world_size)
     dist.init_process_group(backend, **kwargs)
-    mesh = DataMesh(dist.group.WORLD, backend)
+    host_group = None if backend == "gloo" else dist.new_group(
+        backend="gloo", timeout=kwargs["timeout"])
+    mesh = DataMesh(dist.group.WORLD, backend, host_group)
     where = f"cuda:{local_rank}" if device.type == "cuda" else "cpu"
     print(f"[nersemble-torch] rank {mesh.rank} of {mesh.size}: {backend} "
           f"process group on {where}", flush=True)

@@ -13,11 +13,19 @@ device (JOD on the host), writes per-frame PNGs named
 reference's evaluation folder layout. Runs on the GPU unless ``--device
 cpu``; reads run folders written by either package.
 
+Like the JAX CLIs, it runs on the ranks of the run's
+``config.parallel.data_axis_size`` (-1: every visible card, one rank on the
+CPU; parallel/launch.py ``run_cli``: spawned here, or under torchrun): the
+table in the layout ``config.parallel`` chooses, each rank rendering its
+share of every chunk. Rank 0 alone computes the metrics on whole frames,
+runs JOD, prints and writes.
+
 Usage:
     python -m nersemble_tpu_torch.scripts.evaluate_nersemble NERS-XXX [checkpoint] [flags]
 """
 
 import argparse
+import sys
 import time
 from collections import defaultdict
 from statistics import mean
@@ -32,6 +40,8 @@ from nersemble_tpu_torch.model_manager import (
     NVSEvaluationMetricsBundle,
     NVSEvaluationResult,
 )
+from nersemble_tpu_torch.parallel import launch
+from nersemble_tpu_torch.parallel import mesh as mesh_lib
 from nersemble_tpu_torch.utils import metrics as M
 from nersemble_tpu_torch.utils.device import resolve_device
 
@@ -78,15 +88,16 @@ def open_run(args):
     return manager, config
 
 
-def eval_trainer(config, manager, args):
-    """The eval-only trainer of a run on ``args.device``, with the occupancy
-    CC filter ANDed into its grid mask when
-    ``args.use_occupancy_grid_filtering`` (the evaluate, render and view
-    CLIs)."""
+def eval_trainer(config, manager, args, mesh=None):
+    """The eval-only trainer of a run on ``args.device`` (this rank's card
+    of ``mesh``), with the occupancy CC filter ANDed into its grid mask
+    when ``args.use_occupancy_grid_filtering`` (the evaluate, render and
+    view CLIs)."""
     from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
 
+    device = mesh_lib.local_device(args.device, mesh) if mesh else args.device
     trainer = NeRSembleTrainer.from_train_config(
-        config, model_manager=manager, eval_only=True, device=args.device)
+        config, model_manager=manager, eval_only=True, device=device, mesh=mesh)
 
     if args.use_occupancy_grid_filtering and not config.model.disable_occupancy_grid:
         from nersemble_tpu_torch.utils.connected_components import \
@@ -96,20 +107,33 @@ def eval_trainer(config, manager, args):
             threshold=args.occupancy_grid_filtering_threshold,
             sigma_erosion=args.occupancy_grid_filtering_sigma_erosion)
         trainer.apply_grid_mask(mask)
-        print(f"[nersemble-torch] occupancy CC filter kept {int(mask.sum())} "
-              f"of {mask.size} grid cells")
+        if trainer.is_chief:
+            print(f"[nersemble-torch] occupancy CC filter kept {int(mask.sum())} "
+                  f"of {mask.size} grid cells")
     return trainer
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    _, config = open_run(args)
+    result = launch.run_cli("nersemble_tpu_torch.scripts.evaluate_nersemble", argv,
+                            args.device, config.parallel.data_axis_size)
+    return NVSEvaluationResult.from_dict(result)
+
+
+def run(argv, mesh=None):
+    """The evaluation of ``argv`` on this rank (``mesh`` None: one
+    process); rank 0's result as a dict, None on the other ranks."""
     args = build_parser().parse_args(argv)
     manager, config = open_run(args)
     # eval view set (reference: evaluate_nersemble.py:62-66)
     config.data.max_eval_timesteps = args.max_eval_timesteps
     config.data.eval_num_rays_per_batch = args.n_rays_eval
     config.load_step = args.checkpoint
-    trainer = eval_trainer(config, manager, args)
+    trainer = eval_trainer(config, manager, args, mesh)
     checkpoint = trainer.start_step - 1
+    chief = trainer.is_chief
 
     artifact_kwargs = dict(max_eval_timesteps=args.max_eval_timesteps,
                            skip_timesteps=args.skip_timesteps,
@@ -130,6 +154,8 @@ def main(argv=None):
         rays = loader.image_rays(image_idx)
         rendered = trainer.render_image(rays, step=checkpoint,
                                         chunk=args.n_rays_eval)
+        if not chief:  # every rank renders its share; rank 0 scores and writes
+            continue
         pred = rendered["rgb"]
         gt = rays["gt_rgb"]
         alpha = rays.get("gt_alpha")
@@ -167,6 +193,8 @@ def main(argv=None):
         print(f"[eval] cam {entry.cam_id} frame {entry.original_timestep}: "
               f"psnr={regular['psnr']:.2f} ssim={regular['ssim']:.3f}")
     image_s = time.perf_counter() - start
+    if not chief:
+        return None
 
     # JOD video metric per camera (reference: evaluate_nersemble.py:206-240).
     # Evaluator resolution (utils/jod.py): real pyfvvdp if importable, else
@@ -222,7 +250,7 @@ def main(argv=None):
     print(f"[eval] mean psnr={result.mean.regular.psnr:.2f} "
           f"ssim={result.mean.regular.ssim:.3f} -> "
           f"{manager.get_evaluation_result_path(checkpoint, **artifact_kwargs)}")
-    return result
+    return result.to_dict()
 
 
 def entrypoint():

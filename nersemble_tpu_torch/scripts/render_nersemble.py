@@ -9,13 +9,17 @@ renders rgb / depth / deformation channels at 1/downscale resolution, and
 writes each channel as a directory of PNG frames under
 NERSEMBLE_RENDERS_PATH named ``{run}_{channel}{label}`` (utils/videoio.py:
 the JAX package's layout when it has no video encoder). Runs on the GPU
-unless ``--device cpu``; reads run folders written by either package.
+unless ``--device cpu``; reads run folders written by either package. It
+runs on the ranks of the run's ``config.parallel.data_axis_size`` as the
+evaluate CLI does: every rank renders its share of each frame's chunks, and
+rank 0 alone colours the channels, prints and writes.
 
 Usage:
     python -m nersemble_tpu_torch.scripts.render_nersemble NERS-XXX [flags]
 """
 
 import argparse
+import sys
 import time
 from pathlib import Path
 
@@ -23,6 +27,7 @@ import numpy as np
 
 from nersemble_tpu_torch import env
 from nersemble_tpu_torch.data.cameras import circle_around_axis, generate_image_rays
+from nersemble_tpu_torch.parallel import launch
 from nersemble_tpu_torch.scripts.evaluate_nersemble import eval_trainer, open_run
 from nersemble_tpu_torch.utils.colormaps import (
     apply_depth_colormap,
@@ -49,10 +54,23 @@ def build_parser():
 
 
 def main(argv=None, renders_path=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    _, config = open_run(args)
+    renders_path = str(renders_path or env.NERSEMBLE_RENDERS_PATH)
+    outputs = launch.run_cli("nersemble_tpu_torch.scripts.render_nersemble", argv,
+                             args.device, config.parallel.data_axis_size, renders_path)
+    return outputs
+
+
+def run(argv, mesh=None, renders_path=None):
+    """The render of ``argv`` on this rank (``mesh`` None: one process):
+    rank 0's written paths by channel, None on the other ranks."""
     args = build_parser().parse_args(argv)
     manager, config = open_run(args)
-    trainer = eval_trainer(config, manager, args)
+    trainer = eval_trainer(config, manager, args, mesh)
     checkpoint = trainer.start_step - 1
+    chief = trainer.is_chief
 
     # trajectory (reference: render_nersemble.py:63-77): OpenCV-convention
     # circle poses -> OpenGL/viewer-style pose with scaled translation
@@ -93,6 +111,8 @@ def main(argv=None, renders_path=None):
         }
         rendered = trainer.render_image(image_rays, step=checkpoint,
                                         chunk=args.n_rays)
+        if not chief:  # every rank renders its share; rank 0 writes
+            continue
         frames["rgb"].append(rendered["rgb"])
         if "depth" in frames:
             # near/far like the reference video renderer (util/render.py:44-50)
@@ -105,10 +125,11 @@ def main(argv=None, renders_path=None):
         if i % 8 == 0:
             print(f"[render] frame {i + 1}/{n_frames}")
     render_s = time.perf_counter() - start
+    if not chief:
+        return None
     print(f"[render] {n_frames} frames {width}x{height} in {render_s:.2f} s "
           f"({1e3 * render_s / max(n_frames, 1):.1f} ms/frame with the colormaps)")
 
-    renders_path = renders_path or env.NERSEMBLE_RENDERS_PATH
     label = "_occ_grid_filtering" if args.use_occupancy_grid_filtering else ""
     label += f"_checkpoint-{checkpoint}"
     outputs = {}

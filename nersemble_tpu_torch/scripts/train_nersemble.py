@@ -10,8 +10,11 @@ config.yml, and runs the trainer's loop on the GPU unless ``--device cpu``.
 every visible card), the JAX mesh's data axis: it starts the N processes
 itself unless torchrun started them (``torchrun --nproc-per-node N -m
 nersemble_tpu_torch.scripts.train_nersemble ...``). ``--dist-backend``
-(nccl, the default on the card, or gloo) joins them; only rank 0 writes the
-run folder. ``--vis viewer`` over several ranks raises NotImplementedError.
+(nccl or gloo; by default nccl where each rank has a card of its own, else
+gloo) joins them; only rank 0 writes the
+run folder. ``--vis viewer`` over several ranks: rank 0 runs the server and
+every rank renders each request between steps (viewer/server.py
+``serve_over_ranks``).
 
 Usage:
     python -m nersemble_tpu_torch.scripts.train_nersemble <participant_id> <sequence_name> [flags]
@@ -20,7 +23,6 @@ Usage:
 import argparse
 import sys
 
-from nersemble_tpu_torch import env
 from nersemble_tpu_torch.config import (
     DataConfig,
     HashEncodingConfig,
@@ -155,7 +157,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dist-backend", type=str, default=None,
                    choices=["nccl", "gloo"],
                    help="torch.distributed backend over several ranks "
-                        "(default: nccl on the GPU, gloo on the CPU)")
+                        "(default: nccl where each rank has a card of its "
+                        "own, else gloo)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the run (default: the GPU)")
     return p
@@ -274,48 +277,20 @@ def main(argv=None, step_hook=None):
     """Parse ``argv``, build or reopen the run, train; returns rank 0's last
     logged scalars. ``step_hook``: ``NeRSembleTrainer.step_hook`` of the run
     (for instrumentation; one process only)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)  # no GPU: raise before a run folder is made
-    backend = args.dist_backend or ("nccl" if device.type == "cuda" else "gloo")
-    if launch.under_torchrun():
-        mesh = mesh_lib.init(backend, device)
-        if args.data_axis_size not in (-1, mesh.size):
-            raise ValueError(f"--data-axis-size {args.data_axis_size} under "
-                             f"torchrun's {mesh.size} processes")
-        try:
-            return run(args, mesh, step_hook)
-        finally:
-            mesh_lib.shutdown()
     n = mesh_lib.axis_size(args.data_axis_size, device)
-    if n == 1:
-        return run(args, None, step_hook)
-    if args.vis == "viewer":
-        raise NotImplementedError(
-            "--vis viewer serves requests between steps on one rank; over "
-            f"{n} ranks it would need a per-step broadcast")
-    if step_hook is not None:
+    if step_hook is not None and n > 1 and not launch.under_torchrun():
         raise ValueError("step_hook runs in one process; --data-axis-size "
                          f"{n} starts {n}")
-    # by its module's name: run as ``python -m`` this module is __main__
-    from nersemble_tpu_torch.scripts.train_nersemble import _rank_run
-    roots = {name: getattr(env, name) for name in ENV_ROOTS}
-    return launch.spawn(_rank_run, n, backend, args.device,
-                        list(sys.argv[1:] if argv is None else argv), roots)
+    return launch.run_cli("nersemble_tpu_torch.scripts.train_nersemble", argv, device,
+                          args.data_axis_size, step_hook, backend=args.dist_backend)
 
 
-# the path roots the ranks take from this process (a caller may have
-# repointed the module's attributes)
-ENV_ROOTS = ("NERSEMBLE_DATA_PATH", "NERSEMBLE_MODELS_PATH", "NERSEMBLE_RENDERS_PATH")
-
-
-def _rank_run(mesh, argv, roots):
-    for name, value in roots.items():
-        setattr(env, name, value)
-    return run(build_parser().parse_args(argv), mesh)
-
-
-def run(args, mesh=None, step_hook=None):
-    """The run of ``args`` on this rank (``mesh`` None: one process)."""
+def run(argv, mesh=None, step_hook=None):
+    """The run of ``argv`` on this rank (``mesh`` None: one process)."""
+    args = build_parser().parse_args(argv)
     chief = mesh is None or mesh.rank == 0
     model_folder = NeRSembleModelFolder()
     if args.resume_run:

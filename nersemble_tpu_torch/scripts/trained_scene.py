@@ -50,17 +50,15 @@ VIEW_WIDTH = 256
 
 
 def reset_launches() -> None:
-    from nersemble_tpu_torch.ops import launch_counts, quad_kernel
+    from nersemble_tpu_torch.ops import launch_counts
     launch_counts.reset()
-    quad_kernel.NARROW_LAUNCHES = quad_kernel.NARROW_FOLD_LAUNCHES = 0
 
 
 def launches() -> dict:
     """The port's kernel launches since the last ``reset_launches``."""
-    from nersemble_tpu_torch.ops import launch_counts, quad_kernel
-    return {**launch_counts.read(),
-            "quad_build narrow": quad_kernel.NARROW_LAUNCHES,
-            "quad_fold narrow": quad_kernel.NARROW_FOLD_LAUNCHES}
+    from nersemble_tpu_torch.ops import launch_counts
+    return launch_counts.read(launch_counts.KERNELS
+                              + ("quad_build narrow", "quad_fold narrow"))
 
 
 @contextlib.contextmanager

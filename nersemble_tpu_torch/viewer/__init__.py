@@ -1,3 +1,8 @@
-from nersemble_tpu_torch.viewer.server import ViewerServer, encode_image, orbit_pose
+from nersemble_tpu_torch.viewer.server import (
+    ViewerServer,
+    encode_image,
+    orbit_pose,
+    serve_over_ranks,
+)
 
-__all__ = ["ViewerServer", "encode_image", "orbit_pose"]
+__all__ = ["ViewerServer", "encode_image", "orbit_pose", "serve_over_ranks"]

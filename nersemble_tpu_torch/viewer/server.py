@@ -18,6 +18,16 @@ the same between-iterations service cadence as the reference trainer's
 viewer lock plumbing
 (reference nerfstudio/engine/nersemble_trainer.py:23-113).
 
+Over several ranks (``serve_over_ranks``) rank 0 alone runs the server: it
+takes the pending requests without blocking (or waits up to a timeout, the
+view CLI) and shares their parameters with every rank over the mesh's host
+group (one small host message when there is none); every rank renders each
+request in turn, its share of each chunk (engine/renderer.py), and rank 0
+encodes the frame and replies. A render that fails on one rank may leave
+the others waiting in one of its collectives, so a failed render is never
+answered and served past: rank 0 answers its requests with a 500 and the
+failing rank raises, which ends the run (the launcher stops the ranks).
+
 The orbit parameterization matches the render CLI's circular trajectory
 (scripts/render/render_nersemble.py:64-72 absorbed as
 data/cameras.py::circle_around_axis): cameras look at ``center``
@@ -31,7 +41,7 @@ import math
 import queue
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
@@ -169,28 +179,55 @@ class ViewerServer:
     def url(self) -> str:
         return f"http://{self.host}:{self.port}/"
 
+    def pending(self) -> int:
+        """Requests queued and not yet taken (approximate, as
+        ``queue.Queue.qsize``)."""
+        return self._queue.qsize()
+
+    def take(self, timeout: float = 0.0) -> Optional[_Request]:
+        """The next pending request, waiting up to ``timeout`` seconds (0:
+        only one already waiting); None if there is none."""
+        try:
+            return self._queue.get(timeout=timeout) if timeout \
+                else self._queue.get_nowait()
+        except queue.Empty:
+            return None
+
+    def reply(self, req: _Request, image) -> None:
+        """Answer ``req`` with the rendered frame as a PNG (an encoding
+        error: a 500)."""
+        try:
+            image = np.asarray(image)
+            if image.dtype != np.uint8:
+                image = (np.clip(image, 0.0, 1.0) * 255).astype(np.uint8)
+            req.payload, req.content_type = encode_image(image)
+            req.status = 200
+        except Exception as exc:
+            self.fail(req, exc)
+        finally:
+            req.event.set()
+
+    def fail(self, req: _Request, exc: BaseException) -> None:
+        """Answer ``req`` with a 500 naming ``exc``."""
+        req.payload = f"render failed: {exc!r}".encode()
+        req.content_type = "text/plain"
+        req.status = 500
+        req.event.set()
+
     def service(self, render_fn: Callable[[Dict], np.ndarray],
                 timeout: float = 0.0) -> bool:
         """Serve at most one pending render request on the CALLING thread.
         Returns True if a request was served. ``timeout`` 0 = non-blocking
         poll (the trainer's between-steps cadence)."""
-        try:
-            req = self._queue.get(timeout=timeout) if timeout \
-                else self._queue.get_nowait()
-        except queue.Empty:
+        req = self.take(timeout)
+        if req is None:
             return False
         try:
-            image = np.asarray(render_fn(req.params))
-            if image.dtype != np.uint8:
-                image = (np.clip(image, 0.0, 1.0) * 255).astype(np.uint8)
-            req.payload, req.content_type = encode_image(image)
-            req.status = 200
+            image = render_fn(req.params)
         except Exception as exc:  # surface errors to the browser, keep serving
-            req.payload = f"render failed: {exc!r}".encode()
-            req.content_type = "text/plain"
-            req.status = 500
-        finally:
-            req.event.set()
+            self.fail(req, exc)
+            return True
+        self.reply(req, image)
         return True
 
     def update_state(self, **kw) -> None:
@@ -201,6 +238,51 @@ class ViewerServer:
         self.httpd.shutdown()
         self.httpd.server_close()
         self._thread.join(timeout=5.0)
+
+
+_STOP = "stop"  # rank 0's last message to the other ranks (serve_over_ranks)
+
+
+def serve_over_ranks(server: Optional[ViewerServer], mesh,
+                     render_fn: Callable[[Dict], np.ndarray], timeout: float = 0.0,
+                     stop: bool = False) -> Optional[int]:
+    """One round of the viewer over the ranks of ``mesh``, every rank
+    calling: rank 0 (which holds ``server``; the others pass None) takes its
+    pending requests (waiting up to ``timeout`` seconds for the first) and
+    shares their parameters (``mesh.share_items``); every rank renders each
+    with ``render_fn`` in turn and rank 0 replies. Returns the requests
+    served, or None once rank 0 has sent the stop message (``stop`` on rank
+    0: the view CLI's exit). A render that raises on a rank ends the run:
+    rank 0 answers the round's unanswered requests with a 500, and the
+    failing rank raises."""
+    chief = mesh.rank == 0
+    requests: List[_Request] = []
+    items = None
+    if chief:
+        if stop:
+            items = [_STOP]
+        else:
+            req = server.take(timeout)
+            while req is not None:
+                requests.append(req)
+                req = server.take()
+            items = [req.params for req in requests]
+    items = mesh.share_items(items)
+    if items == [_STOP]:
+        return None
+    for i, params in enumerate(items):
+        try:
+            image = render_fn(params)
+        except Exception as exc:
+            for req in requests[i:]:
+                server.fail(req, exc)
+            raise RuntimeError(
+                f"viewer render failed on rank {mesh.rank} of {mesh.size}: {exc!r}; "
+                "over several ranks a failed render ends the run (the other "
+                "ranks may wait in one of its collectives)") from exc
+        if chief:
+            server.reply(requests[i], image)
+    return len(items)
 
 
 _PAGE = """<!DOCTYPE html>

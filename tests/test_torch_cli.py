@@ -250,17 +250,21 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(runs, monkeypatch):
         NeRSembleTrainer.from_train_config(config)
 
 
-@pytest.mark.parametrize("flags,match", [pytest.param(
-    ["--data-axis-size", "2", "--vis", "viewer"], "per-step broadcast",
-    id="flags0-one device")])
-def test_parts_not_ported_raise(flags, match):
-    """``--vis viewer`` is ported on one rank (tests/test_torch_viewer.py
-    trains with it) and ``--data-axis-size 2`` trains over two ranks
-    (tests/test_torch_parallel_cli.py); the viewer over several ranks is
-    not ported. The case keeps the id it had when ``--data-axis-size 2``
-    itself raised."""
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.main(SEQ + TINY + CPU + flags)
+@pytest.mark.parametrize("flags,ranks", [pytest.param(
+    ["--data-axis-size", "2", "--vis", "viewer"], 2, id="flags0-one device")])
+def test_parts_not_ported_raise(runs, flags, ranks):
+    """Nothing of the CLI is left unported: ``--vis viewer`` over two ranks
+    trains, rank 0 serving the viewer between steps (its frames are held to
+    one rank's in tests/test_torch_parallel_serve.py). The test and its case
+    keep the names they had while ``--data-axis-size 2``, then the viewer
+    over several ranks, raised NotImplementedError; the case now checks
+    that the run trains and records its ranks and viewer."""
+    result = tcli.main(SEQ + TINY + CPU + flags + ["--name", "parts", "--viewer-port", "0",
+                                                   "--max-num-iterations", "1"])
+    assert result["step"] == 0 and np.isfinite(result["loss"])
+    (run_dir,) = runs["root"].glob("NERS-*-parts")
+    config = tcfg.TrainConfig.load(run_dir / "config.yml")
+    assert (config.vis, config.parallel.data_axis_size) == ("viewer", ranks)
 
 
 # ---------------------------------------------------------------------------

@@ -190,14 +190,53 @@ def test_plain_single_grid_encode_matches_jax(jax_ref, dtype):
           gbar, 2, 2, dense_f32=False)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("column", [0, 1])
+def test_plain_single_grid_column_matches_jax(jax_ref, dtype, column):
+    """One rank's column of the single grid under the feature-sharded
+    layout ([E, 1] of the [E, 2] table; W4 = 4): the plain quad build and
+    fold against the JAX package's (``_quad_fwd_xla``, ``_quad_bwd_xla``)
+    bit for bit, and ``hash_encode`` of its quad table with the column's
+    output gradient, forward and gradients, at the bounds of
+    test_plain_single_grid_encode_matches_jax."""
+    import jax
+    import jax.numpy as jnp
+    from nersemble_tpu_torch.ops.quad_kernel import quad_fold_plain
+    jhe = jax_ref
+    lv = jhe.HashGridLevels.create(*SINGLE_LEVELS)
+    ours_lv = the.HashGridLevels.create(*SINGLE_LEVELS)
+    table, x, _, gbar = _inputs(lv, 2, 1, 3000, seed=5)
+    col = np.ascontiguousarray(table[:, column:column + 1])
+    g_col = np.ascontiguousarray(gbar.reshape(3000, lv.n_levels, 2)[:, :, column])
+    dt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+    quad = quad_build_plain(_tensor(col).to(dt), ours_lv)
+    assert np.array_equal(quad.float().numpy(), np.asarray(
+        jhe._quad_fwd_xla(jnp.asarray(col).astype(jdt), lv).astype(jnp.float32)))
+    g = np.random.default_rng(6).normal(size=(lv.total_entries, 4)).astype(np.float32)
+    assert np.array_equal(quad_fold_plain(_tensor(g).to(dt), ours_lv).float().numpy(),
+                          np.asarray(jhe._quad_bwd_xla(jnp.asarray(g).astype(jdt), lv)
+                                     .astype(jnp.float32)))
+    quad = quad.float().numpy()
+    out, vjp = jax.vjp(lambda q, xx: jhe.hash_encode(q, xx, lv),
+                       jnp.asarray(quad).astype(jdt), jnp.asarray(x))
+    theirs = (out,) + vjp(jnp.asarray(g_col)) + (None,)
+    qt = _tensor(quad, dt).requires_grad_(True)
+    xt = _tensor(x).requires_grad_(True)
+    ours_out = the.hash_encode(qt, xt, ours_lv)
+    ours_out.backward(_tensor(g_col))
+    _hold(jhe, lv, dtype, (ours_out, qt.grad, xt.grad, None), theirs, x, None,
+          g_col, 1, 1, dense_f32=False)
+
+
 # (quad table columns, features per table, with a code): every width the port
 # runs: the flagship's 32 tables, the dynamic quality run's 16, the tiny
 # configuration's 8, the feature-sharded slices of 2, 4 and 8 ranks, the
-# single grid; and table counts that are not a power of two or past 32 (12,
-# 24 and 64 tables through --n-hash-encodings)
+# single grid and its one-feature column of 2 ranks; and table counts that
+# are not a power of two or past 32 (12, 24 and 64 tables through
+# --n-hash-encodings)
 PORT_WIDTHS = [(256, 2, True), (128, 2, True), (64, 2, True), (32, 2, True),
-               (16, 2, True), (8, 2, False), (96, 2, True), (192, 2, True),
-               (512, 2, True)]
+               (16, 2, True), (8, 2, False), (4, 1, False), (96, 2, True),
+               (192, 2, True), (512, 2, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -249,12 +288,23 @@ def test_binary_counter_is_the_plain_table_order(n_runs):
 
 
 @pytest.mark.parametrize("w4,fl,dtype", [(2048, 2, torch.bfloat16), (12, 1, torch.bfloat16),
-                                         (48, 3, torch.bfloat16), (64, 2, torch.float16)])
+                                         (48, 3, torch.bfloat16), (64, 2, torch.float16),
+                                         (4, 1, torch.bfloat16)])
 def test_kernel_refuses_a_shape_it_lacks_and_names_it(w4, fl, dtype):
+    """Blended (with a code): rows of 4 elements (one table of one feature)
+    only without a code."""
     quad = torch.zeros(64, w4, dtype=dtype)
     code = torch.zeros(5, w4 // 4 // fl)
     with pytest.raises(ValueError, match=rf"\(64, {w4}\)"):
         the._kernel_shape(quad, code, 4, fl)
+
+
+@pytest.mark.parametrize("w4,fl", [(12, 3), (4, 2), (16, 2), (8, 1)])
+def test_kernel_refuses_a_single_grid_shape_it_lacks(w4, fl):
+    """Without a code the kernels take one table of 1, 2, 4 or 8 features:
+    not 3 features, not a row that is not one whole table."""
+    with pytest.raises(ValueError, match=rf"\(64, {w4}\)"):
+        the._kernel_shape(torch.zeros(64, w4, dtype=torch.bfloat16), None, 4, fl)
 
 
 def test_cpu_trainer_launches_no_encode_kernel(monkeypatch):
@@ -308,6 +358,8 @@ CARD_CASES = [
     (SINGLE_LEVELS, 2, 2, False, torch.float32),
     (LEVELS, 24, 2, True, torch.bfloat16),   # 12 tables: not a power of two
     (LEVELS, 128, 2, True, torch.float32),   # 64 tables
+    (SINGLE_LEVELS, 1, 1, False, torch.bfloat16),  # one rank's column of two
+    (SINGLE_LEVELS, 1, 1, False, torch.float32),
 ]
 
 
@@ -376,7 +428,7 @@ def test_kernels_match_plain_at_every_port_width(cuda, dtype, w4, fl, with_code)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [CARD_CASES[0], CARD_CASES[4], CARD_CASES[6],
-                                  CARD_CASES[7]])
+                                  CARD_CASES[7], CARD_CASES[8]])
 def test_forward_without_residuals(cuda, case):
     """keep_residuals=False (the render): no CG or BH, the same output bit
     for bit."""
@@ -402,7 +454,7 @@ def test_kernels_take_no_samples(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [CARD_CASES[0], CARD_CASES[4]])
+@pytest.mark.parametrize("case", [CARD_CASES[0], CARD_CASES[4], CARD_CASES[8]])
 def test_kernel_backward_is_bit_for_bit(cuda, case):
     _, args, gbar = _card_case(cuda, *case, 20000, seed=7, hot=True)
     quad, code, wy, fx, fz, entry_idx = args[:6]
@@ -446,3 +498,22 @@ def test_autograd_routes_to_the_kernels(cuda):
     torch.cuda.synchronize()
     assert (the.LAUNCHES, the.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
     assert quad.grad.dtype == quad.dtype and x.grad is not None and code.grad is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_one_feature_columns_are_the_whole_tables_bit_for_bit(cuda, dtype):
+    """The single grid's [E, 2] table and its two [E, 1] columns (what each
+    of two ranks holds under the feature-sharded layout): A3-fwd on a column
+    gives that feature of the whole table's output, and its CG, bit for
+    bit."""
+    lv, args, _ = _card_case(cuda, SINGLE_LEVELS, 2, 2, False, dtype, 4097, seed=3,
+                             hot=True)
+    quad, _, wy, fx, fz, entry_idx = args[:6]
+    whole = the.blended_encode_fwd_cuda(*args)
+    for f in range(2):
+        column = quad.view(-1, 4, 2)[:, :, f].contiguous()
+        out, CG, _ = the.blended_encode_fwd_cuda(column, None, wy, fx, fz, entry_idx,
+                                                 lv.n_levels, 1, True)
+        assert torch.equal(out, whole[0].view(-1, lv.n_levels, 2)[:, :, f])
+        assert torch.equal(CG[..., 0], whole[1][..., f])

@@ -295,3 +295,36 @@ def test_parallel_train_step_reads_no_device_value(tmp_path, monkeypatch):
         assert np.isfinite(float(aux["psnr"]))
     finally:
         dist.destroy_process_group()
+
+
+def test_viewer_round_without_requests_reads_no_device_value(tmp_path, monkeypatch):
+    """The viewer over ranks between two steps with nothing pending
+    (``serve_over_ranks``, a gloo group of one rank in this process): one
+    host message, no render, and no Tensor method that hands a device value
+    to the host."""
+    import torch
+    import torch.distributed as dist
+
+    from nersemble_tpu_torch.parallel.mesh import DataMesh
+    from nersemble_tpu_torch.viewer import ViewerServer, serve_over_ranks
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    server = ViewerServer(state={}, port=0)
+    try:
+        def refuse(name):
+            def read(*args, **kwargs):
+                raise AssertionError(f"Tensor.{name} in a viewer round")
+            return read
+
+        def render(params):
+            raise AssertionError("a round without requests rendered")
+
+        for name in SYNC_METHODS:
+            monkeypatch.setattr(torch.Tensor, name, refuse(name))
+        mesh = DataMesh(dist.group.WORLD, "gloo")
+        assert [serve_over_ranks(server, mesh, render) for _ in range(3)] == [0, 0, 0]
+    finally:
+        monkeypatch.undo()
+        server.close()
+        dist.destroy_process_group()

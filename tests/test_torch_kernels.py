@@ -331,6 +331,33 @@ def test_quad_kernels_at_every_width(cuda, layout, dtype, row_bytes):
         (before[0] + 1, before[1] + 1, before[2] + narrow, before[3] + narrow)
 
 
+@pytest.mark.parametrize("layout", ["tiny", "padded", "cli tiny", "single grid",
+                                    "flagship no rolls"])
+def test_quad_kernels_on_two_byte_rows(cuda, layout):
+    """One bf16 feature per row: the single grid's column under the
+    feature-sharded layout. B3 on 2-byte rows and B4 on 2-byte quarters,
+    bit-exact, counted as narrow launches; on the single grid also the
+    tables of 1 feature that a rank holds in f32 (4-byte rows)."""
+    levels = _quad_layout(layout)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    table = torch.randn(levels.total_entries, 1, generator=g, device=cuda).to(torch.bfloat16)
+    grad = torch.randn(levels.total_entries, 4, generator=g, device=cuda).to(torch.bfloat16)
+    before = (quad_kernel.NARROW_LAUNCHES, quad_kernel.NARROW_FOLD_LAUNCHES)
+    out, folded = quad_kernel.quad_build(table, levels), quad_kernel.quad_fold(grad, levels)
+    torch.cuda.synchronize()
+    assert (quad_kernel.NARROW_LAUNCHES, quad_kernel.NARROW_FOLD_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, quad_kernel.quad_build_plain(table, levels))
+    assert torch.equal(folded, quad_kernel.quad_fold_plain(grad, levels))
+    if layout == "single grid":
+        table = table.float()
+        grad = grad.float()
+        assert torch.equal(quad_kernel.quad_build(table, levels),
+                           quad_kernel.quad_build_plain(table, levels))
+        assert torch.equal(quad_kernel.quad_fold(grad, levels),
+                           quad_kernel.quad_fold_plain(grad, levels))
+
+
 def test_quad_kernels_refuse_a_layout_off_the_row_groups(cuda):
     levels = HashGridLevels.create(4, 10, 4, 1.5)
     odd = dataclasses.replace(levels, x_strides=tuple(s + 16 for s in levels.x_strides))

@@ -153,6 +153,8 @@ def _group_fold(g, levels):
     (CLI_TINY, 2, torch.bfloat16),           # 512-row hashed levels
     ((6, 12, 4, 1.5), 64, torch.bfloat16),   # padded dense + hashed, flagship width
     ((6, 12, 4, 1.5), 16, torch.float32),
+    ((4, 10, 4, 1.5), 1, torch.bfloat16),    # one feature: the 2-byte rows' groups
+    (CLI_TINY, 1, torch.bfloat16),
 ])
 def test_group_arithmetic_gives_the_plain_build_and_fold(layout, width, dtype):
     levels = HashGridLevels.create(*layout)
@@ -165,3 +167,18 @@ def test_group_arithmetic_gives_the_plain_build_and_fold(layout, width, dtype):
     assert torch.equal(_source_major_build(table, levels), plain)
     assert torch.equal(_narrow_build(table, levels), plain)
     assert torch.equal(_group_fold(grad, levels), quad_kernel.quad_fold_plain(grad, levels))
+
+
+@pytest.mark.parametrize("nbytes,ptr,fold,ok", [
+    (2, 4, False, True), (2, 2, False, False),   # B3 reads 2-byte rows in pairs
+    (2, 16, True, True), (2, 8, True, False),    # B4 reads two whole 8-byte rows
+    (4, 4, False, True), (8, 8, True, True), (8, 4, False, False),
+    (16, 16, False, True), (4096, 16, True, True),
+    (6, 16, False, False), (12, 16, True, False), (24, 16, False, False),
+    (4112, 16, False, False), (32, 8, False, False)])
+def test_kernel_width_takes_the_routed_widths_and_refuses_the_others(nbytes, ptr, fold, ok):
+    """The wrappers' host-side width check: rows (B3) or quarters (B4) of
+    2, 4 or 8 bytes or 16-byte chunks up to 4096, at pointers aligned to the
+    route's loads."""
+    assert quad_kernel._kernel_width(nbytes, ptr, fold) is ok
+    assert quad_kernel._narrow(nbytes) is (nbytes in (2, 4, 8))

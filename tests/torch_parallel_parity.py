@@ -19,10 +19,16 @@ import numpy as np
 import optax
 from jax.sharding import NamedSharding, PartitionSpec as P
 from test_torch_train_step import LRS, R, SCHED, TOL, _jax_step, _leaves, _setup
+from torch_parity import example_rays, to_numpy_tree
 
+import __graft_entry__
+from chip_smoke import TINY_VARIANTS
+from nersemble_tpu.models.nersemble import NeRSembleModel as JaxModel
 from nersemble_tpu.parallel.mesh import batch_sharding, make_mesh, replicated
+from nersemble_tpu_torch.config import flagship_model_config
 from nersemble_tpu_torch.engine.checkpoints import read_flat
 from nersemble_tpu_torch.parallel import compare, launch
+from nersemble_tpu_torch.utils.cameras import CONTRAST_SCALES, synthetic_occupancy
 
 # the JAX package's multi-device tolerance at an f32 table
 # (tests/test_table_sharding.py:80, 170); here the MLPs compute in f32 too,
@@ -36,15 +42,48 @@ MOMENTS_ATOL, MOMENTS_RTOL = 1e-6, 1e-5
 TIMEOUT_S = 120.0
 
 
+def _setup_variant(fraction, variant):
+    """``_setup`` at f32 on the tiny flagship config edited as
+    ``chip_smoke.TINY_VARIANTS[variant]`` (None: ``_setup`` itself); the
+    contrast scales of the parameters the variant has."""
+    if variant is None:
+        return _setup("float32", fraction)
+    cfg_t = flagship_model_config(tiny=True)
+    cfg_j = __graft_entry__._flagship_model_config(tiny=True)
+    for cfg in (cfg_t, cfg_j):
+        cfg.compute_dtype = cfg.table_dtype = "float32"
+        cfg.sampling.global_budget_fraction = fraction
+        for edit in TINY_VARIANTS[variant]:
+            edit(cfg)
+    jm = JaxModel(cfg_j)
+    params = to_numpy_tree(jm.init_params(jax.random.PRNGKey(0)))
+    for key, factor in CONTRAST_SCALES.items():
+        *path, leaf = key.split(".")
+        node = params
+        for part in path:
+            node = node.get(part) if isinstance(node, dict) else None
+        if node is not None and leaf in node:
+            node[leaf] = node[leaf] * factor
+    rng = np.random.default_rng(3)
+    batch = example_rays(R, 8, seed=1)
+    batch["rgb"] = rng.uniform(size=(R, 3)).astype(np.float32)
+    batch["alpha"] = rng.uniform(size=R).astype(np.float32)
+    batch["depth"] = rng.uniform(7.5, 9.5, R).astype(np.float32)
+    grid = synthetic_occupancy(16, 0.3, seed=0)
+    budget = -(-int(R * 16 * fraction) // 128) * 128
+    return cfg_t, jm, params, batch, grid, budget
+
+
 @functools.lru_cache(maxsize=None)
-def _setup_cached(fraction):
-    return _setup("float32", fraction)
+def _setup_cached(fraction, variant=None):
+    return _setup_variant(fraction, variant)
 
 
-def setup(fraction=0.5):
+def setup(fraction=0.5, variant=None):
     """(port config, params, batch, grid, budget) at f32: the port's half
-    of ``_setup``, made once (a fresh copy of the config per call)."""
-    cfg_t, _, params, batch, grid, budget = _setup_cached(fraction)
+    of ``_setup`` (of ``variant``, a key of chip_smoke.TINY_VARIANTS), made
+    once (a fresh copy of the config per call)."""
+    cfg_t, _, params, batch, grid, budget = _setup_cached(fraction, variant)
     batch = dict(batch, timesteps=batch["timesteps"].astype(np.int64))
     return copy.deepcopy(cfg_t), params, batch, grid, budget
 
@@ -82,11 +121,12 @@ def assert_close(a, b, atol=ATOL, rtol=RTOL):
     assert not bad, bad
 
 
-def jax_step(layout, n=2):
-    """One JAX step over ``make_mesh(n)`` in ``layout``'s shardings; returns
-    (setup, jitter, total, losses, grads, new params, mu, nu, dropped) with
-    the trees as flat ``a.b.c`` numpy dicts."""
-    cfg_t, jm, params, batch, grid, budget = _setup("float32")
+def jax_step(layout, n=2, variant=None):
+    """One JAX step over ``make_mesh(n)`` in ``layout``'s shardings (of
+    ``variant``'s configuration); returns (setup, jitter, total, losses,
+    grads, new params, mu, nu, dropped) with the trees as flat ``a.b.c``
+    numpy dicts."""
+    cfg_t, jm, params, batch, grid, budget = _setup_variant(0.5, variant)
     batch = dict(batch, timesteps=batch["timesteps"].astype(np.int64))
     mesh = make_mesh(n)
     rep = replicated(mesh)
@@ -119,12 +159,13 @@ def jax_step(layout, n=2):
             dropped)
 
 
-def jax_job(layout, tmp_path, n=2):
+def jax_job(layout, tmp_path, n=2, variant=None):
     """The JAX step of ``layout`` over ``n`` devices and the port's job of
     the same step: (reference, ("run_steps", spec))."""
-    ref = jax_step(layout, n)
+    ref = jax_step(layout, n, variant)
     (cfg, params, batch, grid, budget), jitter = ref[:2]
-    job = spec(cfg, layout, params, grid, [batch], tmp_path, f"{layout}_jax",
+    job = spec(cfg, layout, params, grid, [batch], tmp_path,
+               f"{layout}_jax" if variant is None else f"{layout}_{variant}_jax",
                jitters=[jitter], sched=SCHED, lrs=LRS, budget=budget)
     return ref, ("run_steps", job)
 
