@@ -66,14 +66,17 @@ Phases, each printing its own lines:
                   where the rows cancel),
                   A3-bwd twice bit for bit; each timed beside its bound and
                   the plain version, A3-bwd also beside index_add_ of the
-                  materialised f32 rows alone (the flagship case) and by
-                  its parts alone (sort, per-sample kernel, memset, chunk
-                  walk, spanning runs) beside the wrapper's wall time with
-                  the memset on a side stream; then the flagship digest
-                  case (scripts/encode_digests.py: seeded inputs that owe
-                  nothing to PyTorch's generators) must give the SHA-256
-                  digests of out, CG, BH and the four gradients that the
-                  kernels of commit 77061aa give (A3_DIGESTS);
+                  materialised f32 rows alone (every case) and by its parts
+                  alone (sort, per-sample kernel, memset, chunk walk,
+                  spanning runs; on the column the per-sample kernel, the
+                  counting sort's passes and the reduce, and its kernels'
+                  device times) beside the wrapper's wall time; then the
+                  flagship digest case (scripts/encode_digests.py: seeded
+                  inputs that owe nothing to PyTorch's generators) must give
+                  the SHA-256 digests of out, CG, BH and the four gradients
+                  that the kernels of commit 77061aa give (A3_DIGESTS), and
+                  the column case (bf16 and f32) those of commit a38561d
+                  (A3_COLUMN_DIGESTS);
  3b. copy kernels -- the measurement path's kernels vs their plain versions,
                   bit-exact, with the time of the one PyTorch call that
                   computes the same function: the row gather (P1) at the
@@ -283,6 +286,7 @@ and the last line is not printed. Without a CUDA device nothing runs.
 import collections
 import contextlib
 import copy
+import hashlib
 import io
 import json
 import math
@@ -310,7 +314,12 @@ OWN_KERNELS = ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel", "pack_stream_kern
                "quad_fold_kernel", "quad_build_narrow_kernel", "quad_fold_narrow_kernel",
                "quad_build_half_kernel", "quad_fold_half_kernel",
                "be_fwd_kernel", "be_fwd_narrow_kernel", "be_sample_kernel",
-               "be_chunk_kernel", "be_span_kernel")
+               "be_chunk_kernel", "be_span_kernel", "be_col_count_kernel",
+               "be_col_colscan_kernel", "be_col_scatter_kernel", "be_col_starts_kernel",
+               "be_col_reduce_kernel")
+# A3-bwd's kernels on quad rows of 4 elements (one feature)
+COLUMN_BWD_KERNELS = ("be_sample_kernel", "be_col_count_kernel", "be_col_colscan_kernel",
+                      "be_col_scatter_kernel", "be_col_starts_kernel", "be_col_reduce_kernel")
 # A3 against its plain version: (case, quad table width, dtype, samples,
 # single grid); the first is the flagship table at the bench's budget; 24
 # tables (--n-hash-encodings 24): a table count that is not a power of two
@@ -335,6 +344,26 @@ A3_DIGESTS = {
     "d_wy": "bdb15ac14bdb6736a78952ce98404ccbeba4b7aed015dc57fac9358a6af9c63f",
     "d_fx": "8a5f5b5ce27b663546258e22f1999e4160cc8d1c829874e508e5ae9395f93bfe",
     "d_fz": "0a97eb717e39c5f7f03a917e0131c58ad1d840c4a6111632c567c4a3689531c0"}
+# SHA-256 of the column digest case's outputs per dtype (scripts/encode_digests.py
+# --cases column: the single grid's one-feature column, [6,184,960, 4], at
+# 73,728 samples) from the blended-encode kernels of commit a38561d (its
+# sort-based backward), on an NVIDIA H100 80GB HBM3 at 700 W: the bucketed
+# backward and the forward with more loads in flight must give the same bits
+A3_COLUMN_DIGESTS = {
+    "bfloat16": {
+        "out": "b4ec529e6662b6b501d5279920ed22a9497d4ea75ccf8d645c048c1fed8b2406",
+        "CG": "e1e3cec53bcd25d219065b654735aaa9514aee62d6fbbcd7bd431ac758bd419e",
+        "d_table": "6cf924a832f1af8cba72e8a81f7ac45ac0c7888aa83c0530aa7b00c19bd8e85c",
+        "d_wy": "edc2c70ae0acffb9ab82cf651493868e19ed94f091153b357969880d83c8c768",
+        "d_fx": "ca1a27cec6e8f850273746e1c05c02da090c0dacda9f312724a771e882cd4db8",
+        "d_fz": "1402d743e5bc885852c00ff335f1bd1fe78ad70edbddf4fff1e479ca5ef61ea2"},
+    "float32": {
+        "out": "99322b8a7cc1c108a121462835ad6b8027a60857be91b5e0bc723d5f7e7d8ac8",
+        "CG": "a18ff991f63b3184962f42ee63a5d641c2cd518e999c9d7b785c99f0f2c6441e",
+        "d_table": "764122b455b6d339b708b01c5a39f0a92160a0efcb1b016f5c7343d7ce65fed8",
+        "d_wy": "e3eb9c2d306804e5034a99620dc87438a3bb289af075254366362e688b443f66",
+        "d_fx": "424324abf385e0d138bfcbf4397d9224dd943ad2e8d59c44070fe329b84417b9",
+        "d_fz": "4167c51f80cbe93d378a647741b76f5950f6dec910dc8b1b9fea5a4e95049344"}}
 TRAIN_RAYS, TRAIN_STEPS = 4096, 10
 BENCH_ITERS = 5
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
@@ -629,6 +658,28 @@ def kernel_device_ms(fn, kernel: str, iters: int = 20) -> float:
                        f"profiling again")
     raise AssertionError(f"the profiler saw {[e.count for e in own]} launches of "
                          f"{kernel}, not {iters}")
+
+
+def kernels_device_ms(fn, kernels, iters: int = 20) -> dict:
+    """Mean device time per call of ``fn`` of each named kernel (all its
+    launches in a call, summed) under torch.profiler, and their sum."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for kernel in kernels:
+        own = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and e.key.removeprefix("void ").startswith((kernel + "(", kernel + "<"))]
+        out[kernel] = sum(e.self_device_time_total for e in own) / iters / 1e3
+    out["sum"] = sum(out.values())
+    return out
 
 
 def unfused_chain(params, x, out_activation, skips):
@@ -1000,20 +1051,20 @@ def encode_kernel_phase(cfg, levels, device):
             gbar, ours[1], ours[2], code, entry_idx, wy, fx, fz, shape)
         fk, fp = cuda_time_ms(fwd), cuda_time_ms(lambda: he.blended_encode_fwd_plain(*args))
         bk = cuda_time_ms(bwd)
-        # a one-feature forward is a ~20 us kernel: its wrapper's host time
-        # is comparable, so its device time too
+        # a one-feature forward is a ~40 us kernel: its wrapper's host time
+        # is comparable, so its device time too, and the backward's kernels'
         fd = kernel_device_ms(fwd, "be_fwd_narrow_kernel") if width == 4 else None
+        bd = kernels_device_ms(bwd, COLUMN_BWD_KERNELS) if width == 4 else None
         bp = cuda_time_ms(lambda: he.blended_encode_bwd_plain(
             gbar, ours[1], ours[2], code, entry_idx, wy, fx, fz, shape))
         parts = encode_bwd_parts(he, (gbar, ours[1], ours[2], code, entry_idx, wy, fx,
                                       fz, shape), bk)
-        lib = None
-        if what == ENCODE_CASES[0][0] or width == 4:  # the scatter alone: index_add_ of f32 rows
-            acc = torch.zeros(shape, dtype=torch.float32, device=device)
-            rows = torch.randn(entry_idx.numel(), shape[1], generator=gen, device=device)
-            flat = entry_idx.reshape(-1)
-            lib = cuda_time_ms(lambda: acc.index_add_(0, flat, rows))
-            del acc, rows
+        # the scatter alone: index_add_ of the f32 rows
+        acc = torch.zeros(shape, dtype=torch.float32, device=device)
+        rows = torch.randn(entry_idx.numel(), shape[1], generator=gen, device=device)
+        flat = entry_idx.reshape(-1)
+        lib = cuda_time_ms(lambda: acc.index_add_(0, flat, rows))
+        del acc, rows
         # bytes: each input read once (the table: each distinct row gathered),
         # each output written once
         es = table.element_size()
@@ -1036,6 +1087,8 @@ def encode_kernel_phase(cfg, levels, device):
             extra = {"parts": parts} if kernel.endswith("bwd") else {"out_bit_for_bit": out_bits}
             if fd is not None and kernel.endswith("fwd"):
                 extra["device_ms"] = fd
+            if bd is not None and kernel.endswith("bwd"):
+                extra["device_ms"] = bd
             cases[kernel].append({"case": what, "samples": n, "table": list(shape),
                                   "dtype": dtype, **entry, **extra})
             if results[kernel] is None:
@@ -1044,7 +1097,7 @@ def encode_kernel_phase(cfg, levels, device):
                            f"{what} {list(shape)} {dtype} at {n} samples: kernel "
                            f"{k_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
                            f"{100 * bound[0] / k_ms:.1f}% of it; plain {p_ms:.3f} ms"
-                           + (f"; index_add_ of the f32 rows alone {l_ms:.3f} ms"
+                           + (f"; index_add_ of the f32 rows alone {l_ms:.4f} ms"
                               if l_ms is not None else "")
                            + (f"; device time {fd:.4f} ms ({100 * bound[0] / fd:.1f}% "
                               f"of the bound)" if fd is not None and kernel.endswith("fwd")
@@ -1067,8 +1120,12 @@ def encode_kernel_phase(cfg, levels, device):
                          f"{t_err['max_share']:.3g} of the bound; A3-bwd twice: "
                          f"bit for bit")
         log("kernels", f"A3-bwd {what} parts alone, their serial sum and the "
-                       f"wrapper's wall with the memset on a side stream (ms): "
-                       + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+                       f"wrapper's wall"
+                       + (" with the memset on a side stream" if "memset" in parts else "")
+                       + " (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+        if bd is not None:
+            log("kernels", f"A3-bwd {what} kernels' device time per call (ms): "
+                           + ", ".join(f"{k} {v:.4f}" for k, v in bd.items()))
         del table, args, gbar, ours, code, wy, fx, fz, entry_idx
         torch.cuda.empty_cache()
     for kernel in results:
@@ -1078,19 +1135,17 @@ def encode_kernel_phase(cfg, levels, device):
 
 
 def encode_bwd_parts(he, bwd_args, wall_ms: float) -> dict:
-    """A3-bwd's parts, each timed alone on the current stream (ms): the
-    sort of the entry keys, the per-sample kernel, the table's zeros, the
-    chunk walk and the spanning runs; and the wrapper's wall time, which
-    zeroes the table on a side stream while the sort and the per-sample
-    kernel run."""
-    import torch
+    """A3-bwd's parts (``BlendedBwdPlan.parts``), each timed alone on the
+    current stream (ms): the sort of the entry keys, the per-sample kernel,
+    the table's zeros, the chunk walk and the spanning runs; on quad rows of
+    4 elements the per-sample kernel, the counting sort's passes (``order``)
+    and the reduce. And the wrapper's wall time (which zeroes the table on a
+    side stream while the sort and the per-sample kernel run, where it
+    zeroes it)."""
     from nersemble_tpu_torch.utils.timing import cuda_time_ms
 
     plan = he.BlendedBwdPlan(*bwd_args)
-    stream = torch.cuda.current_stream()
-    parts = {"sort": cuda_time_ms(plan.sort), "sample": cuda_time_ms(plan.sample),
-             "memset": cuda_time_ms(lambda: plan.zero(stream)),
-             "chunk": cuda_time_ms(plan.chunks), "span": cuda_time_ms(plan.spans)}
+    parts = {name: cuda_time_ms(part) for name, part in plan.parts().items()}
     parts["serial_sum"] = sum(parts.values())
     parts["wall"] = wall_ms
     del plan
@@ -1099,20 +1154,23 @@ def encode_bwd_parts(he, bwd_args, wall_ms: float) -> dict:
 
 def encode_digest_check(device) -> None:
     """The flagship case's outputs of A3-fwd and A3-bwd against the
-    digests of the kernels of commit 77061aa on the same inputs
-    (scripts/encode_digests.py): the redesigned pair sums in the same
+    digests of the kernels of commit 77061aa on the same inputs, and the
+    column case's (bf16 and f32) against those of commit a38561d
+    (scripts/encode_digests.py): the redesigned kernels sum in the same
     orders, so every digest must match."""
     import torch
-    from nersemble_tpu_torch.scripts.encode_digests import flagship_digests
+    from nersemble_tpu_torch.scripts.encode_digests import column_digests, flagship_digests
 
-    ours = flagship_digests(device)
-    torch.cuda.empty_cache()
-    differ = sorted(k for k, v in A3_DIGESTS.items() if ours.get(k) != v)
-    if differ:
-        raise AssertionError(f"A3 on the flagship digest case: {differ} differ from "
-                             f"the earlier kernels' digests: {ours}")
-    log("kernels", f"A3 digest case: {len(ours)} outputs ({', '.join(ours)}) equal "
-                   f"the earlier kernels' SHA-256 bit for bit")
+    for case, ours, theirs in (("flagship", flagship_digests(device), A3_DIGESTS),
+                               *((f"column {dtype}", digests, A3_COLUMN_DIGESTS[dtype])
+                                 for dtype, digests in column_digests(device).items())):
+        torch.cuda.empty_cache()
+        differ = sorted(k for k, v in theirs.items() if ours.get(k) != v)
+        if differ or set(ours) != set(theirs):
+            raise AssertionError(f"A3 on the {case} digest case: {differ} differ from "
+                                 f"the earlier kernels' digests: {ours}")
+        log("kernels", f"A3 {case} digest case: {len(ours)} outputs "
+                       f"({', '.join(ours)}) equal the earlier kernels' SHA-256 bit for bit")
 
 
 def train_phase(cfg, device):
@@ -2511,9 +2569,10 @@ def _grid_tp_runs(spec, out_dir, plain, ranks, gradients, load, out) -> dict:
     if differ or first["loss"] != second["loss"]:
         raise AssertionError(f"(d) two runs differ: leaves {differ}, losses "
                              f"{first['loss']} vs {second['loss']}")
+    combined = hashlib.sha256(json.dumps(sorted(first["digest"].items())).encode()).hexdigest()
     log("parallel", f"(d) two runs of two ranks: losses and {len(first['digest'])} "
-                    f"leaves bit for bit (SHA-256); narrow launches "
-                    f"{first['narrow_launches']}")
+                    f"leaves bit for bit (SHA-256 of the leaves' digests {combined}); "
+                    f"narrow launches {first['narrow_launches']}")
     for kernel, count in first["narrow_launches"].items():
         if count <= 0:
             raise AssertionError(f"(d) no {kernel} launch")

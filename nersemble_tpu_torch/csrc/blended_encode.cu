@@ -90,8 +90,9 @@
 //  * be_span_kernel: one group per chunk whose last run starts in it and
 //    goes on past its end sums that run's pieces in chunk order, rounds
 //    once and writes the row. Every sum has one fixed order.
-// Rows of 4 elements (W = 1) take one lane per chunk, each lane the whole
-// row (P = 4 elements in place of 8).
+// Rows of 4 elements (W = 1) take a path of their own in the same order
+// (below: the keys ordered by the kernels' own counting sort, every row
+// written by a reduce, no memset, no torch.sort).
 // A hot entry (every padded sample lands on one corner per level) costs at
 // most BE_CHUNK steps in one group plus its chunks' count in another. The
 // memset writes at the card's bandwidth and fills every SM, so the sort and
@@ -244,21 +245,6 @@ __device__ __forceinline__ void be_store(T* p, const float (&v)[N]) {
 #pragma unroll
         for (int i = 0; i < PER; ++i) e[i] = be_cast<T>(v[k * PER + i]);
         reinterpret_cast<uint4*>(p)[k] = raw;
-    }
-}
-
-// P elements of a table row: 16-byte stores, or one 8-byte store (4 bf16)
-template <typename T, int P>
-__device__ __forceinline__ void be_store_row(T* p, const float (&v)[P]) {
-    if constexpr (P * sizeof(T) % 16 == 0) {
-        be_store<T, P>(p, v);
-    } else {
-        static_assert(P * sizeof(T) == 8, "a row piece of 8 bytes");
-        uint2 raw;
-        T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-        for (int i = 0; i < P; ++i) e[i] = be_cast<T>(v[i]);
-        *reinterpret_cast<uint2*>(p) = raw;
     }
 }
 
@@ -735,24 +721,42 @@ be_fwd_kernel(const __grid_constant__ FwdPlan p) {
     be_cp_wait<0>();
 }
 
-// a quad row of 4 elements in f32 (one 8-byte load in bf16, 16 in f32)
-__device__ __forceinline__ void be_row4(const bf16* table, long long row, float (&v)[4]) {
-    const uint2 r = __ldg(reinterpret_cast<const uint2*>(table) + row);
+// a quad row of 4 elements: 8 bytes in bf16, 16 in f32
+template <typename T> struct Row4;
+template <> struct Row4<bf16> { typedef uint2 type; };
+template <> struct Row4<float> { typedef float4 type; };
+
+__device__ __forceinline__ void be_row4(uint2 r, float (&v)[4]) {
     v[0] = be_lo(r.x);
     v[1] = be_hi(r.x);
     v[2] = be_lo(r.y);
     v[3] = be_hi(r.y);
 }
-__device__ __forceinline__ void be_row4(const float* table, long long row, float (&v)[4]) {
-    const float4 r = __ldg(reinterpret_cast<const float4*>(table) + row);
+__device__ __forceinline__ void be_row4(float4 r, float (&v)[4]) {
     v[0] = r.x;
     v[1] = r.y;
     v[2] = r.z;
     v[3] = r.w;
 }
+// 4 values rounded to the table dtype, packed as a quad row
+__device__ __forceinline__ void be_pack4(const float (&v)[4], uint2& r) {
+    r = make_uint2(be_pair(be_cast<bf16>(v[0]), be_cast<bf16>(v[1])),
+                   be_pair(be_cast<bf16>(v[2]), be_cast<bf16>(v[3])));
+}
+__device__ __forceinline__ void be_pack4(const float (&v)[4], float4& r) {
+    r = make_float4(v[0], v[1], v[2], v[3]);
+}
 
 // A3-fwd on quad rows of 4 elements (W = FL = 1, no code): one thread per
-// (sample, level) i = s * L + l. CG (cg, unless null) and `out` as the
+// (sample, level) item i = s * L + l (s = i / L by a multiply and a shift).
+// What bounds it on the H100: the row gathers, two loads of 8 or 16 bytes
+// per item from a table of 49.5 / 99 MB (the single grid's column), each
+// its own 32-byte sector, beside the streams of indices, weights, `out` and
+// CG. Variants timed in turns on the card were slower: four items per
+// thread with every load issued before the first blend, an L2 evict-last
+// hint on the rows, streaming stores of `out` and CG, 1024-thread blocks.
+// Evict-first loads of the streams help in bf16 and cost a little in f32,
+// which loads them plainly. CG (cg, unless null) and `out` as the
 // single-grid path of be_fwd_kernel forms them: cg_q = 0 + row_q, then
 // ((z(p0) + p1) + p2) + p3 per corner, then corner 0 * wy0 + corner 1 * wy1.
 template <typename T>
@@ -760,26 +764,32 @@ __global__ void __launch_bounds__(256)
 be_fwd_narrow_kernel(const T* __restrict__ table, const long long* __restrict__ entry_idx,
                      const float* __restrict__ wy, const float* __restrict__ fx,
                      const float* __restrict__ fz, float* __restrict__ out,
-                     T* __restrict__ cg, long long n, int L) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n * L) return;
-    const long long s = i / L;
-    const int l = (int)(i - s * L);
-    const Quarters u(fx[i], fz[i]);
+                     T* __restrict__ cg, int items, int L, BeDiv per_level) {
+    typedef typename Row4<T>::type Row;
+    const int i = (int)blockIdx.x * 256 + (int)threadIdx.x;
+    if (i >= items) return;
+    const int s = per_level.div(i), l = i - s * L, j = s * 2 * L + l;
+    auto stream = [](const auto* p) {
+        if constexpr (sizeof(T) == 2) return __ldcs(p);
+        else return *p;
+    };
+    const long long e0 = stream(entry_idx + j), e1 = stream(entry_idx + j + L);
+    const float w0 = stream(wy + j), w1 = stream(wy + j + L);
+    const Quarters u(stream(fx + i), stream(fz + i));
+    const Row* rows = reinterpret_cast<const Row*>(table);
+    const Row r[2] = {__ldg(rows + e0), __ldg(rows + e1)};
     float g[2];
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
-        const long long j = s * 2 * L + c * L + l;  // entry_idx, wy and CG's row
         float v[4];
-        be_row4(table, entry_idx[j], v);
+        be_row4(r[c], v);
 #pragma unroll
         for (int q = 0; q < 4; ++q) v[q] = __fadd_rn(0.0f, v[q]);
-        if (cg != nullptr) be_store_row<T, 4>(cg + j * 4, v);
+        if (cg != nullptr) be_pack4(v, reinterpret_cast<Row*>(cg)[j + c * L]);
         g[c] = be_quarter_sum(__fmul_rn(v[0], u.u[0]), __fmul_rn(v[1], u.u[1]),
                               __fmul_rn(v[2], u.u[2]), __fmul_rn(v[3], u.u[3]), 0);
     }
-    out[i] = __fadd_rn(__fmul_rn(g[0], wy[s * 2 * L + l]),
-                       __fmul_rn(g[1], wy[s * 2 * L + L + l]));
+    out[i] = __fadd_rn(__fmul_rn(g[0], w0), __fmul_rn(g[1], w1));
 }
 
 // ---------------------------------------------------------------------------
@@ -792,6 +802,64 @@ struct Factor {
     static constexpr int MP = (4 * FL + PER - 1) / PER * PER;
 };
 
+// d_wy, d_fx, d_fz (and with mfac the row factors) of sample s, level l;
+// PACK: one feature, the factors as quad rows of 4 elements (8 or 16 bytes)
+template <typename T, int FL, bool PACK = false>
+__device__ __forceinline__ void be_sample_level(
+        const float* __restrict__ gbar, const T* __restrict__ cg_res,
+        const float* __restrict__ wy, const float* __restrict__ fx,
+        const float* __restrict__ fz, T* __restrict__ mfac, float* __restrict__ d_wy,
+        float* __restrict__ d_fx, float* __restrict__ d_fz, long long s, int l, int L) {
+    constexpr int MP = Factor<T, FL>::MP;
+    const float fxv = fx[s * L + l], fzv = fz[s * L + l];
+    const Quarters u(fxv, fzv);
+    const float gx = __fsub_rn(1.0f, fxv), gz = __fsub_rn(1.0f, fzv);
+    const float pat_fx[4] = {-gz, -fzv, gz, fzv};
+    const float pat_fz[4] = {-gx, gx, -fxv, fxv};
+    float gb[FL];
+#pragma unroll
+    for (int f = 0; f < FL; ++f) gb[f] = gbar[(s * L + l) * FL + f];
+    float dfx = 0.0f, dfz = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+        const long long j = s * 2 * L + c * L + l;
+        const float wc = wy[j];
+        const T* cgp = cg_res + j * 4 * FL;
+        float dwy = 0.0f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int f = 0; f < FL; ++f) {
+                const float cgv = be_f32(cgp[q * FL + f]);
+                dwy = __fadd_rn(dwy, __fmul_rn(__fmul_rn(cgv, u.u[q]), gb[f]));
+                const float core = __fmul_rn(__fmul_rn(cgv, wc), gb[f]);
+                dfx = __fadd_rn(dfx, __fmul_rn(core, pat_fx[q]));
+                dfz = __fadd_rn(dfz, __fmul_rn(core, pat_fz[q]));
+            }
+        d_wy[j] = dwy;
+        if (mfac != nullptr) {
+            // round(gbar * u * wy): the row gradient's first rounding
+            float m[MP];
+#pragma unroll
+            for (int e = 0; e < MP; ++e)
+                m[e] = e < 4 * FL ? be_round<T>(__fmul_rn(__fmul_rn(gb[e % FL], u.u[(e / FL) & 3]), wc))
+                                  : 0.0f;
+            if constexpr (PACK) {
+                const float m4[4] = {m[0], m[1], m[2], m[3]};
+                be_pack4(m4, reinterpret_cast<typename Row4<T>::type*>(mfac)[j]);
+            } else {
+                be_store<T, MP>(mfac + j * MP, m);
+            }
+        }
+    }
+    d_fx[s * L + l] = dfx;
+    d_fz[s * L + l] = dfz;
+}
+
+// one warp per sample, a lane per level; without a code and at one feature
+// (quad rows of 4 elements) one thread per (sample, level) instead, all
+// lanes busy, and the factors packed (the column path's first pass reads
+// them)
 template <typename T, int FL, bool CODE>
 __global__ void __launch_bounds__(256)
 be_sample_kernel(const float* __restrict__ gbar, const T* __restrict__ cg_res,
@@ -801,50 +869,19 @@ be_sample_kernel(const float* __restrict__ gbar, const T* __restrict__ cg_res,
                  float* __restrict__ d_code, float* __restrict__ d_wy,
                  float* __restrict__ d_fx, float* __restrict__ d_fz,
                  long long n, int L, int H, int HP) {
-    constexpr int MP = Factor<T, FL>::MP;
+    if constexpr (FL == 1 && !CODE) {
+        const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+        if (i >= n * L) return;
+        const long long s = i / L;
+        be_sample_level<T, FL, true>(gbar, cg_res, wy, fx, fz, mfac, d_wy, d_fx, d_fz, s,
+                                     (int)(i - s * L), L);
+        return;
+    }
     const long long s = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
     const int lane = threadIdx.x & 31;
     if (s >= n) return;
-    for (int l = lane; l < L; l += 32) {
-        const float fxv = fx[s * L + l], fzv = fz[s * L + l];
-        const Quarters u(fxv, fzv);
-        const float gx = __fsub_rn(1.0f, fxv), gz = __fsub_rn(1.0f, fzv);
-        const float pat_fx[4] = {-gz, -fzv, gz, fzv};
-        const float pat_fz[4] = {-gx, gx, -fxv, fxv};
-        float gb[FL];
-#pragma unroll
-        for (int f = 0; f < FL; ++f) gb[f] = gbar[(s * L + l) * FL + f];
-        float dfx = 0.0f, dfz = 0.0f;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-            const long long j = s * 2 * L + c * L + l;
-            const float wc = wy[j];
-            const T* cgp = cg_res + j * 4 * FL;
-            float dwy = 0.0f;
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-#pragma unroll
-                for (int f = 0; f < FL; ++f) {
-                    const float cgv = be_f32(cgp[q * FL + f]);
-                    dwy = __fadd_rn(dwy, __fmul_rn(__fmul_rn(cgv, u.u[q]), gb[f]));
-                    const float core = __fmul_rn(__fmul_rn(cgv, wc), gb[f]);
-                    dfx = __fadd_rn(dfx, __fmul_rn(core, pat_fx[q]));
-                    dfz = __fadd_rn(dfz, __fmul_rn(core, pat_fz[q]));
-                }
-            d_wy[j] = dwy;
-            if (mfac != nullptr) {
-                // round(gbar * u * wy): the row gradient's first rounding
-                float m[MP];
-#pragma unroll
-                for (int e = 0; e < MP; ++e)
-                    m[e] = e < 4 * FL ? be_round<T>(__fmul_rn(__fmul_rn(gb[e % FL], u.u[(e / FL) & 3]), wc))
-                                      : 0.0f;
-                be_store<T, MP>(mfac + j * MP, m);
-            }
-        }
-        d_fx[s * L + l] = dfx;
-        d_fz[s * L + l] = dfz;
-    }
+    for (int l = lane; l < L; l += 32)
+        be_sample_level<T, FL>(gbar, cg_res, wy, fx, fz, mfac, d_wy, d_fx, d_fz, s, l, L);
     if (CODE) {
         // d code[h] = sum_{l,f} round(BH[l,h,f] * round(gbar[l,f]))
         for (int h = lane; h < H; h += 32) {
@@ -866,11 +903,10 @@ be_sample_kernel(const float* __restrict__ gbar, const T* __restrict__ cg_res,
 }
 
 // A3-bwd: the table gradient of one chunk of sorted positions per group of R
-// lanes (R = 4W/P, any count: no shuffles), each lane P elements of the row
-// (8; 4 where the row is 4 elements, R = 1). The block's chunks are staged
-// first: keys, factor vectors, code rows. ALIGNED: W a multiple of 8 (a
-// lane's elements lie in one quarter).
-template <typename T, int FL, bool CODE, bool ALIGNED, int P>
+// lanes (R = 4W/P, any count: no shuffles), each lane P = 8 elements of the
+// row. The block's chunks are staged first: keys, factor vectors, code rows.
+// ALIGNED: W a multiple of 8 (a lane's elements lie in one quarter).
+template <typename T, int FL, bool CODE, bool ALIGNED>
 __global__ void __launch_bounds__(256)
 be_chunk_kernel(const int* __restrict__ skey, const long long* __restrict__ perm,
                 long long total, const T* __restrict__ mfac, const T* __restrict__ coder,
@@ -878,6 +914,7 @@ be_chunk_kernel(const int* __restrict__ skey, const long long* __restrict__ perm
                 int L, int W, int R, int CPB, int HP) {
     constexpr int MP = Factor<T, FL>::MP;
     constexpr int PER = 16 / (int)sizeof(T);
+    constexpr int P = BE_P;
     extern __shared__ __align__(16) unsigned char be_sm[];
     const int tid = threadIdx.x, nth = blockDim.x;
     const int NP = CPB * BE_CHUNK;
@@ -944,7 +981,7 @@ be_chunk_kernel(const int* __restrict__ skey, const long long* __restrict__ perm
         const bool head = a > lo || key_before != key;
         const bool end = b < hi || key_after != key;
         if (head && end) {
-            be_store_row<T, P>(d_table + (long long)key * W4 + k0, acc);
+            be_store<T, P>(d_table + (long long)key * W4 + k0, acc);
         } else {
             const int slot = a == lo ? 0 : 1;
             float4* dst = reinterpret_cast<float4*>(
@@ -998,11 +1035,12 @@ be_chunk_kernel(const int* __restrict__ skey, const long long* __restrict__ perm
 // last run starts in it and goes on past its end: the run's pieces, c0's
 // (slot 0 if the run covers c0's first position, else slot 1) and then
 // slot 0 of each following chunk the run reaches, summed in chunk order.
-template <typename T, int P>
+template <typename T>
 __global__ void __launch_bounds__(256)
 be_span_kernel(const int* __restrict__ skey, long long total,
                const float* __restrict__ partial, T* __restrict__ d_table,
                int W4, int R) {
+    constexpr int P = BE_P;
     constexpr int UNROLL = 4;  // chunks whose loads are in flight together
     const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     const long long c0 = tid / R;
@@ -1054,7 +1092,508 @@ be_span_kernel(const int* __restrict__ skey, long long total,
             }
         }
     }
-    be_store_row<T, P>(d_table + (long long)key * W4 + t * P, acc);
+    be_store<T, P>(d_table + (long long)key * W4 + t * P, acc);
+}
+
+// ---------------------------------------------------------------------------
+// A3-bwd on quad rows of 4 elements (W = 1, one feature, no code): the table
+// gradient as a keyed reduction without a library sort. Its order is the one
+// above: positions sorted stably by key, pieces of each run cut at the global
+// BE_CHUNK boundaries of that order, each piece summed left to right in f32
+// from zero, the pieces of a run added in order, rounded once. A stable
+// least-significant-digit counting sort produces that order itself, one pass
+// per 8 bits of the key (three below 2^24 rows), on (key, rounded factor)
+// records; be_sample_kernel writes the factors round((gbar * u_q) * wy) with
+// the per-sample gradients:
+//  * be_col_count_kernel: per block of BE_COL_BLOCK positions, the count of
+//    each digit (integer shared-memory atomics: the same counts in any order);
+//  * be_col_colscan_kernel: per digit, the exclusive prefix of the counts over
+//    blocks, in place, and the digit's total;
+//  * be_col_scatter_kernel: per block, each digit's start (a scan of the
+//    totals) plus the block's prefix; each warp counts its positions' digits
+//    and ranks equal digits 32 at a time with one ballot per digit bit (a
+//    position's slot depends on the keys alone); the block places its records
+//    in digit order in shared memory and writes each digit's records out as
+//    one run of consecutive slots. Every kernel issues its global loads
+//    together before it uses them;
+//  * be_col_starts_kernel: each 2048-row block's first sorted position;
+//  * be_col_reduce_kernel, one block per 2048 table rows: stages its sorted
+//    positions in tiles of whole chunks in shared memory (the next tile's
+//    loads issued before the current one is summed), lists the tile's pieces
+//    (a ballot per 32 positions), sums each piece with one thread, folds the
+//    runs that cross chunks from the chunks' partials in order (a run that
+//    goes on past a tile carried into the next), and writes all of its rows
+//    from shared memory, zeros where no key reaches: no memset.
+// No float atomics, no host read-back; the keys, factors and counts live in
+// the wrapper's scratch (blended_encode_bwd_column_scratch).
+
+#define BE_COL_WARPS 8
+#define BE_COL_THREADS (BE_COL_WARPS * 32)
+#define BE_COL_PER 16                                  // positions per thread of a pass block
+#define BE_COL_SEG (32 * BE_COL_PER)                   // positions per warp of a pass block
+#define BE_COL_BLOCK (BE_COL_WARPS * BE_COL_SEG)       // positions per pass block
+#define BE_COL_DIGIT_BITS 8
+#define BE_COL_DIGITS (1 << BE_COL_DIGIT_BITS)
+#define BE_COL_ROWS 2048                               // table rows per reduce block
+#define BE_COL_MAX_PASSES 4
+#define BE_COL_BATCH 16                                // global loads a thread issues together
+#define BE_FULL 0xffffffffu
+static_assert(BE_COL_THREADS == BE_COL_DIGITS, "a thread per digit");
+
+// a position's key: entry_idx (int64, below 2^31) on the first pass, else the
+// previous pass's int32 keys
+template <bool FIRST>
+__device__ __forceinline__ int be_col_key(const void* keys, long long p) {
+    if constexpr (FIRST) return (int)__ldcs(reinterpret_cast<const long long*>(keys) + p);
+    else return __ldcs(reinterpret_cast<const int*>(keys) + p);
+}
+
+// the lanes whose digit equals this lane's, one ballot per digit bit
+// (invalid lanes, dg < 0, among themselves)
+__device__ __forceinline__ unsigned be_col_peers(int dg) {
+    const unsigned valid = __ballot_sync(BE_FULL, dg >= 0);
+    unsigned peers = dg >= 0 ? valid : ~valid;
+#pragma unroll
+    for (int b = 0; b < BE_COL_DIGIT_BITS; ++b) {
+        const bool on = (dg >> b) & 1;
+        const unsigned set = __ballot_sync(BE_FULL, on);
+        peers &= on ? set : ~set;
+    }
+    return peers;
+}
+
+// the exclusive prefix over the block of v (one value per thread, in thread
+// order); all threads call it
+__device__ __forceinline__ int be_col_scan(int v, int* warp_sum) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    int incl = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(BE_FULL, incl, o);
+        if (lane >= o) incl += u;
+    }
+    if (lane == 31) warp_sum[w] = incl;
+    __syncthreads();
+    int run = incl - v;
+    for (int k = 0; k < w; ++k) run += warp_sum[k];
+    __syncthreads();
+    return run;
+}
+
+template <bool FIRST>
+__global__ void __launch_bounds__(BE_COL_THREADS)
+be_col_count_kernel(const void* __restrict__ keys, long long total, int lo, int mask, int D,
+                    int* __restrict__ cnt) {
+    __shared__ int hist[BE_COL_DIGITS];
+    const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+    const long long s0 = (long long)blockIdx.x * BE_COL_BLOCK + w * BE_COL_SEG + lane;
+    int key[BE_COL_PER];  // every load issued before the first is used
+#pragma unroll
+    for (int k = 0; k < BE_COL_PER; ++k)
+        key[k] = s0 + k * 32 < total ? be_col_key<FIRST>(keys, s0 + k * 32) : -1;
+    hist[tid] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < BE_COL_PER; ++k) {
+        const int dg = key[k] >= 0 ? (key[k] >> lo) & mask : -1;
+        const unsigned peers = be_col_peers(dg);
+        if (dg >= 0 && lane == __ffs(peers) - 1) atomicAdd(hist + dg, __popc(peers));
+    }
+    __syncthreads();
+    if (tid < D) cnt[(long long)blockIdx.x * D + tid] = hist[tid];
+}
+
+// a block per digit: the exclusive prefix of its counts over the G blocks, in
+// place, and its total; each warp takes a slice of the blocks
+__global__ void __launch_bounds__(BE_COL_THREADS)
+be_col_colscan_kernel(int* __restrict__ cnt, int* __restrict__ dtotal, int G, int D) {
+    __shared__ int slice_sum[BE_COL_WARPS];
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, d = blockIdx.x;
+    const int per = (G + BE_COL_WARPS * 32 - 1) / (BE_COL_WARPS * 32) * 32;
+    const int g0 = w * per, g1 = min(G, g0 + per);
+    int sum = 0;
+    for (int g = g0; g < g1; g += 32 * BE_COL_BATCH) {
+        int v[BE_COL_BATCH];
+#pragma unroll
+        for (int k = 0; k < BE_COL_BATCH; ++k) {
+            const int gg = g + k * 32 + lane;
+            v[k] = gg < g1 ? cnt[(long long)gg * D + d] : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < BE_COL_BATCH; ++k) sum += v[k];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(BE_FULL, sum, o);
+    if (lane == 0) slice_sum[w] = sum;
+    __syncthreads();
+    int carry = 0;
+    for (int k = 0; k < w; ++k) carry += slice_sum[k];
+    for (int g = g0; g < g1; g += 32 * BE_COL_BATCH) {
+        int v[BE_COL_BATCH];
+#pragma unroll
+        for (int k = 0; k < BE_COL_BATCH; ++k) {
+            const int gg = g + k * 32 + lane;
+            v[k] = gg < g1 ? cnt[(long long)gg * D + d] : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < BE_COL_BATCH; ++k) {
+            int incl = v[k];
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int u = __shfl_up_sync(BE_FULL, incl, o);
+                if (lane >= o) incl += u;
+            }
+            const int gg = g + k * 32 + lane;
+            if (gg < g1) cnt[(long long)gg * D + d] = carry + incl - v[k];
+            carry += __shfl_sync(BE_FULL, incl, 31);
+        }
+    }
+    if (w == BE_COL_WARPS - 1 && lane == 0) dtotal[d] = carry;
+}
+
+// one pass's layout (the host's be_col_plan)
+struct ColPass {
+    const void* keys_in;           // FIRST: entry_idx [T] int64, else [T] int32
+    const void* fac_in;            // [T]: the factors (FIRST: be_sample_kernel's, in
+                                   // position order; else the previous pass's)
+    int* keys_out;
+    void* fac_out;
+    const int* cnt;                // [G, D]: exclusive prefixes over blocks
+    const int* dtotal;             // [D]
+    long long total;               // T = n * 2L positions
+    int lo, mask, D;
+};
+
+#define BE_COL_AHEAD 8  // steps of a warp whose payload loads are in flight together
+
+// A block's BE_COL_BLOCK positions: each warp counts its positions' digits,
+// the block places every record at its digit's slot in shared memory (the
+// count of equal digits before it), then writes each digit's records out as
+// one run of consecutive slots
+template <typename T, bool FIRST>
+__global__ void __launch_bounds__(BE_COL_THREADS)
+be_col_scatter_kernel(const __grid_constant__ ColPass a) {
+    typedef typename Row4<T>::type Fac;
+    extern __shared__ __align__(16) unsigned char be_sm[];
+    Fac* sfac = reinterpret_cast<Fac*>(be_sm);                  // [BE_COL_BLOCK] in digit order
+    int* skey = reinterpret_cast<int*>(sfac + BE_COL_BLOCK);    // [BE_COL_BLOCK]
+    __shared__ int wcnt[BE_COL_WARPS][BE_COL_DIGITS];           // per warp and digit
+    __shared__ int loc[BE_COL_DIGITS], gbase[BE_COL_DIGITS], warp_sum[BE_COL_WARPS];
+    const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+    const unsigned lower = (1u << lane) - 1u;
+    const long long g = blockIdx.x, s0 = g * BE_COL_BLOCK + w * BE_COL_SEG + lane;
+    const int D = a.D;
+    int key[BE_COL_PER];  // the warp's positions s0 + 32 k: every load issued together
+#pragma unroll
+    for (int k = 0; k < BE_COL_PER; ++k)
+        key[k] = s0 + k * 32 < a.total ? be_col_key<FIRST>(a.keys_in, s0 + k * 32) : -1;
+    const int tot = tid < D ? a.dtotal[tid] : 0;
+    const int pre = tid < D ? a.cnt[g * D + tid] : 0;
+#pragma unroll
+    for (int k = 0; k < BE_COL_WARPS; ++k) wcnt[k][tid] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < BE_COL_PER; ++k) {
+        const int dg = key[k] >= 0 ? (key[k] >> a.lo) & a.mask : -1;
+        const unsigned peers = be_col_peers(dg);
+        if (dg >= 0 && lane == __ffs(peers) - 1) wcnt[w][dg] += __popc(peers);
+        __syncwarp();
+    }
+    __syncthreads();
+    // digit tid: its records' local start (the block's digits before it), each
+    // warp's start, and its global slot (the digit's start + earlier blocks)
+    {
+        int here = 0;
+#pragma unroll
+        for (int k = 0; k < BE_COL_WARPS; ++k) here += wcnt[k][tid];
+        const int start = be_col_scan(tot, warp_sum);
+        const int local = be_col_scan(here, warp_sum);
+        loc[tid] = local;
+        gbase[tid] = start + pre;
+        int run = local;
+#pragma unroll
+        for (int k = 0; k < BE_COL_WARPS; ++k) {
+            const int v = wcnt[k][tid];
+            wcnt[k][tid] = run;
+            run += v;
+        }
+    }
+    __syncthreads();
+    // each warp's positions in order, to their local slots; the factors of
+    // BE_COL_AHEAD steps loaded before the first of them is placed
+#pragma unroll
+    for (int k0 = 0; k0 < BE_COL_PER; k0 += BE_COL_AHEAD) {
+        Fac f[BE_COL_AHEAD];
+#pragma unroll
+        for (int k = 0; k < BE_COL_AHEAD; ++k)
+            if (key[k0 + k] >= 0)
+                f[k] = __ldcs(reinterpret_cast<const Fac*>(a.fac_in) + s0 + (k0 + k) * 32);
+#pragma unroll
+        for (int k = 0; k < BE_COL_AHEAD; ++k) {
+            const int kk = key[k0 + k];
+            const int dg = kk >= 0 ? (kk >> a.lo) & a.mask : -1;
+            const unsigned peers = be_col_peers(dg);
+            int at = 0;
+            if (dg >= 0) at = wcnt[w][dg] + __popc(peers & lower);
+            __syncwarp();
+            if (dg >= 0 && lane == __ffs(peers) - 1) wcnt[w][dg] += __popc(peers);
+            __syncwarp();
+            if (dg < 0) continue;
+            skey[at] = kk;
+            sfac[at] = f[k];
+        }
+    }
+    __syncthreads();
+    // out in local order: a digit's records to consecutive global slots
+    const long long here = a.total - g * BE_COL_BLOCK;
+    Fac* fac_out = reinterpret_cast<Fac*>(a.fac_out);
+#pragma unroll
+    for (int k = 0; k < BE_COL_PER; ++k) {
+        const int j = k * BE_COL_THREADS + tid;
+        if (j >= here) break;
+        const int kk = skey[j], dg = (kk >> a.lo) & a.mask;
+        const int dst = gbase[dg] + j - loc[dg];
+        a.keys_out[dst] = kk;
+        fac_out[dst] = sfac[j];
+    }
+}
+
+// the first sorted position of each BE_COL_ROWS-row block of the table,
+// bstart[nb] = T: a thread per sorted position marks the blocks whose rows
+// start at it
+__global__ void __launch_bounds__(BE_COL_THREADS)
+be_col_starts_kernel(const int* __restrict__ skey, long long total, int nb,
+                     int* __restrict__ bstart) {
+    const long long i = (long long)blockIdx.x * BE_COL_THREADS + threadIdx.x;
+    if (i > total) return;
+    const int prev = i > 0 ? skey[i - 1] / BE_COL_ROWS : -1;
+    const int here = i < total ? skey[i] / BE_COL_ROWS : nb;
+    for (int b = prev + 1; b <= here; ++b) bstart[b] = (int)i;
+}
+
+// a reduce block's shared memory: its rows (rounded), then a tile of sorted
+// positions (whole chunks): their factors, the chunks' partials, their keys
+// and the key after the tile, the tile's piece heads (48 KB of keys and
+// factors)
+template <typename T> struct ColTile {
+    typedef typename Row4<T>::type Fac;
+    static constexpr int N = sizeof(T) == 2 ? 4096 : 2048;
+    static constexpr int CHUNKS = N / BE_CHUNK;
+    static constexpr int O_FAC = BE_COL_ROWS * (int)sizeof(Fac);
+    static constexpr int O_PART = O_FAC + N * (int)sizeof(Fac);
+    static constexpr int O_KEY = O_PART + CHUNKS * 2 * 16;
+    static constexpr int O_HEAD = O_KEY + (N + 4) * 4;
+    static constexpr int SMEM = O_HEAD + (N + 2) * 2;
+};
+
+// one block per BE_COL_ROWS table rows r0.. of the table gradient, from the
+// sorted keys and factors of the last pass. The block's sorted positions are
+// staged in tiles of whole chunks; a thread per chunk walks it from shared
+// memory; the runs that cross chunks are folded from the chunks' partials
+// in order, a run that goes on past the tile carried into the next tile's
+// fold. Every row is written from shared memory at the end.
+template <typename T>
+__global__ void __launch_bounds__(BE_COL_THREADS)
+be_col_reduce_kernel(const int* __restrict__ skey, const void* __restrict__ sfac,
+                     const int* __restrict__ bstart, T* __restrict__ d_table, long long E) {
+    typedef typename Row4<T>::type Fac;
+    typedef ColTile<T> Tile;
+    constexpr int TILE = Tile::N;
+    extern __shared__ __align__(16) unsigned char be_sm[];
+    Fac* rowv = reinterpret_cast<Fac*>(be_sm);
+    Fac* tfac = reinterpret_cast<Fac*>(be_sm + Tile::O_FAC);
+    float4 (*tpart)[2] = reinterpret_cast<float4 (*)[2]>(be_sm + Tile::O_PART);
+    int* tkey = reinterpret_cast<int*>(be_sm + Tile::O_KEY);
+    unsigned short* head = reinterpret_cast<unsigned short*>(be_sm + Tile::O_HEAD);
+    __shared__ float4 carry[2];            // a run's fold carried between tiles
+    __shared__ int hcount[TILE / 32], n_heads;  // heads per (step, warp)
+    __shared__ int carry_key[2];
+    __shared__ int key_prev;               // the key before the tile
+    const Fac* fac = reinterpret_cast<const Fac*>(sfac);
+    const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+    const long long r0 = (long long)blockIdx.x * BE_COL_ROWS;
+    const int nr = (int)min((long long)BE_COL_ROWS, E - r0);
+    const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int r = tid; r < BE_COL_ROWS; r += BE_COL_THREADS) be_pack4(zero, rowv[r]);
+    if (tid == 0) {
+        carry_key[0] = -1;
+        key_prev = -1;
+    }
+    const long long lo = bstart[blockIdx.x], hi = bstart[blockIdx.x + 1];
+    // the tiles' keys and factors pass through registers: a tile's loads are
+    // issued before the previous tile is walked
+    constexpr int PT = TILE / BE_COL_THREADS;
+    int kk[PT], after = -1;  // after: the key past the tile (thread 0)
+    Fac ff[PT];
+    auto fetch = [&](long long t0) {
+        const long long tlo = t0 > lo ? t0 : lo, thi = t0 + TILE < hi ? t0 + TILE : hi;
+#pragma unroll
+        for (int k = 0; k < PT; ++k) {
+            const long long i = tlo + k * BE_COL_THREADS + tid;
+            if (i < thi) {
+                kk[k] = skey[i];
+                ff[k] = fac[i];
+            }
+        }
+        if (tid == 0) after = thi < hi ? skey[thi] : -1;
+    };
+    const long long first_tile = lo / BE_CHUNK * BE_CHUNK;
+    if (hi > lo) fetch(first_tile);
+    __syncthreads();
+    int t = 0;
+    for (long long t0 = first_tile; t0 < hi; t0 += TILE, ++t) {
+        const long long tlo = t0 > lo ? t0 : lo, thi = t0 + TILE < hi ? t0 + TILE : hi;
+#pragma unroll
+        for (int k = 0; k < PT; ++k) {
+            const long long i = tlo + k * BE_COL_THREADS + tid;
+            if (i < thi) {
+                tkey[i - t0] = kk[k];
+                tfac[i - t0] = ff[k];
+            }
+        }
+        if (tid == 0) {
+            tkey[thi - t0] = after;
+            carry_key[(t + 1) & 1] = -1;
+        }
+        if (t0 + TILE < hi) fetch(t0 + TILE);
+        __syncthreads();
+        const int nch = (int)((thi - t0 + BE_CHUNK - 1) / BE_CHUNK);
+        const int llo = (int)(tlo - t0), lhi = (int)(thi - t0);  // the tile's positions
+        // the pieces: a position starts one where its key differs from the one
+        // before it, or where it starts a chunk. Step k of warp w flags the
+        // positions k * 256 + w * 32 + lane (one ballot), a scan of the
+        // (step, warp) counts lists the heads in position order
+        {
+            unsigned ball[PT];
+#pragma unroll
+            for (int k = 0; k < PT; ++k) {
+                const int i = k * BE_COL_THREADS + tid;
+                bool flag = false;
+                if (i >= llo && i < lhi) {
+                    const int before = i > llo ? tkey[i - 1] : (tlo > lo ? key_prev : -1);
+                    flag = i % BE_CHUNK == 0 || tkey[i] != before;
+                }
+                ball[k] = __ballot_sync(BE_FULL, flag);
+                if (lane == 0) hcount[k * BE_COL_WARPS + w] = __popc(ball[k]);
+            }
+            __syncthreads();
+            if (w == 0) {  // the (step, warp) counts' exclusive prefix, 4 per lane
+                constexpr int PER_LANE = PT * BE_COL_WARPS / 32;
+                int v[PER_LANE], sum = 0;
+#pragma unroll
+                for (int k = 0; k < PER_LANE; ++k) {
+                    v[k] = hcount[lane * PER_LANE + k];
+                    sum += v[k];
+                }
+                int incl = sum;
+#pragma unroll
+                for (int o = 1; o < 32; o <<= 1) {
+                    const int u = __shfl_up_sync(BE_FULL, incl, o);
+                    if (lane >= o) incl += u;
+                }
+                int run = incl - sum;
+#pragma unroll
+                for (int k = 0; k < PER_LANE; ++k) {
+                    hcount[lane * PER_LANE + k] = run;
+                    run += v[k];
+                }
+                if (lane == 31) {
+                    n_heads = run;
+                    head[run] = (unsigned short)lhi;
+                }
+            }
+            __syncthreads();
+#pragma unroll
+            for (int k = 0; k < PT; ++k)
+                if ((ball[k] >> lane) & 1)
+                    head[hcount[k * BE_COL_WARPS + w] + __popc(ball[k] & ((1u << lane) - 1u))] =
+                        (unsigned short)(k * BE_COL_THREADS + tid);
+        }
+        __syncthreads();
+        // each piece summed left to right from zero: a whole run to rowv, the
+        // others to tpart (slot 0: the piece that starts at its chunk's first
+        // position, 1: the one that goes on past its chunk's end)
+        for (int k = tid; k < n_heads; k += BE_COL_THREADS) {
+            const int a = head[k], b = head[k + 1], key = tkey[a];
+            const bool starts = a > llo ? tkey[a - 1] != key : (tlo > lo ? key_prev : -1) != key;
+            const bool ends = b + t0 < hi ? tkey[b] != key : true;
+            float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            for (int i0 = a; i0 < b; i0 += 8) {
+                Fac ff8[8];
+#pragma unroll
+                for (int k8 = 0; k8 < 8; ++k8)
+                    if (i0 + k8 < b) ff8[k8] = tfac[i0 + k8];
+#pragma unroll
+                for (int k8 = 0; k8 < 8; ++k8) {
+                    if (i0 + k8 >= b) break;
+                    float v[4];
+                    be_row4(ff8[k8], v);
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) acc[q] = __fadd_rn(acc[q], v[q]);
+                }
+            }
+            if (starts && ends)
+                be_pack4(acc, rowv[key - r0]);
+            else
+                tpart[a / BE_CHUNK][a % BE_CHUNK == 0 ? 0 : 1] =
+                    make_float4(acc[0], acc[1], acc[2], acc[3]);
+        }
+        __syncthreads();
+        // the runs that cross chunks: each fold starts in the chunk where its
+        // run starts (or, for a run carried in, at the tile's first chunk)
+        // and adds slot 0 of each next chunk the run reaches
+        for (int lc = tid; lc < nch; lc += BE_COL_THREADS) {
+            const long long c0 = t0 + (long long)lc * BE_CHUNK;
+            const int chi = (int)((c0 + BE_CHUNK < hi ? c0 + BE_CHUNK : hi) - t0);
+            auto fold = [&](float4 acc, int key) {
+                int cc = lc + 1;
+                bool going = true;
+                while (going && cc < nch) {  // 8 chunks' keys and partials read together
+                    int ck[8];
+                    float4 cp[8];
+#pragma unroll
+                    for (int k = 0; k < 8; ++k) {
+                        ck[k] = cc + k < nch ? tkey[(cc + k) * BE_CHUNK] : -1;
+                        cp[k] = tpart[cc + k < nch ? cc + k : cc][0];
+                    }
+#pragma unroll
+                    for (int k = 0; k < 8; ++k) {
+                        going = going && ck[k] == key;
+                        if (going) {
+                            acc = make_float4(__fadd_rn(acc.x, cp[k].x), __fadd_rn(acc.y, cp[k].y),
+                                              __fadd_rn(acc.z, cp[k].z), __fadd_rn(acc.w, cp[k].w));
+                            ++cc;
+                        }
+                    }
+                }
+                if (cc == nch && tkey[thi - t0] == key) {  // goes on into the next tile
+                    carry[(t + 1) & 1] = acc;
+                    carry_key[(t + 1) & 1] = key;
+                } else {
+                    const float v[4] = {acc.x, acc.y, acc.z, acc.w};
+                    be_pack4(v, rowv[key - r0]);
+                }
+            };
+            const int ck = carry_key[t & 1];
+            if (lc == 0 && ck >= 0) {
+                const float4 c = carry[t & 1], p = tpart[0][0];
+                fold(make_float4(__fadd_rn(c.x, p.x), __fadd_rn(c.y, p.y), __fadd_rn(c.z, p.z),
+                                 __fadd_rn(c.w, p.w)), ck);
+            }
+            const int key = tkey[chi - 1];
+            if (chi + t0 >= hi || tkey[chi] != key) continue;  // the last run ends here
+            const bool covers = c0 >= lo && tkey[c0 - t0] == key;
+            const int before = c0 > tlo ? tkey[c0 - t0 - 1] : key_prev;
+            if (covers && c0 > lo && before == key) continue;  // begun in an earlier chunk
+            fold(tpart[lc][covers ? 0 : 1], key);
+        }
+        const int last = tid == 0 ? tkey[thi - 1 - t0] : 0;
+        __syncthreads();
+        if (tid == 0) key_prev = last;
+    }
+    __syncthreads();
+    Fac* out = reinterpret_cast<Fac*>(d_table) + r0;
+    for (int r = tid; r < nr; r += BE_COL_THREADS) __stcs(out + r, rowv[r]);
 }
 
 // ---------------------------------------------------------------------------
@@ -1079,9 +1618,6 @@ static bool be_valid(long long W, long long FL, long long H, bool has_code,
         return false;
     return elem_bytes == 2 || elem_bytes == 4;
 }
-
-// elements a lane of the backward's chunk and span kernels holds
-static int be_lane_elems(long long W) { return W == 1 ? 4 : BE_P; }
 
 static BeDiv be_div(unsigned d) {
     BeDiv v{0u, 0u};
@@ -1226,16 +1762,20 @@ extern "C" int blended_encode_fwd(const void* table, const void* entry_idx,
         return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
     if (W == 1) {  // rows of 4 elements: no bulk copy takes them
-        const unsigned grid = (unsigned)((n * L + 255) / 256);
+        const int items = (int)(n * L);
+        const unsigned grid = (unsigned)((items + 255) / 256);
+        const BeDiv per_level = be_div((unsigned)L);
         cudaStream_t st = (cudaStream_t)stream;
         if (elem_bytes == 2)
             be_fwd_narrow_kernel<bf16><<<grid, 256, 0, st>>>(
                 (const bf16*)table, (const long long*)entry_idx, (const float*)wy,
-                (const float*)fx, (const float*)fz, (float*)out, (bf16*)cg, n, (int)L);
+                (const float*)fx, (const float*)fz, (float*)out, (bf16*)cg, items, (int)L,
+                per_level);
         else
             be_fwd_narrow_kernel<float><<<grid, 256, 0, st>>>(
                 (const float*)table, (const long long*)entry_idx, (const float*)wy,
-                (const float*)fx, (const float*)fz, (float*)out, (float*)cg, n, (int)L);
+                (const float*)fx, (const float*)fz, (float*)out, (float*)cg, items, (int)L,
+                per_level);
         return (int)cudaGetLastError();
     }
     FwdPlan p{};
@@ -1271,7 +1811,8 @@ static int be_launch_sample(const void* gbar, const void* cg, const void* bh,
                             const void* fz, void* mfac, void* coder, void* d_code,
                             void* d_wy, void* d_fx, void* d_fz, long long n, int L,
                             int H, cudaStream_t st) {
-    const unsigned grid = (unsigned)((n * 32 + 255) / 256);
+    const long long threads = FL == 1 && !CODE ? n * L : n * 32;  // be_sample_kernel's mapping
+    const unsigned grid = (unsigned)((threads + 255) / 256);
     be_sample_kernel<T, FL, CODE><<<grid, 256, 0, st>>>(
         (const float*)gbar, (const T*)cg, (const T*)bh, (const float*)code,
         (const float*)wy, (const float*)fx, (const float*)fz, (T*)mfac, (T*)coder,
@@ -1328,12 +1869,12 @@ extern "C" int blended_encode_bwd_sample(const void* gbar, const void* cg, const
                                      st);
 }
 
-template <typename T, int FL, bool CODE, bool ALIGNED, int P>
+template <typename T, int FL, bool CODE, bool ALIGNED>
 static int be_launch_chunks(const void* skey, const void* perm, const void* mfac,
                             const void* coder, void* d_table, void* partial,
                             long long total, int L, int H, int W, cudaStream_t st) {
-    auto kernel = be_chunk_kernel<T, FL, CODE, ALIGNED, P>;
-    const int R = 4 * W / P;
+    auto kernel = be_chunk_kernel<T, FL, CODE, ALIGNED>;
+    const int R = 4 * W / BE_P;
     const int HP = CODE ? (int)be_pad(H, sizeof(T)) : 0;
     const long long per_pos = 4 + (Factor<T, FL>::MP + HP) * (long long)sizeof(T);
     long long cpb = BE_THREADS / R;
@@ -1348,7 +1889,7 @@ static int be_launch_chunks(const void* skey, const void* perm, const void* mfac
                                    (int)smem);
     if (err != cudaSuccess) return (int)err;
     const long long n_chunks = (total + BE_CHUNK - 1) / BE_CHUNK;
-    be_chunk_kernel<T, FL, CODE, ALIGNED, P><<<(unsigned)((n_chunks + cpb - 1) / cpb),
+    be_chunk_kernel<T, FL, CODE, ALIGNED><<<(unsigned)((n_chunks + cpb - 1) / cpb),
                                              (unsigned)(R * cpb), (size_t)smem, st>>>(
         (const int*)skey, (const long long*)perm, total, (const T*)mfac, (const T*)coder,
         (T*)d_table, (float*)partial, L, W, R, (int)cpb, HP);
@@ -1359,16 +1900,11 @@ template <typename T, int FL, bool CODE>
 static int be_chunks_aligned(const void* skey, const void* perm, const void* mfac,
                              const void* coder, void* d_table, void* partial,
                              long long total, int L, int H, int W, cudaStream_t st) {
-    if constexpr (FL == 1 && !CODE) {
-        if (W == 1)  // rows of 4 elements: a lane each
-            return be_launch_chunks<T, 1, false, false, 4>(skey, perm, mfac, coder, d_table,
-                                                           partial, total, L, H, W, st);
-    }
     if (W % BE_P == 0)
-        return be_launch_chunks<T, FL, CODE, true, BE_P>(skey, perm, mfac, coder, d_table,
-                                                         partial, total, L, H, W, st);
-    return be_launch_chunks<T, FL, CODE, false, BE_P>(skey, perm, mfac, coder, d_table,
-                                                      partial, total, L, H, W, st);
+        return be_launch_chunks<T, FL, CODE, true>(skey, perm, mfac, coder, d_table, partial,
+                                                   total, L, H, W, st);
+    return be_launch_chunks<T, FL, CODE, false>(skey, perm, mfac, coder, d_table, partial,
+                                                total, L, H, W, st);
 }
 
 template <typename T, bool CODE>
@@ -1389,14 +1925,15 @@ static int be_chunks_fl(int fl, const void* skey, const void* perm, const void* 
 // positions in entry_idx (a stable sort); mfac / coder from
 // blended_encode_bwd_sample (coder null without a code); scratch partial
 // [2 * ceil(n*2L / BE_CHUNK), 4W] f32; d_table [E, 4W] in the table dtype,
-// zeroed before this runs: every row some position reaches is written
+// zeroed before this runs: every row some position reaches is written. Rows
+// of 4 elements take blended_encode_bwd_column instead.
 extern "C" int blended_encode_bwd_chunks(const void* skey, const void* perm,
                                          const void* mfac, const void* coder,
                                          void* d_table, void* partial, long long n,
                                          long long L, long long H, long long W,
                                          long long FL, long long elem_bytes, void* stream) {
     const bool has_code = coder != nullptr;
-    if (!be_valid(W, FL, H, has_code, elem_bytes) || n < 0 || L < 1
+    if (!be_valid(W, FL, H, has_code, elem_bytes) || W == 1 || n < 0 || L < 1
         || n * 2 * L >= (1LL << 31))
         return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
@@ -1420,24 +1957,20 @@ extern "C" int blended_encode_bwd_chunks(const void* skey, const void* perm,
 extern "C" int blended_encode_bwd_spans(const void* skey, const void* partial,
                                         void* d_table, long long n, long long L,
                                         long long W, long long elem_bytes, void* stream) {
-    if (n < 0 || L < 1 || W < 1 || ((4 * W) % BE_P && W != 1) || 4 * W > 128 * BE_P
+    if (n < 0 || L < 1 || W < 1 || (4 * W) % BE_P || 4 * W > 128 * BE_P
         || n * 2 * L >= (1LL << 31) || (elem_bytes != 2 && elem_bytes != 4))
         return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
     const long long total = n * 2 * L, n_chunks = (total + BE_CHUNK - 1) / BE_CHUNK;
-    const int W4 = (int)(4 * W), P = be_lane_elems(W), R = W4 / P;
+    const int W4 = (int)(4 * W), R = W4 / BE_P;
     const unsigned grid = (unsigned)((n_chunks * R + 255) / 256);
     cudaStream_t st = (cudaStream_t)stream;
     const int* k = (const int*)skey;
     const float* part = (const float*)partial;
-    if (elem_bytes == 2 && P == 4)
-        be_span_kernel<bf16, 4><<<grid, 256, 0, st>>>(k, total, part, (bf16*)d_table, W4, R);
-    else if (elem_bytes == 2)
-        be_span_kernel<bf16, BE_P><<<grid, 256, 0, st>>>(k, total, part, (bf16*)d_table, W4, R);
-    else if (P == 4)
-        be_span_kernel<float, 4><<<grid, 256, 0, st>>>(k, total, part, (float*)d_table, W4, R);
+    if (elem_bytes == 2)
+        be_span_kernel<bf16><<<grid, 256, 0, st>>>(k, total, part, (bf16*)d_table, W4, R);
     else
-        be_span_kernel<float, BE_P><<<grid, 256, 0, st>>>(k, total, part, (float*)d_table, W4, R);
+        be_span_kernel<float><<<grid, 256, 0, st>>>(k, total, part, (float*)d_table, W4, R);
     return (int)cudaGetLastError();
 }
 
@@ -1445,4 +1978,183 @@ extern "C" int blended_encode_bwd_spans(const void* skey, const void* partial,
 extern "C" int blended_encode_zero(void* d_table, long long bytes, void* stream) {
     if (bytes < 0) return (int)cudaErrorInvalidValue;
     return (int)cudaMemsetAsync(d_table, 0, (size_t)bytes, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// A3-bwd on quad rows of 4 elements: host side
+
+// the passes of the keyed reduction and its scratch (byte offsets)
+struct ColPlan {
+    int passes, lo[BE_COL_MAX_PASSES], mask[BE_COL_MAX_PASSES], D[BE_COL_MAX_PASSES];
+    long long T, G;
+    long long o_cnt, o_tot, o_start, o_keys[2], o_fac[2], bytes;
+    int nb;  // reduce blocks of BE_COL_ROWS rows
+};
+
+static long long be_col_align(long long v) { return (v + 255) / 256 * 256; }
+
+// digits of 8 bits, the last of what is left, over the bits of E - 1; a
+// digit's count is cut to the values keys below E take
+static void be_col_plan(ColPlan& c, long long T, long long E, int es) {
+    int bits = 1;
+    while ((1LL << bits) < E) ++bits;
+    c.passes = 0;
+    for (int at = 0; at < bits;) {
+        const int width = bits - at < BE_COL_DIGIT_BITS ? bits - at : BE_COL_DIGIT_BITS;
+        const long long values = ((E - 1) >> at) + 1;
+        c.lo[c.passes] = at;
+        c.mask[c.passes] = (1 << width) - 1;
+        c.D[c.passes] = (int)(values < (1LL << width) ? values : (1LL << width));
+        at += width;
+        ++c.passes;
+    }
+    c.T = T;
+    c.G = (T + BE_COL_BLOCK - 1) / BE_COL_BLOCK;
+    long long at = 0;
+    c.o_cnt = at;
+    at += be_col_align(c.G * BE_COL_DIGITS * 4);
+    c.o_tot = at;
+    at += be_col_align(BE_COL_DIGITS * 4);
+    c.nb = (int)((E + BE_COL_ROWS - 1) / BE_COL_ROWS);
+    c.o_start = at;
+    at += be_col_align((long long)(c.nb + 1) * 4);
+    for (int k = 0; k < 2; ++k) {
+        c.o_keys[k] = at;
+        at += be_col_align(T * 4);
+    }
+    for (int k = 0; k < 2; ++k) {
+        c.o_fac[k] = at;
+        at += be_col_align(T * 4 * es);
+    }
+    c.bytes = at;
+}
+
+// the scatter's records in digit order: keys and factors
+template <typename T> static size_t be_col_scatter_smem() {
+    return (size_t)BE_COL_BLOCK * (4 + sizeof(typename Row4<T>::type));
+}
+
+template <typename T, bool FIRST>
+static int be_col_scatter(const ColPass& a, long long G, cudaStream_t st) {
+    // the shared-memory attribute, once per device
+    static int set_device = -1;
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess && device != set_device) {
+        err = cudaFuncSetAttribute(be_col_scatter_kernel<T, FIRST>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)be_col_scatter_smem<T>());
+        if (err == cudaSuccess) set_device = device;
+    }
+    if (err != cudaSuccess) return (int)err;
+    be_col_scatter_kernel<T, FIRST><<<(unsigned)G, BE_COL_THREADS, be_col_scatter_smem<T>(), st>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// the column's per-sample inputs and outputs
+struct ColIO {
+    const void* entry_idx;
+    const float *gbar, *wy, *fx, *fz;
+    const void* cg;
+    float *d_wy, *d_fx, *d_fz;
+    void* d_table;
+    long long n, E;
+    int L;
+};
+
+// pass k reads keys and factors from set (k + 1) % 2 (pass 0: entry_idx and
+// be_sample_kernel's factors, which go to set 1) and writes set k % 2
+template <typename T>
+static int be_col_run(const ColPlan& c, unsigned char* scratch, const ColIO& io,
+                      long long parts, cudaStream_t st) {
+    int* cnt = reinterpret_cast<int*>(scratch + c.o_cnt);
+    int* tot = reinterpret_cast<int*>(scratch + c.o_tot);
+    int* start = reinterpret_cast<int*>(scratch + c.o_start);
+    if (parts & 4) {
+        be_sample_kernel<T, 1, false><<<(unsigned)((io.n * io.L + 255) / 256), 256, 0, st>>>(
+            io.gbar, (const T*)io.cg, nullptr, nullptr, io.wy, io.fx, io.fz,
+            (T*)(scratch + c.o_fac[1]), nullptr, nullptr, io.d_wy, io.d_fx, io.d_fz, io.n,
+            io.L, 1, 0);
+        const int err = (int)cudaGetLastError();
+        if (err != 0) return err;
+    }
+    if (parts & 1) {
+        for (int k = 0; k < c.passes; ++k) {
+            const bool first = k == 0;
+            const void* keys_in = first ? io.entry_idx : scratch + c.o_keys[(k + 1) % 2];
+            if (first)
+                be_col_count_kernel<true><<<(unsigned)c.G, BE_COL_THREADS, 0, st>>>(
+                    keys_in, c.T, c.lo[k], c.mask[k], c.D[k], cnt);
+            else
+                be_col_count_kernel<false><<<(unsigned)c.G, BE_COL_THREADS, 0, st>>>(
+                    keys_in, c.T, c.lo[k], c.mask[k], c.D[k], cnt);
+            be_col_colscan_kernel<<<(unsigned)c.D[k], BE_COL_THREADS, 0, st>>>(
+                cnt, tot, (int)c.G, c.D[k]);
+            const ColPass a{keys_in, scratch + c.o_fac[(k + 1) % 2],
+                            reinterpret_cast<int*>(scratch + c.o_keys[k % 2]),
+                            scratch + c.o_fac[k % 2], cnt, tot, c.T, c.lo[k], c.mask[k],
+                            c.D[k]};
+            const int err = first ? be_col_scatter<T, true>(a, c.G, st)
+                                  : be_col_scatter<T, false>(a, c.G, st);
+            if (err != 0) return err;
+        }
+    }
+    if (parts & 2) {
+        static int set_device = -1;  // the shared-memory attribute, once per device
+        int device = 0;
+        cudaError_t err = cudaGetDevice(&device);
+        if (err == cudaSuccess && device != set_device) {
+            err = cudaFuncSetAttribute(be_col_reduce_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       ColTile<T>::SMEM);
+            if (err == cudaSuccess) set_device = device;
+        }
+        if (err != cudaSuccess) return (int)err;
+        const int last = (c.passes - 1) % 2;
+        const int* skey = reinterpret_cast<const int*>(scratch + c.o_keys[last]);
+        be_col_starts_kernel<<<(unsigned)(c.T / BE_COL_THREADS + 1), BE_COL_THREADS, 0, st>>>(
+            skey, c.T, c.nb, start);
+        be_col_reduce_kernel<T><<<(unsigned)c.nb, BE_COL_THREADS, ColTile<T>::SMEM, st>>>(
+            skey, scratch + c.o_fac[last], start, (T*)io.d_table, io.E);
+    }
+    return (int)cudaGetLastError();
+}
+
+static bool be_col_valid(long long n, long long L, long long E, long long elem_bytes) {
+    return n >= 0 && L >= 1 && E >= 1 && E < (1LL << 31) && n * 2 * L < (1LL << 31)
+           && (elem_bytes == 2 || elem_bytes == 4);
+}
+
+// bytes of scratch blended_encode_bwd_column needs (256-byte aligned), or -1
+extern "C" long long blended_encode_bwd_column_scratch(long long n, long long L, long long E,
+                                                       long long elem_bytes) {
+    if (!be_col_valid(n, L, E, elem_bytes)) return -1;
+    ColPlan c;
+    be_col_plan(c, n * 2 * L, E, (int)elem_bytes);
+    return c.bytes;
+}
+
+// A3-bwd on quad rows of 4 elements (one feature, no code): from gbar [n, L],
+// the forward's residual cg [n, 2, L, 4], entry_idx [n, 2L] int64, wy [n, 2L],
+// fx, fz [n, L] f32, the per-sample gradients d_wy [n, 2L], d_fx, d_fz [n, L]
+// f32 and the table gradient [E, 4] (bf16 or f32, 16-byte aligned, every row
+// written). parts, a sum of: 4 the per-sample kernel (also the rounded
+// factors into the scratch), 1 the passes of the order (keys and factors,
+// needs 4), 2 the reduce (needs 1). scratch: blended_encode_bwd_column_scratch
+// bytes, 256-byte aligned.
+extern "C" int blended_encode_bwd_column(const void* gbar, const void* cg, const void* entry_idx,
+                                         const void* wy, const void* fx, const void* fz,
+                                         void* d_wy, void* d_fx, void* d_fz, void* d_table,
+                                         void* scratch, long long n, long long L, long long E,
+                                         long long elem_bytes, long long parts, void* stream) {
+    if (!be_col_valid(n, L, E, elem_bytes) || n == 0) return (int)cudaErrorInvalidValue;
+    ColPlan c;
+    be_col_plan(c, n * 2 * L, E, (int)elem_bytes);
+    const ColIO io{entry_idx, (const float*)gbar, (const float*)wy, (const float*)fx,
+                   (const float*)fz, cg, (float*)d_wy, (float*)d_fx, (float*)d_fz, d_table, n,
+                   E, (int)L};
+    cudaStream_t st = (cudaStream_t)stream;
+    unsigned char* sc = (unsigned char*)scratch;
+    return elem_bytes == 2 ? be_col_run<bf16>(c, sc, io, parts, st)
+                           : be_col_run<float>(c, sc, io, parts, st);
 }

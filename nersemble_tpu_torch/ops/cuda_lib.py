@@ -61,7 +61,13 @@ _SIGNATURES = {
     "blended_encode_bwd_spans": (*(_VOID_P,) * 3, *(_LL,) * 4, _VOID_P),
     # d_table, bytes, stream
     "blended_encode_zero": (_VOID_P, _LL, _VOID_P),
+    # n, L, E, elem_bytes
+    "blended_encode_bwd_column_scratch": (_LL, _LL, _LL, _LL),
+    # gbar, cg, entry_idx, wy, fx, fz, d_wy, d_fx, d_fz, d_table, scratch, n, L,
+    # E, elem_bytes, parts, stream
+    "blended_encode_bwd_column": (*(_VOID_P,) * 11, *(_LL,) * 5, _VOID_P),
 }
+_RESTYPES = {"blended_encode_bwd_column_scratch": ctypes.c_longlong}  # else c_int
 
 _library = None  # the loaded CDLL, once per process
 
@@ -133,7 +139,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _library = lib
     return _library
 

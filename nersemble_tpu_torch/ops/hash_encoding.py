@@ -18,7 +18,9 @@ hand kernels A3-fwd / A3-bwd (``csrc/blended_encode.cu``; the backward's
 table gradient in a fixed order, without atomics), on CPU tensors their
 plain versions (``blended_encode_fwd_plain`` / ``_bwd_plain``). The
 single-grid field's plain encode (``hash_encode``) is the same function
-without the blend.
+without the blend. On quad rows of 4 elements A3-bwd orders the keys with
+its own counting sort; ``column_table_grad_plain`` repeats that order's
+arithmetic on the CPU.
 """
 
 from dataclasses import dataclass
@@ -44,6 +46,12 @@ BWD_LAUNCHES = 0   # A3-bwd launches since the last reset
 NARROW_LAUNCHES = 0
 NARROW_BWD_LAUNCHES = 0
 TABLE_CHUNK = 64   # csrc/blended_encode.cu BE_CHUNK: sorted rows per chunk
+# A3-bwd on quad rows of 4 elements (csrc/blended_encode.cu BE_COL_*): the
+# positions per block of a counting-sort pass, the bits of a pass's digit,
+# table rows per reduce block
+COLUMN_BLOCK = 4096
+COLUMN_DIGIT_BITS = 8
+COLUMN_ROWS = 2048
 
 
 @dataclass(frozen=True)
@@ -272,6 +280,121 @@ def blended_encode_bwd_plain(gbar, CG, BH, code, entry_idx, wy, fx, fz,
     return acc.to(dt), d_code, d_wy, d_fx, d_fz
 
 
+def column_passes(n_rows: int):
+    """The digits of A3-bwd's counting sort of the keys on quad rows of 4
+    elements (csrc/blended_encode.cu be_col_plan): [(first bit, bits, digit
+    values)], 8 bits each, the last what is left of the bits of
+    ``n_rows - 1``; a digit takes only the values keys below ``n_rows``
+    give."""
+    bits = max(1, (n_rows - 1).bit_length())
+    passes, at = [], 0
+    while at < bits:
+        width = min(bits - at, COLUMN_DIGIT_BITS)
+        passes.append((at, width, min(1 << width, ((n_rows - 1) >> at) + 1)))
+        at += width
+    return passes
+
+
+def _rank_in_group(group: torch.Tensor) -> torch.Tensor:
+    """Per element, the count of elements before it with the same group."""
+    order = torch.sort(group, stable=True)[1]
+    sorted_group = group[order]
+    start = torch.ones_like(sorted_group, dtype=torch.bool)
+    start[1:] = sorted_group[1:] != sorted_group[:-1]
+    at = torch.arange(group.numel(), device=group.device)
+    first = torch.cummax(torch.where(start, at, torch.zeros_like(at)), 0)[0]
+    rank = torch.empty_like(at)
+    rank[order] = at - first
+    return rank
+
+
+def column_pass_slots(keys: torch.Tensor, lo: int, width: int, values: int) -> torch.Tensor:
+    """One pass of the counting sort (be_col_count / colscan / scatter
+    kernels): each position's slot = its digit's start (the digit totals
+    scanned) + the counts of that digit in earlier blocks of
+    ``COLUMN_BLOCK`` positions + the equal digits before it in its block
+    (the kernel's warp counts and ballot ranks add up to this). Integer
+    counts: the same slots in any order of counting."""
+    T = keys.numel()
+    digit = (keys.long() >> lo) & ((1 << width) - 1)
+    block = torch.arange(T, device=keys.device) // COLUMN_BLOCK
+    n_blocks = -(-T // COLUMN_BLOCK)
+    counts = torch.bincount(block * values + digit, minlength=n_blocks * values)
+    counts = counts.view(n_blocks, values)
+    before_block = counts.cumsum(0) - counts
+    total = counts.sum(0)
+    start = total.cumsum(0) - total
+    return start[digit] + before_block[block, digit] + _rank_in_group(block * values + digit)
+
+
+def column_order_plain(keys: torch.Tensor, n_rows: int):
+    """A3-bwd's order of the positions on quad rows of 4 elements:
+    (positions in sorted order [T] int64, their keys [T]) from the passes
+    of ``column_passes``, least significant digit first. Equals a stable
+    sort of the keys."""
+    perm = torch.arange(keys.numel(), device=keys.device)
+    skey = keys.reshape(-1).long()
+    for lo, width, values in column_passes(n_rows):
+        slot = column_pass_slots(skey, lo, width, values)
+        nxt_perm, nxt_key = torch.empty_like(perm), torch.empty_like(skey)
+        nxt_perm[slot] = perm
+        nxt_key[slot] = skey
+        perm, skey = nxt_perm, nxt_key
+    return perm, skey
+
+
+def column_ranges(skey: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The sorted positions of each reduce block's ``COLUMN_ROWS`` rows:
+    [blocks + 1] starts (the first position of a key at or past each
+    block's first row, as be_col_starts_kernel marks them)."""
+    firsts = torch.arange(0, n_rows + COLUMN_ROWS, COLUMN_ROWS, device=skey.device)
+    return torch.searchsorted(skey, firsts.clamp(max=n_rows))
+
+
+def column_pieces(skey: torch.Tensor) -> torch.Tensor:
+    """Whether each sorted position starts a piece: a new key, or a
+    multiple of ``TABLE_CHUNK`` (the chunk walk's cuts)."""
+    at = torch.arange(skey.numel(), device=skey.device)
+    start = at % TABLE_CHUNK == 0
+    start[1:] |= skey[1:] != skey[:-1]
+    return start
+
+
+def column_table_grad_plain(gbar, entry_idx, wy, fx, fz, table_shape, dtype):
+    """A3-bwd's table gradient on quad rows of 4 elements in the kernel's
+    arithmetic: each position's factor round((gbar * u_q) * wy), the
+    positions in ``column_order_plain``'s order, each piece summed left to
+    right in f32 from zero, the pieces of a key added in order, rounded
+    once; rows no key reaches zero. Bit for bit what the kernels give."""
+    E, W4 = table_shape
+    fac = _row_gradients(gbar, None, wy, fx, fz, dtype).reshape(-1, W4).float()
+    perm, skey = column_order_plain(entry_idx.reshape(-1), E)
+    fac = fac[perm]
+    out = torch.zeros(E, W4, dtype=dtype, device=fac.device)
+    if skey.numel() == 0:
+        return out
+    starts = column_pieces(skey)
+    first = torch.nonzero(starts).reshape(-1)
+    length = torch.diff(first, append=torch.tensor([skey.numel()], device=first.device))
+    acc = torch.zeros(first.numel(), W4, dtype=torch.float32, device=fac.device)
+    for t in range(int(length.max())):
+        live = length > t
+        acc[live] = acc[live] + fac[first[live] + t]
+    # the pieces of a key in order: the first, then each next one added
+    pkey = skey[first]
+    run_start = torch.ones_like(pkey, dtype=torch.bool)
+    run_start[1:] = pkey[1:] != pkey[:-1]
+    run_first = torch.nonzero(run_start).reshape(-1)
+    n_pieces = torch.diff(run_first, append=torch.tensor([pkey.numel()],
+                                                          device=first.device))
+    total = acc[run_first].clone()
+    for t in range(1, int(n_pieces.max())):
+        live = n_pieces > t
+        total[live] = total[live] + acc[run_first[live] + t]
+    out[pkey[run_first]] = total.to(dtype)
+    return out
+
+
 # kernel A3 against its plain version (chip_smoke.py, the card tests): the
 # outputs, the residuals and the per-sample gradients are the plain
 # version's roundings with the f32 sums in another order
@@ -428,14 +551,20 @@ def _side_stream(device: torch.device):
 class BlendedBwdPlan:
     """One A3-bwd call: its outputs, its scratch and its parts, each a
     launch on the current stream. ``blended_encode_bwd_cuda`` runs them with
-    the zeroing on a side stream; chip_smoke.py times each part alone.
+    the zeroing on a side stream; chip_smoke.py times each part alone
+    (``parts``).
 
     The parts: ``zero`` (the table gradient, rows no sample reached),
     ``sort`` (the entry indices as int32 keys, a stable ``torch.sort``:
     index preparation), ``sample`` (the per-sample gradients, each
     position's rounded row factor and the rounded code rows), ``chunks``
     (runs inside chunks of ``TABLE_CHUNK`` sorted positions) and ``spans``
-    (runs across chunks); the last two need the first three."""
+    (runs across chunks); the last two need the first three. On quad rows
+    of 4 elements (W = 1) the table takes two parts and no zeroing:
+    ``order`` (the counting sort's passes: keys and rounded factors into
+    the scratch) and ``reduce`` (every row of the table gradient), after
+    ``sample`` (the per-sample gradients, and the rounded factors into the
+    scratch)."""
 
     def __init__(self, gbar, CG, BH, code, entry_idx, wy, fx, fz, table_shape,
                  need_table: bool = True):
@@ -454,8 +583,16 @@ class BlendedBwdPlan:
         self.d_wy = torch.empty(n, 2 * L, **f32)
         self.d_fx, self.d_fz = torch.empty(n, L, **f32), torch.empty(n, L, **f32)
         self.d_table = self.mfac = self.coder = self.partial = None
-        self.skey = self.perm = None
-        if need_table:
+        self.skey = self.perm = self.scratch = None
+        if need_table and W == 1:
+            self.d_table = torch.empty(E, W4, dtype=dt, device=dev)
+            size = cuda_lib.library().blended_encode_bwd_column_scratch(
+                n, L, E, CG.element_size())
+            if size < 0:
+                raise ValueError(f"blended encode column backward: no plan for {n} "
+                                 f"samples, {L} levels and {E} rows")
+            self.scratch = torch.empty(size, dtype=torch.uint8, device=dev)
+        elif need_table:
             self.d_table = torch.empty(E, W4, dtype=dt, device=dev)
             mp, hp = _scratch_widths(Fl, H, CG.element_size())
             self.mfac = torch.empty(n * 2 * L, mp, dtype=dt, device=dev)
@@ -501,6 +638,29 @@ class BlendedBwdPlan:
             self.skey.data_ptr(), self.partial.data_ptr(), self.d_table.data_ptr(),
             n, L, W, es, self._stream()), "blended_encode_bwd_spans")
 
+    def column(self, parts: int = 7) -> None:
+        """On quad rows of 4 elements, the parts given as a sum: 4 ``sample``
+        (with the rounded factors), 1 ``order``, 2 ``reduce``; 7 all three
+        in one call."""
+        gbar, CG, _, _, entry_idx, wy, fx, fz = self.inputs
+        cuda_lib.check(cuda_lib.library().blended_encode_bwd_column(
+            gbar.data_ptr(), CG.data_ptr(), entry_idx.data_ptr(), wy.data_ptr(),
+            fx.data_ptr(), fz.data_ptr(), self.d_wy.data_ptr(), self.d_fx.data_ptr(),
+            self.d_fz.data_ptr(), self.d_table.data_ptr(), self.scratch.data_ptr(), self.n,
+            self.L, self.d_table.shape[0], CG.element_size(), parts, self._stream()),
+            "blended_encode_bwd_column")
+
+    def parts(self) -> Dict[str, object]:
+        """{name: the part as a call on the current stream}, in the order
+        the wrapper runs them."""
+        if self.scratch is not None:
+            return {"sample": lambda: self.column(4), "order": lambda: self.column(1),
+                    "reduce": lambda: self.column(2)}
+        stream = torch.cuda.current_stream(self.inputs[1].device)
+        return {"sort": self.sort, "sample": self.sample,
+                "memset": lambda: self.zero(stream), "chunk": self.chunks,
+                "span": self.spans}
+
     def outputs(self):
         return self.d_table, self.d_code, self.d_wy, self.d_fx, self.d_fz
 
@@ -513,7 +673,8 @@ def blended_encode_bwd_cuda(gbar, CG, BH, code, entry_idx, wy, fx, fz,
     rounded once: bit for bit from run to run. Its zeros are written on a
     side stream while the sort and the per-sample kernel run on the current
     one (``BlendedBwdPlan``); an event joins the two before the table's
-    kernels."""
+    kernels. Quad rows of 4 elements take the kernels' own counting sort,
+    which writes every row."""
     global BWD_LAUNCHES, NARROW_BWD_LAUNCHES
     if not CG.is_cuda:
         raise ValueError("blended_encode_bwd_cuda takes CUDA tensors")
@@ -523,7 +684,9 @@ def blended_encode_bwd_cuda(gbar, CG, BH, code, entry_idx, wy, fx, fz,
         if need_table:
             plan.d_table.zero_()
         return plan.outputs()
-    if need_table:
+    if need_table and plan.scratch is not None:
+        plan.column()
+    elif need_table:
         stream = torch.cuda.current_stream(CG.device)
         side, fork, join = _side_stream(CG.device)
         fork.record(stream)

@@ -440,7 +440,7 @@ def test_forward_without_residuals(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [CARD_CASES[0], CARD_CASES[4]])
+@pytest.mark.parametrize("case", [CARD_CASES[0], CARD_CASES[4], CARD_CASES[8]])
 def test_kernels_take_no_samples(cuda, case):
     lv, args, gbar = _card_case(cuda, *case, 0, seed=1)
     quad, code, wy, fx, fz, entry_idx = args[:6]
@@ -454,7 +454,8 @@ def test_kernels_take_no_samples(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [CARD_CASES[0], CARD_CASES[4], CARD_CASES[8]])
+@pytest.mark.parametrize("case", [CARD_CASES[0], CARD_CASES[4], CARD_CASES[8],
+                                  CARD_CASES[9]])
 def test_kernel_backward_is_bit_for_bit(cuda, case):
     _, args, gbar = _card_case(cuda, *case, 20000, seed=7, hot=True)
     quad, code, wy, fx, fz, entry_idx = args[:6]
@@ -517,3 +518,73 @@ def test_one_feature_columns_are_the_whole_tables_bit_for_bit(cuda, dtype):
                                                  lv.n_levels, 1, True)
         assert torch.equal(out, whole[0].view(-1, lv.n_levels, 2)[:, :, f])
         assert torch.equal(CG[..., 0], whole[1][..., f])
+
+
+def _column_edge_case(device, dtype, n_samples, seed):
+    """A one-feature column (SINGLE_LEVELS: 5120 rows, reduce blocks of
+    2048) whose entry indices sit on both sides of the blocks' edges, in
+    runs longer than a chunk, over more than two pass blocks of positions;
+    seeded weights, table and output gradient."""
+    lv = the.HashGridLevels.create(*SINGLE_LEVELS)
+    rng = np.random.default_rng(seed)
+    L, E = lv.n_levels, lv.total_entries
+    edges = np.array(sorted({k for b in range(0, E, the.COLUMN_ROWS)
+                             for k in (b - 1, b) if 0 <= k < E} | {E - 1}))
+    idx = edges[rng.integers(0, edges.size, size=(n_samples, 2 * L))]
+    idx[rng.uniform(size=idx.shape) < 0.3] = edges[-2]  # one key in runs across chunks
+    quad = _tensor(rng.normal(size=(E, 4)), torch.float32).to(dtype).to(device)
+    wy = _tensor(rng.uniform(size=(n_samples, 2 * L)), torch.float32).to(device)
+    fx = _tensor(rng.uniform(size=(n_samples, L)), torch.float32).to(device)
+    fz = _tensor(rng.uniform(size=(n_samples, L)), torch.float32).to(device)
+    gbar = _tensor(rng.normal(size=(n_samples, L)), torch.float32).to(device)
+    args = (quad, None, wy, fx, fz, _tensor(idx).to(device), L, 1, True)
+    return lv, args, gbar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("inputs,n_samples", [("hot", 301), ("hot", 20000),
+                                              ("edges", 2100)])
+def test_column_backward_is_the_mirror_bit_for_bit(cuda, dtype, inputs, n_samples):
+    """A3-bwd on quad rows of 4 elements: the table gradient equals the
+    CPU mirror of its order (``column_table_grad_plain``) bit for bit: hot
+    entries, keys at the reduce blocks' edges, several pass blocks, and 301
+    samples (2408 positions, no multiple of 64); the per-sample gradients
+    against the plain version."""
+    if inputs == "hot":
+        _, args, gbar = _card_case(cuda, SINGLE_LEVELS, 1, 1, False, dtype, n_samples,
+                                   seed=n_samples, hot=True)
+    else:
+        _, args, gbar = _column_edge_case(cuda, dtype, n_samples, seed=12)
+    quad, _, wy, fx, fz, entry_idx = args[:6]
+    shape = tuple(quad.shape)
+    _, CG, _ = the.blended_encode_fwd_cuda(*args)
+    ours = the.blended_encode_bwd_cuda(gbar, CG, None, None, entry_idx, wy, fx, fz, shape)
+    torch.cuda.synchronize()
+    cpu = [t.cpu() for t in (gbar, entry_idx, wy, fx, fz)]
+    mirror = the.column_table_grad_plain(*cpu, shape, dtype)
+    assert torch.equal(ours[0].cpu(), mirror)
+    refs = the.blended_encode_bwd_plain(gbar, CG, None, None, entry_idx, wy, fx, fz, shape)
+    the.compare_to_plain(ours[2:], refs[2:], ("d_wy", "d_fx", "d_fz"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_column_backward_parts_are_the_wrapper(cuda, dtype):
+    """The column plan's parts run one after another (``sample``,
+    ``order``, ``reduce``) give the wrapper's outputs bit for bit; each
+    part runs again on the same scratch with the same result."""
+    _, args, gbar = _card_case(cuda, SINGLE_LEVELS, 1, 1, False, dtype, 20000, seed=7,
+                               hot=True)
+    quad, _, wy, fx, fz, entry_idx = args[:6]
+    _, CG, _ = the.blended_encode_fwd_cuda(*args)
+    shape = tuple(quad.shape)
+    ours = the.blended_encode_bwd_cuda(gbar, CG, None, None, entry_idx, wy, fx, fz, shape)
+    plan = the.BlendedBwdPlan(gbar, CG, None, None, entry_idx, wy, fx, fz, shape)
+    assert list(plan.parts()) == ["sample", "order", "reduce"]
+    for _ in range(2):
+        for part in plan.parts().values():
+            part()
+        torch.cuda.synchronize()
+        for a, b in zip(ours, plan.outputs()):
+            assert (a is None and b is None) or torch.equal(a, b)
