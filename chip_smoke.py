@@ -271,6 +271,14 @@ Phases, each printing its own lines:
                   evaluate CLI on the two-rank run (its config says
                   data_axis_size 2: two gloo ranks) and on a copy that says
                   1: PNGs within one 8-bit level, metrics within rtol 1e-4.
+                  (f) the flagship's levels and entries with 6 logical
+                  tables of 2 features ([6,537,216, 12] table, f32 as in
+                  (b)) in the feature-sharded layout over four gloo ranks
+                  on this card, 3 columns each (tables 1 and 4 cut between
+                  two ranks; each pads its window to 4 columns,
+                  models/field.tp_window), and one rank: the first step's
+                  gradients within (b)'s bounds; B3, B4, A3-fwd and A3-bwd
+                  launched on every rank.
 Then one JSON line with the ten kernels (launches on the training path
 for B1-B4 and A3 and on the measurement path for P1-P4, times, the bound
 and the library call's time; A3 with every case of phase 3; B3/B4 also
@@ -2521,6 +2529,8 @@ def _parallel_runs(out_dir) -> dict:
     launches["d"] = _grid_tp_runs(spec, out_dir, plain, ranks, gradients, load, out)
     # (e) the viewer and the evaluate CLI over two gloo ranks on this card
     launches["e"] = _serve_ranks_runs(out_dir)
+    # (f) a feature split that cuts logical tables, four gloo ranks on this card
+    launches["f"] = _cut_tp_runs(spec, plain, ranks, gradients, load, out_dir)
 
     # (c) every visible card over NCCL
     n = torch.cuda.device_count()
@@ -2577,6 +2587,44 @@ def _grid_tp_runs(spec, out_dir, plain, ranks, gradients, load, out) -> dict:
         if count <= 0:
             raise AssertionError(f"(d) no {kernel} launch")
     return {**first["launches"], **first["narrow_launches"]}
+
+
+def _cut_tp_runs(spec, plain, ranks, gradients, load, out_dir) -> dict:
+    """Phase 16 (f): the flagship steps with the flagship's levels and
+    entries but 6 logical tables of 2 features ([6,537,216, 12] table, f32
+    as in (b)), feature-sharded over four gloo ranks sharing this card:
+    rank r holds columns 3r to 3r+2, so tables 1 and 4 are cut, and each
+    rank pads its columns to a 4-column window (models/field.tp_window: B3
+    and B4 at [E, 4], A3 at quad rows of 16 elements over 2 tables).
+    Against one rank: the first step's gradients within PAR_GRAD_TOL, as
+    (b) holds them (ROADMAP C10's rule). Three columns per rank need four
+    ranks: the one rank's whole table must be a width B3 takes (rows of
+    16-byte chunks at f32), and half of such a width cuts no table. The
+    table is f32 because each rank rounds its partial blend (the residual
+    A3-bwd reads) to the table dtype: at a bf16 table the warp's gradients
+    part from one rank's by several times the f32 bound on any feature
+    split of the ensemble, one that cuts no table too. B3, B4, A3-fwd and
+    A3-bwd must launch on every rank. Returns rank 0's launches."""
+    from nersemble_tpu_torch.utils.windows import sched_values
+
+    f_cfg = copy.deepcopy(spec["config"])
+    f_cfg.hash_ensemble.n_hash_encodings = f_cfg.latent_dim_time = 6
+    f_cfg.table_dtype = "float32"
+    f = dict(spec, config=f_cfg, layout="tp",
+             sched=sched_values(f_cfg, f_cfg.window_hash_encodings_end + 1))
+    plain("(f) one rank, 6 tables", dict(f, first_mu_out=str(out_dir / "f_one_mu.npz")))
+    (many,) = ranks("(f) 4 gloo ranks, 6 tables, tables 1 and 4 cut", 4, "gloo",
+                    [dict(f, first_mu_out=str(out_dir / "f_tp_mu.npz"))])
+    gradients("(f) the cut feature split on 4 gloo ranks vs one rank",
+              load("f_tp_mu"), load("f_one_mu"))
+    kernels = ("quad_build", "quad_fold", "blended_encode_fwd", "blended_encode_bwd")
+    per_rank = [{k: counts[k] for k in kernels} for counts in many["rank_launches"]]
+    log("parallel", f"(f) launches per rank {per_rank}")
+    for rank, counts in enumerate(per_rank):
+        for kernel, count in counts.items():
+            if count <= 0:
+                raise AssertionError(f"(f) rank {rank} never launched {kernel}")
+    return many["launches"]
 
 
 def _serve_ranks_runs(out_dir) -> dict:

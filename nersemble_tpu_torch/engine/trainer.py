@@ -107,7 +107,7 @@ _JITTER, _OCCUPANCY = 0, 1  # generator streams
 # the table dtype for the quad, its folded gradient reduce-scattered),
 # "moments" (replicated, Adam moments of an [E/n, W] row shard, gradient
 # reduce-scattered and updated rows all-gathered), "tp" (the [E, W/n] column
-# shard: the rank's logical tables)
+# shard: the rank's features)
 _TABLE = "field.table"
 
 
@@ -176,23 +176,17 @@ class NeRSembleTrainer:
         """The JAX trainer's choice (trainer.py:86-93, 183-235): the
         feature-sharded table when asked and the row width divides, else
         the ZeRO-3 table or sharded moments when asked and the entries
-        divide, else replicated; one rank is always replicated. The single
-        grid's features shard one column at a time; the hash ensemble's
-        only in whole logical tables (the one split the port lacks)."""
+        divide, else replicated; one rank is always replicated. Any split
+        of the row width shards, also one that cuts a logical table of the
+        hash ensemble (``models/field.tp_window``)."""
         mesh = self.mesh
         if mesh is None or mesh.size == 1:
             return "replicated"
         n, (E, W) = mesh.size, table_shape
         if parallel.shard_hash_tables:
-            f_l = table_row_width(self.config)[1]
             if W % n:
                 print(f"[nersemble-torch] shard_hash_tables disabled: row width "
                       f"{W} not divisible by {n} devices")
-            elif self.config.use_hash_ensemble and (W // n) % f_l:
-                print(f"[nersemble-torch] shard_hash_tables disabled: {W // n} "
-                      f"columns per rank would cut a logical table of the hash "
-                      f"ensemble ({W // f_l} tables of {f_l} features over {n} "
-                      f"ranks)")
             else:
                 self.model.table_layout = ("cols", mesh)
                 return "tp"

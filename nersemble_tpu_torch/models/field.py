@@ -84,6 +84,17 @@ def init_field(generator: torch.Generator, config: ModelConfig,
     return params
 
 
+def tp_window(rank: int, w: int, f_l: int) -> Tuple[slice, Tuple[int, int]]:
+    """The window of rank ``rank`` of the feature-sharded hash ensemble,
+    which holds columns [rank*w, (rank+1)*w) of the [E, W] table (column c
+    is feature c % f_l of logical table c // f_l): the logical tables it
+    touches, and the zero columns (left, right) that pad its columns to
+    them (at most f_l - 1 at either end)."""
+    lo, hi = rank * w, (rank + 1) * w
+    h0, h1 = lo // f_l, -(-hi // f_l)
+    return slice(h0, h1), (lo - h0 * f_l, h1 * f_l - hi)
+
+
 def normalize_positions(positions, aabb_min, aabb_max):
     return (positions - aabb_min) / (aabb_max - aabb_min)
 
@@ -100,19 +111,29 @@ def prepare_field(field_params, config: ModelConfig,
     are all-gathered (half the bytes of f32 at bf16) and the quad is built
     on the whole table; the backward reduce-scatters the folded gradient in
     the table dtype onto the shard. ``("cols", mesh)``, the feature-sharded
-    table, holds [E, W/n] columns, the rank's logical tables (or, on the
-    single grid, its features): the quad is built on them and the encode
-    blends them (``encode_tables``) or encodes them (``encode_grid``)."""
+    table, holds [E, W/n] columns (on the single grid, its features): the
+    quad is built on them and the encode blends them (``encode_tables``)
+    or encodes them (``encode_grid``). A rank's columns of the hash
+    ensemble may cut a logical table at either end (``tp_window``): zero
+    columns pad them to the whole tables they touch before the quad is
+    built. A zero column adds exact zeros to the blend and to the code's
+    gradient, and the pad's backward drops its gradient before Adam."""
     dtype = getattr(torch, config.table_dtype)
     table = field_params.table
     kind, mesh = table_layout or (None, None)
+    tables = None
     if kind == "rows":
         table = mesh.all_gather_rows_grad(table.to(dtype))
+    elif kind == "cols" and config.use_hash_ensemble:
+        tables, pad = tp_window(mesh.rank, table.shape[1], table_row_width(config)[1])
+        if any(pad):
+            table = F.pad(table.to(dtype), pad)
     quad = build_quad_table(table, levels, dtype)
     prepared = {"table_quad": quad, "mlp_base": field_params.mlp_base,
                 "mlp_head": field_params.mlp_head}
     if kind == "cols":
         prepared["tp_mesh"] = mesh
+        prepared["tp_tables"] = tables
     if "appearance_embedding" in field_params:
         prepared["appearance_embedding"] = field_params.appearance_embedding
     return prepared
@@ -122,19 +143,19 @@ def encode_tables(fparams: Dict, norm: torch.Tensor, code: torch.Tensor,
                   levels: HashGridLevels, features_per_logical: int,
                   smoothstep: bool) -> torch.Tensor:
     """``hash_encode_blended`` of the prepared quad table. Under the
-    feature-sharded layout (``fparams["tp_mesh"]``) each rank blends its own
-    logical tables over the rows of every rank (inputs all-gathered) and the
-    partial sums are reduce-scattered back to each rank's rows; rows that
-    every rank holds alike (``fparams["tp_rows"] == "replicated"``, the
-    occupancy update) are encoded in place and the partial sums
-    all-reduced."""
+    feature-sharded layout (``fparams["tp_mesh"]``) each rank blends the
+    logical tables of its window (``fparams["tp_tables"]``, zero-padded
+    where its columns cut one) over the rows of every rank (inputs
+    all-gathered) and the partial sums are reduce-scattered back to each
+    rank's rows; rows that every rank holds alike (``fparams["tp_rows"] ==
+    "replicated"``, the occupancy update) are encoded in place and the
+    partial sums all-reduced."""
     mesh = fparams.get("tp_mesh")
     quad = fparams["table_quad"]
     if mesh is None:
         return hash_encode_blended(quad, norm, code, levels,
                                    features_per_logical, smoothstep)
-    n_local = quad.shape[1] // (4 * features_per_logical)
-    cols = slice(mesh.rank * n_local, (mesh.rank + 1) * n_local)
+    cols = fparams["tp_tables"]
     if fparams.get("tp_rows") == "replicated":
         return mesh.all_reduce_sum(hash_encode_blended(
             quad, norm, code[:, cols], levels, features_per_logical, smoothstep))

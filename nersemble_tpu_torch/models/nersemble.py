@@ -28,6 +28,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import record_function
 
 from nersemble_tpu_torch.config import ModelConfig
@@ -72,6 +73,17 @@ from nersemble_tpu_torch.utils.device import resolve_device
 from nersemble_tpu_torch.utils.params import ParamTree, normal
 
 _BACKGROUNDS = {"white": (1.0, 1.0, 1.0), "black": (0.0, 0.0, 0.0)}
+
+
+def _gather_rows(weight: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``weight[index]`` with a backward that sums each row's gradient in a
+    fixed order, so that a run repeats bit for bit. On the card that is
+    the indexing backward (a sort, then each row's run in order; the
+    backward of ``F.embedding`` there is not: two runs differed in the
+    time embeddings). On the CPU the indexing backward adds rows with
+    atomics across threads (ROADMAP C12); there ``F.embedding``, whose
+    backward walks each row's indices in order."""
+    return weight[index] if weight.is_cuda else F.embedding(index, weight)
 
 
 class NeRSembleModel:
@@ -167,8 +179,8 @@ class NeRSembleModel:
     def _time_codes(self, params, timesteps):
         tc = tc_def = None
         if "time_embedding" in params:
-            tc = params.time_embedding[timesteps]
-            tc_def = params.time_embedding_deformation[timesteps] \
+            tc = _gather_rows(params.time_embedding, timesteps)
+            tc_def = _gather_rows(params.time_embedding_deformation, timesteps) \
                 if "time_embedding_deformation" in params else tc
         return tc, tc_def
 

@@ -92,9 +92,10 @@ def run_steps(mesh, spec: Dict) -> Dict:
     times its gradient, as ``mu.a.b.c``) and ``digest`` (return SHA-256
     digests of the parameters, both Adam moments and the occupancy grid).
     Returns the logged values, the table layout, the kernels' launches in
-    the steps, ms per step (host clock, synchronised), the collectives'
-    host ms in each step, whether the ranks' replicas agree, whether JAX was
-    imported and, on the card, every rank's peak memory (GiB)."""
+    the steps (rank 0's, and ``rank_launches``: every rank's), ms per step
+    (host clock, synchronised), the collectives' host ms in each step,
+    whether the ranks' replicas agree, whether JAX was imported and, on
+    the card, every rank's peak memory (GiB)."""
     from nersemble_tpu_torch.engine.checkpoints import params_from_numpy
     from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
     from nersemble_tpu_torch.models.nersemble import NeRSembleModel
@@ -159,6 +160,10 @@ def run_steps(mesh, spec: Dict) -> Dict:
     last = trainer.start_step + len(batches) - 1  # the last step trained
     result["launches"] = launch_counts.read()
     result["narrow_launches"] = launch_counts.read(launch_counts.NARROW)
+    counts = {**result["launches"], **result["narrow_launches"]}
+    mine = torch.tensor([list(counts.values())], dtype=torch.float64, device=device)
+    result["rank_launches"] = [dict(zip(counts, map(int, row))) for row in (
+        mine if mesh is None else mesh.all_gather_rows(mine)).tolist()]
     result["ms_per_step"] = [1e3 * t for t in times]
     result["comm_ms_per_step"] = comm_ms
     replicated = [p for k, p in trainer.params.named_parameters()

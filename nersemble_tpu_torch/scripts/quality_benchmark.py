@@ -27,6 +27,7 @@ import os
 import tempfile
 import time
 from pathlib import Path
+from typing import Sequence
 
 from nersemble_tpu_torch.utils.device import resolve_device
 
@@ -148,11 +149,13 @@ def run(mode: str, steps: int, data_root: str, models_root: str,
         eval_every: int, n_timesteps_dyn: int = 16,
         n_tables: int = 16, resume_run: str = None,
         steps_per_save: int = 2000, texture_style: str = "default",
-        device="cuda") -> dict:
+        device="cuda", extra_args: Sequence[str] = ()) -> dict:
     """Write the capture, train (or resume ``resume_run``) through the
-    train CLI on ``device``, and read the run's curves back. Raises if a
-    logged loss or eval score is not finite: such a run renders background
-    from then on, and its curve would read as a result."""
+    train CLI on ``device``, and read the run's curves back.
+    ``extra_args``: train-CLI flags after the configuration's (the last
+    value of a flag wins). Raises if a logged loss or eval score is not
+    finite: such a run renders background from then on, and its curve
+    would read as a result."""
     from nersemble_tpu_torch import env
     from nersemble_tpu_torch.scripts import train_nersemble
     from nersemble_tpu_torch.utils.synthetic_capture import make_synthetic_dataset
@@ -176,7 +179,7 @@ def run(mode: str, steps: int, data_root: str, models_root: str,
     else:
         args = build_train_args(mode, steps, seq, eval_every, n_tables=n_tables,
                                 steps_per_save=steps_per_save, run_suffix=suffix)
-    args += ["--device", str(device)]
+    args += [*extra_args, "--device", str(device)]
 
     saved = (env.NERSEMBLE_DATA_PATH, env.NERSEMBLE_MODELS_PATH)
     env.NERSEMBLE_DATA_PATH, env.NERSEMBLE_MODELS_PATH = data_root, models_root

@@ -17,8 +17,8 @@ levels of at most 2^10 rows: a smaller grid than the train CLI's
 - the 2-rank checkpoint opens in the JAX package and in one rank of the
   port (read and written back bit for bit);
 - the layout choice: the single grid shards at any width that divides and
-  prints no refusal; the hash ensemble still refuses a split that cuts a
-  logical table, and says so.
+  prints no refusal; so does the hash ensemble, also where a split cuts a
+  logical table.
 """
 
 import jax
@@ -147,12 +147,16 @@ def test_single_grid_takes_the_feature_sharded_layout(capsys):
 
 
 def test_ensemble_refuses_only_a_split_that_cuts_a_logical_table(capsys):
-    """8 tables of 2 features: 16 columns over 16 ranks would give each rank
-    one feature of a table; 8 ranks take whole tables."""
+    """8 tables of 2 features: 8 ranks take whole tables, and 16 ranks, one
+    feature of a table each, take the feature-sharded layout too and print
+    no refusal. The port once kept such a table whole and fell back; each
+    rank now pads its columns with zeros to the tables they touch
+    (``models/field.tp_window``), so it takes every split the JAX trainer
+    takes (the width divides). Only a width that does not divide still
+    falls back (test_single_grid_takes_the_feature_sharded_layout)."""
     cfg = setup()[0]
     assert _choose(cfg, 8, (5120, 16))[0] == "tp"
     assert "disabled" not in capsys.readouterr().out
-    assert _choose(cfg, 16, (5120, 16))[0] == "replicated"
-    out = capsys.readouterr().out
-    assert "1 columns per rank would cut a logical table of the hash ensemble " \
-           "(8 tables of 2 features over 16 ranks)" in out
+    layout, model = _choose(cfg, 16, (5120, 16))
+    assert layout == "tp" and model.table_layout[0] == "cols"
+    assert "disabled" not in capsys.readouterr().out

@@ -42,9 +42,21 @@ MOMENTS_ATOL, MOMENTS_RTOL = 1e-6, 1e-5
 TIMEOUT_S = 120.0
 
 
+def _tables(n):
+    def edit(cfg):
+        cfg.hash_ensemble.n_hash_encodings = cfg.latent_dim_time = n
+    return edit
+
+
+# the configurations ``variant`` names: chip_smoke.TINY_VARIANTS, and the
+# ensemble at 3 and 2 logical tables of 2 features, whose row width of 6 or
+# 4 columns over 2 or 4 ranks cuts a logical table between two ranks
+VARIANTS = dict(TINY_VARIANTS, three_tables=(_tables(3),), two_tables=(_tables(2),))
+
+
 def _setup_variant(fraction, variant):
     """``_setup`` at f32 on the tiny flagship config edited as
-    ``chip_smoke.TINY_VARIANTS[variant]`` (None: ``_setup`` itself); the
+    ``VARIANTS[variant]`` (None: ``_setup`` itself); the
     contrast scales of the parameters the variant has."""
     if variant is None:
         return _setup("float32", fraction)
@@ -53,7 +65,7 @@ def _setup_variant(fraction, variant):
     for cfg in (cfg_t, cfg_j):
         cfg.compute_dtype = cfg.table_dtype = "float32"
         cfg.sampling.global_budget_fraction = fraction
-        for edit in TINY_VARIANTS[variant]:
+        for edit in VARIANTS[variant]:
             edit(cfg)
     jm = JaxModel(cfg_j)
     params = to_numpy_tree(jm.init_params(jax.random.PRNGKey(0)))
@@ -81,7 +93,7 @@ def _setup_cached(fraction, variant=None):
 
 def setup(fraction=0.5, variant=None):
     """(port config, params, batch, grid, budget) at f32: the port's half
-    of ``_setup`` (of ``variant``, a key of chip_smoke.TINY_VARIANTS), made
+    of ``_setup`` (of ``variant``, a key of ``VARIANTS``), made
     once (a fresh copy of the config per call)."""
     cfg_t, _, params, batch, grid, budget = _setup_cached(fraction, variant)
     batch = dict(batch, timesteps=batch["timesteps"].astype(np.int64))
