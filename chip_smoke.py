@@ -316,7 +316,7 @@ REF_H, REF_W, REF_CHUNK = 32, 24, 256
 # config's frame by 2.6e-3 to 5e-3, so a wrong quad or encode fails this.
 REF_TOL = dict(rtol=0.0, atol=1e-4)
 PROFILE_RANGES = ("render:march", "render:sigma_probe", "render:field",
-                  "field:hash_encode", "fwd:hash_encode")
+                  "encode:quad_build", "encode:fwd")
 OWN_KERNELS = ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel", "pack_stream_kernel",
                "partial_sum_kernel", "quad_build_tma_kernel", "quad_build_rows_kernel",
                "quad_fold_kernel", "quad_build_narrow_kernel", "quad_fold_narrow_kernel",
@@ -374,12 +374,13 @@ A3_COLUMN_DIGESTS = {
         "d_fz": "4167c51f80cbe93d378a647741b76f5950f6dec910dc8b1b9fea5a4e95049344"}}
 TRAIN_RAYS, TRAIN_STEPS = 4096, 10
 BENCH_ITERS = 5
-BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
+BENCH_KEYS = {"metric", "value", "unit", "extra"}
 BENCH_EXTRA_KEYS = {"ray_samples_per_sec", "step_ms", "n_rays", "budget",
                     "n_candidates", "device", "loss", "power_limit"}
-TRAIN_RANGES = ("train:forward", "render:march", "render:field",
-                "field:hash_encode", "fwd:hash_encode", "train:backward", "bwd:hash_encode",
-                "bwd:fused_mlp", "bwd:quad_fold", "train:adam")
+TRAIN_RANGES = ("loop:step", "loop:occupancy", "loop:budget", "train:forward",
+                "render:march", "render:field", "encode:quad_build", "encode:fwd",
+                "train:backward", "bwd:hash_encode", "bwd:fused_mlp", "bwd:quad_fold",
+                "train:adam")
 # GPU vs CPU train step (tiny config, contrast-scaled bf16): the same plain
 # code but for the six kernels. B3/B4 are bit-exact; B1-fwd/B2 and A3 sum
 # in other orders, so a recomputed bf16
@@ -1570,6 +1571,7 @@ class SeqMonitor:
 
     def __call__(self, trainer, step: int, phase: str) -> None:
         import torch
+        from nersemble_tpu_torch.utils import spans
         if self.trainer is None:
             self.trainer, self.first_step = trainer, step
             self.start_budget = trainer._budget
@@ -1579,8 +1581,8 @@ class SeqMonitor:
             self.budgets[step] = trainer._budget
         if phase == "begin" and step == self.quiet[0]:
             torch.cuda.synchronize()
-            self._quiet = (time.perf_counter(), trainer.batches.wait_s,
-                           trainer.batches.copy_s)
+            self._quiet = (time.perf_counter(), spans.counter("batch_wait_s"),
+                           spans.counter("batch_copy_s"))
             torch.cuda.set_sync_debug_mode("error")
         if phase == "end" and step == self.quiet[1]:
             torch.cuda.set_sync_debug_mode("default")
@@ -1588,8 +1590,8 @@ class SeqMonitor:
             start, wait_s, copy_s = self._quiet
             n = self.quiet[1] - self.quiet[0] + 1
             self.quiet_ms = (time.perf_counter() - start) * 1e3 / n
-            self.batch_wait = (trainer.batches.wait_s - wait_s,
-                               trainer.batches.copy_s - copy_s)
+            self.batch_wait = (spans.counter("batch_wait_s") - wait_s,
+                               spans.counter("batch_copy_s") - copy_s)
 
 
 def read_metrics(path) -> dict:
@@ -1613,6 +1615,7 @@ def sequence_phase(train_step_ms: float) -> dict:
     from nersemble_tpu_torch.config import TrainConfig
     from nersemble_tpu_torch.ops import launch_counts
     from nersemble_tpu_torch.scripts import train_nersemble
+    from nersemble_tpu_torch.utils import spans
     from nersemble_tpu_torch.utils.synthetic_capture import write_capture
 
     root = Path(tempfile.mkdtemp(prefix="nersemble_sequence_"))
@@ -1633,6 +1636,7 @@ def sequence_phase(train_step_ms: float) -> dict:
         torch.cuda.reset_peak_memory_stats()
         launch_counts.reset()
         monitor = SeqMonitor()
+        batch_s0 = spans.counter("batch_wait_s"), spans.counter("batch_copy_s")
         start = time.perf_counter()
         train_nersemble.main(SEQ_ARGS + ["--name", SEQ_NAME, "--max-num-iterations",
                                          str(SEQ_STEPS)], step_hook=monitor)
@@ -1657,8 +1661,8 @@ def sequence_phase(train_step_ms: float) -> dict:
                         f"device read; train phase {train_step_ms:.1f} ms/step "
                         f"through run_step at budget 73,728), batch wait "
                         f"{wait_s:.4f} s and copy {copy_s:.4f} s over those steps "
-                        f"({trainer.batches.wait_s:.3f} s / "
-                        f"{trainer.batches.copy_s:.3f} s over the run)")
+                        f"({spans.counter('batch_wait_s') - batch_s0[0]:.3f} s / "
+                        f"{spans.counter('batch_copy_s') - batch_s0[1]:.3f} s over the run)")
         log("sequence", f"budget {monitor.start_budget} at step {monitor.first_step}, "
                         f"{trainer._budget} at the end, changes {budget_changes}; "
                         f"chunk cap {trainer.config.max_n_samples_per_batch}; "

@@ -10,9 +10,8 @@ candidates, the steady-state compaction budget ``quantized_budget(63188,
 4096, 256)`` = 73,728, the schedule at its end and constant group learning
 rates. ``NeRSembleTrainer.train_step`` runs once to warm up, then
 ``--iters`` timed steps that end in a synchronize. Prints ONE JSON line
-with bench.py's keys; ``extra`` adds ``power_limit``, so that the number
-carries its card. ``vs_baseline`` divides by the reference's ~14,222
-rays/s (300,001 steps x 4096 rays in ~24 h on an RTX A6000, BASELINE.md).
+with bench.py's keys but its ``vs_baseline``; ``extra`` adds
+``power_limit``, so that the number carries its card.
 
 Runs on the card; ``--device cpu`` (with ``--tiny`` and a few ``--rays``)
 exists for the CPU test.
@@ -39,7 +38,6 @@ from nersemble_tpu_torch.utils.bench_data import (
 from nersemble_tpu_torch.utils.device import resolve_device
 from nersemble_tpu_torch.utils.timing import nvidia_smi
 
-BASELINE_RAYS_PER_SEC = 300001 * 4096 / (24 * 3600)  # ~14,222 (A6000, 1 day)
 LRS = {"fields": 5e-3, "deformation_field": 1e-3, "embeddings": 5e-3}
 SEED = 0
 TRACE_STEPS = 3
@@ -185,7 +183,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "metric": "train_rays_per_sec_per_chip",
         "value": round(rays_per_sec, 1),
         "unit": "rays/s",
-        "vs_baseline": round(rays_per_sec / BASELINE_RAYS_PER_SEC, 3),
         "extra": {
             "ray_samples_per_sec": round(float(aux["num_samples"]) * args.iters / dt, 1),
             "step_ms": round(dt / args.iters * 1000, 2),

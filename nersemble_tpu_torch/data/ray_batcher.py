@@ -28,6 +28,7 @@ import torch
 from nersemble_tpu_torch.config import DataConfig
 from nersemble_tpu_torch.data.dataparser import DataparserOutputs
 from nersemble_tpu_torch.data.dataset import NeRSembleDataset
+from nersemble_tpu_torch.utils import spans
 
 # the batch entries the training step reads (trainer.py:435-436 of the JAX
 # package)
@@ -153,18 +154,21 @@ class DeviceBatches:
     (the DEVICE_KEYS entries that the batch has), built ahead by a prefetch
     thread. On a CUDA device they pass through a ring of ``PREFETCH + 2``
     page-locked slots and a non-blocking copy; on the CPU the numpy arrays
-    are wrapped as they are. ``wait_s`` and ``copy_s`` add up the host
-    seconds ``__next__`` spent waiting for the thread and issuing copies.
-    ``close()`` stops the thread. ``rows``: the slice of every batch's rays
-    to keep (a rank's share of the batch under data parallelism); every
-    rank builds the whole step-indexed batch and copies only its rows."""
+    are wrapped as they are. The counters ``batch_wait_s`` and
+    ``batch_copy_s`` (``utils/spans.py``) add up the host seconds
+    ``__next__`` spent waiting for the thread and issuing copies (the spans
+    ``loop:batch_wait`` and ``loop:batch_copy``; the thread's work is
+    ``data:build``). ``close()`` stops the thread. ``rows``: the slice of
+    every batch's rays to keep (a rank's share of the batch under data
+    parallelism); every rank builds the whole step-indexed batch and copies
+    only its rows."""
 
     def __init__(self, batcher: RayBatcher, start_step: int, device,
                  rows: slice = slice(None)):
         self.batcher = batcher
         self.rows = rows
         self.device = torch.device(device)
-        self.wait_s = self.copy_s = 0.0
+        self.step = start_step  # the step of the next batch handed out
         self._ready: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
         self._stop = threading.Event()
         self._slots = None
@@ -195,18 +199,19 @@ class DeviceBatches:
     def _work(self, step: int) -> None:
         try:
             while not self._stop.is_set():
-                batch = self.batcher.batch_for_step(step)
-                batch = {k: v[self.rows] for k, v in batch.items()}
-                if self._slots is None:
-                    item = {k: batch[k] for k in DEVICE_KEYS if k in batch}
-                else:
-                    index, event = self._blocking(self._free.get)
-                    while event is not None and not event.query():
-                        time.sleep(1e-4)  # the slot's last copy is in flight
-                    slot = self._slots[index]
-                    for key, dst in slot.items():
-                        dst.copy_(torch.from_numpy(batch[key]))
-                    item = index
+                with spans.span("data:build", step=step, device=False):
+                    batch = self.batcher.batch_for_step(step)
+                    batch = {k: v[self.rows] for k, v in batch.items()}
+                    if self._slots is None:
+                        item = {k: batch[k] for k in DEVICE_KEYS if k in batch}
+                    else:
+                        index, event = self._blocking(self._free.get)
+                        while event is not None and not event.query():
+                            time.sleep(1e-4)  # the slot's last copy is in flight
+                        slot = self._slots[index]
+                        for key, dst in slot.items():
+                            dst.copy_(torch.from_numpy(batch[key]))
+                        item = index
                 self._blocking(self._ready.put, item)
                 step += 1
         except _Stopped:
@@ -221,20 +226,24 @@ class DeviceBatches:
         return self
 
     def __next__(self) -> Dict[str, torch.Tensor]:
+        step, self.step = self.step, self.step + 1
         start = time.perf_counter()
-        item = self._ready.get()
+        with spans.span("loop:batch_wait", step=step, device=False):
+            item = self._ready.get()
         got = time.perf_counter()
-        self.wait_s += got - start
+        spans.count("batch_wait_s", got - start)
         if isinstance(item, Exception):
             raise item
-        if self._slots is None:
-            return {k: torch.from_numpy(v) for k, v in item.items()}
-        batch = {k: v.to(self.device, non_blocking=True)
-                 for k, v in self._slots[item].items()}
-        event = torch.cuda.Event()
-        event.record()
-        self._free.put((item, event))
-        self.copy_s += time.perf_counter() - got
+        with spans.span("loop:batch_copy", step=step):
+            if self._slots is None:
+                batch = {k: torch.from_numpy(v) for k, v in item.items()}
+            else:
+                batch = {k: v.to(self.device, non_blocking=True)
+                         for k, v in self._slots[item].items()}
+                event = torch.cuda.Event()
+                event.record()
+                self._free.put((item, event))
+        spans.count("batch_copy_s", time.perf_counter() - got)
         return batch
 
     def close(self) -> None:

@@ -55,7 +55,6 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from nersemble_tpu_torch.config import (
     ModelConfig,
@@ -95,6 +94,7 @@ from nersemble_tpu_torch.ops.sampling import quantized_budget
 from nersemble_tpu_torch.parallel.mesh import DataMesh
 from nersemble_tpu_torch.utils import colormaps as C
 from nersemble_tpu_torch.utils import metrics as M
+from nersemble_tpu_torch.utils import spans
 from nersemble_tpu_torch.utils.device import resolve_device, to_device
 from nersemble_tpu_torch.utils.metrics import psnr
 from nersemble_tpu_torch.utils.params import ParamTree, to_tree
@@ -109,6 +109,24 @@ _JITTER, _OCCUPANCY = 0, 1  # generator streams
 # reduce-scattered and updated rows all-gathered), "tp" (the [E, W/n] column
 # shard: the rank's features)
 _TABLE = "field.table"
+
+
+def write_profile(profiler, traced: Dict, counted: Dict, out: Path) -> None:
+    """A profiled segment of the loop into ``out``: the profiler's Chrome
+    trace (``trace.json``), its operators and kernels by device time
+    (``kernels.txt``), and the tracer's spans (``traced``, ``spans.export()``)
+    as a Chrome trace on the profiler's clock with the segment's idle gaps
+    by span and the counters' change since ``counted`` (``spans.json``)."""
+    out.mkdir(parents=True, exist_ok=True)
+    profiler.export_chrome_trace(str(out / "trace.json"))
+    (out / "kernels.txt").write_text(profiler.key_averages().table(
+        sort_by="self_device_time_total", row_limit=40))
+    events = json.loads((out / "trace.json").read_text()).get("traceEvents", [])
+    offset = spans.clock_offset(events, traced["spans"])
+    trace = spans.chrome_trace(traced["spans"], offset or 0.0)
+    trace["idle_by_span"] = spans.idle_by_span(events, traced["spans"])
+    trace["counters"] = {k: v - counted.get(k, 0) for k, v in traced["counters"].items()}
+    (out / "spans.json").write_text(json.dumps(trace))
 
 
 class NeRSembleTrainer:
@@ -276,20 +294,20 @@ class NeRSembleTrainer:
             jitter = torch.rand(R if mesh is None else R * mesh.size,
                                 generator=self._generator(step, _JITTER))
         jitter = to_device(jitter[rows], self.device)
-        with record_function("train:forward"):
+        with spans.span("train:forward"):
             outputs = model.render_rays(self.params, batch, binaries, sched,
                                         train=True, budget=self._budget,
                                         jitter=jitter, mesh=mesh)
             losses = model.compute_losses(outputs, batch, sched, train=True,
                                           mesh=mesh)
             total = sum(losses.values())
-        with record_function("train:backward"):
+        with spans.span("train:backward"):
             total.backward()
         row_shards = {}
         if mesh is not None:
-            with record_function("train:reduce"):
+            with spans.span("train:reduce"):
                 row_shards = self._reduce_gradients()
-        with record_function("train:adam"):
+        with spans.span("train:adam"):
             self.opt_state = fused_adam_update(self.params, self.opt_state,
                                                self.key_to_group, lrs,
                                                row_shards=row_shards)
@@ -342,13 +360,14 @@ class NeRSembleTrainer:
         if cfg.disable_occupancy_grid or step % OCC_UPDATE_EVERY != 0:
             return
         warmup = step < cfg.occupancy_grid_warmup_steps
-        draws = draw_occupancy(self.grid_occs.shape[0], cfg.n_timesteps, warmup,
-                               self._generator(step, _OCCUPANCY))
-        draws = OccupancyDraws(*(None if d is None else to_device(d, self.device)
-                                 for d in draws))
-        self.grid_occs = self.model.occupancy_grid_update(
-            self.params, self.grid_occs, self.sched_values(step),
-            warmup=warmup, draws=draws)
+        with spans.span("loop:occupancy"):
+            draws = draw_occupancy(self.grid_occs.shape[0], cfg.n_timesteps, warmup,
+                                   self._generator(step, _OCCUPANCY))
+            draws = OccupancyDraws(*(None if d is None else to_device(d, self.device)
+                                     for d in draws))
+            self.grid_occs = self.model.occupancy_grid_update(
+                self.params, self.grid_occs, self.sched_values(step),
+                warmup=warmup, draws=draws)
 
     def _maybe_adapt_budget(self, step: int, aux) -> None:
         """Re-size the compaction budget to the measured valid-sample count
@@ -366,8 +385,9 @@ class NeRSembleTrainer:
             cadence = min(cadence, 25)
         if step % cadence != 0:
             return
-        self._sample_counts.append(float(aux["num_samples"]))
-        self._budget_drops.append(float(aux["num_budget_dropped"]))
+        with spans.span("loop:budget"):
+            self._sample_counts.append(spans.host_value(aux["num_samples"]))
+            self._budget_drops.append(spans.host_value(aux["num_budget_dropped"]))
         del self._sample_counts[:-16], self._budget_drops[:-16]
         drop_frac = self._budget_drops[-1] / max(self._sample_counts[-1], 1.0)
         if step == 0 or (step % interval != 0 and drop_frac <= 0.02):
@@ -387,10 +407,12 @@ class NeRSembleTrainer:
 
     def run_step(self, step: int, batch: Dict[str, torch.Tensor]):
         """One training iteration as the JAX trainer's loop runs it:
-        occupancy update, train step, budget adaptation."""
-        self.maybe_update_occupancy(step)
-        total, aux = self.train_step(step, batch)
-        self._maybe_adapt_budget(step, aux)
+        occupancy update, train step, budget adaptation: the span
+        ``loop:step``, which all of the step's spans share."""
+        with spans.span("loop:step", step=step):
+            self.maybe_update_occupancy(step)
+            total, aux = self.train_step(step, batch)
+            self._maybe_adapt_budget(step, aux)
         return total, aux
 
     def train_batches(self, batch_fn: Callable[[int], Dict[str, torch.Tensor]],
@@ -628,11 +650,12 @@ class NeRSembleTrainer:
         with ``step`` and ``loss``. ``step_hook(trainer, step, "begin" /
         "end")``, when set, is called around each iteration.
         ``NERSEMBLE_PROFILE_DIR`` traces steps start + 10 to start + 14
-        with torch.profiler into ``trace.json`` there, and writes the
-        operators and kernels by device time to ``kernels.txt`` (rank 0's,
-        over several ranks). Over several ranks every rank runs the loop:
-        each takes its rows of every batch and renders its share of every
-        eval image, and rank 0 writes."""
+        with torch.profiler and the port's tracer (``utils/spans.py``) into
+        ``trace.json`` and ``spans.json`` there, and writes the operators
+        and kernels by device time to ``kernels.txt`` (rank 0's, over
+        several ranks; ``write_profile``). Over several ranks every rank
+        runs the loop: each takes its rows of every batch and renders its
+        share of every eval image, and rank 0 writes."""
         if self._eval_only:
             raise RuntimeError("this trainer was built with eval_only=True: it "
                                "holds no optimizer state and cannot train")
@@ -649,22 +672,24 @@ class NeRSembleTrainer:
                                                self.device, rows)
         profile_dir = os.environ.get("NERSEMBLE_PROFILE_DIR") \
             if self.is_chief else None
-        profiler = None
+        profiler = tracing = None
+        counted = {}
         last = {}
         t_last_log = time.time()
         rays_since_log = 0
         try:
             for step in range(self.start_step, max_steps):
                 if profile_dir and step == self.start_step + 10:
+                    tracing = not spans.is_on()
+                    spans.enable(self.device)
+                    counted = spans.counters()
                     profiler = torch.profiler.profile()
                     profiler.start()
                 if profiler is not None and step == self.start_step + 15:
                     profiler.stop()
-                    out = Path(profile_dir)
-                    out.mkdir(parents=True, exist_ok=True)
-                    profiler.export_chrome_trace(str(out / "trace.json"))
-                    (out / "kernels.txt").write_text(profiler.key_averages().table(
-                        sort_by="self_device_time_total", row_limit=40))
+                    write_profile(profiler, spans.export(), counted, Path(profile_dir))
+                    if tracing:
+                        spans.disable()
                     profiler = None
                 if self.step_hook is not None:
                     self.step_hook(self, step, "begin")
@@ -673,8 +698,9 @@ class NeRSembleTrainer:
                 self._service_viewer(step)
 
                 if step % cfg.steps_per_log == 0 or step == max_steps - 1:
-                    last = self._log(step, total, aux, rays_since_log,
-                                     time.time() - t_last_log)
+                    with spans.span("loop:log", step=step):
+                        last = self._log(step, total, aux, rays_since_log,
+                                         time.time() - t_last_log)
                     t_last_log = time.time()
                     rays_since_log = 0
 
@@ -705,6 +731,8 @@ class NeRSembleTrainer:
             batches.close()
             if profiler is not None:
                 profiler.stop()
+                if tracing:
+                    spans.disable()
 
         self.save_run_checkpoint(max_steps - 1)
         self.start_step = max_steps
@@ -712,20 +740,21 @@ class NeRSembleTrainer:
 
     def _log(self, step: int, total, aux, rays: int, seconds: float) -> Dict:
         """The log cadence's scalars (reads the step's device values)."""
-        total = float(total)
+        read = spans.host_value
+        total = read(total)
         scalars = {
             "train_loss": total,
-            "train_psnr": float(aux["psnr"]),
+            "train_psnr": read(aux["psnr"]),
             "rays_per_sec": rays / max(seconds, 1e-6),
-            "samples_per_batch": float(aux["num_samples"]),
-            "dropped_samples_per_batch": float(aux["num_dropped"]),
-            **{f"loss/{k}": float(v) for k, v in aux["losses"].items()},
+            "samples_per_batch": read(aux["num_samples"]),
+            "dropped_samples_per_batch": read(aux["num_dropped"]),
+            **{f"loss/{k}": read(v) for k, v in aux["losses"].items()},
             **{f"lr/{k}": v for k, v in self.lr_values(step).items()},
             **{f"window_param/{k}": v for k, v in self.sched_values(step).items()},
             **device_memory_scalars(self.device),
         }
         if "num_budget_dropped" in aux:
-            scalars["budget_dropped_per_batch"] = float(aux["num_budget_dropped"])
+            scalars["budget_dropped_per_batch"] = read(aux["num_budget_dropped"])
         self.writer.put_scalars(step, scalars)
         return {"step": step, "loss": total, **scalars}
 

@@ -15,7 +15,6 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from nersemble_tpu_torch.config import ModelConfig
 from nersemble_tpu_torch.ops.fused_mlp import mlp_apply
@@ -198,18 +197,17 @@ def field_density(fparams: Dict, positions_world: torch.Tensor,
     norm = normalize_positions(positions_world, aabb_min, aabb_max)
     selector = ((norm > 0.0) & (norm < 1.0)).all(dim=-1)
     norm = norm * selector[..., None]
-    with record_function("field:hash_encode"):
-        if config.use_hash_ensemble:
-            he = config.hash_ensemble
-            code = effective_blend_code(time_codes, window_hash,
-                                        he.n_hash_encodings,
-                                        he.disable_initial_hash_ensemble,
-                                        he.use_soft_transition)
-            base_in = encode_tables(
-                fparams, norm, code, levels, table_row_width(config)[1],
-                he.hash_encoding.interpolation == "Smoothstep")
-        else:
-            base_in = encode_grid(fparams, norm, levels)
+    if config.use_hash_ensemble:
+        he = config.hash_ensemble
+        code = effective_blend_code(time_codes, window_hash,
+                                    he.n_hash_encodings,
+                                    he.disable_initial_hash_ensemble,
+                                    he.use_soft_transition)
+        base_in = encode_tables(
+            fparams, norm, code, levels, table_row_width(config)[1],
+            he.hash_encoding.interpolation == "Smoothstep")
+    else:
+        base_in = encode_grid(fparams, norm, levels)
     h = mlp_apply(config.use_fused_mlp)(fparams["mlp_base"], base_in, None,
                                         compute_dtype)
     density = trunc_exp(h[..., 0]) * selector

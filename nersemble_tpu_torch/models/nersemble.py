@@ -29,7 +29,6 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from nersemble_tpu_torch.config import ModelConfig
 from nersemble_tpu_torch.models.deformation import (
@@ -69,6 +68,7 @@ from nersemble_tpu_torch.ops.sampling import (
     scatter_rows_back,
 )
 from nersemble_tpu_torch.parallel.mesh import DataMesh, pad_to_multiple
+from nersemble_tpu_torch.utils import spans
 from nersemble_tpu_torch.utils.device import resolve_device
 from nersemble_tpu_torch.utils.params import ParamTree, normal
 
@@ -179,8 +179,10 @@ class NeRSembleModel:
     def _time_codes(self, params, timesteps):
         tc = tc_def = None
         if "time_embedding" in params:
-            tc = _gather_rows(params.time_embedding, timesteps)
-            tc_def = _gather_rows(params.time_embedding_deformation, timesteps) \
+            tc = spans.backward_span("bwd:time_code", _gather_rows,
+                                     params.time_embedding, timesteps)
+            tc_def = spans.backward_span("bwd:time_code", _gather_rows,
+                                         params.time_embedding_deformation, timesteps) \
                 if "time_embedding_deformation" in params else tc
         return tc, tc_def
 
@@ -403,7 +405,7 @@ class NeRSembleModel:
         # prefilter starts each ray's fine window at its first occupied
         # coarse probe instead
         march_binaries, occupancy_stride, start_steps = binaries, 1, None
-        with record_function("render:march"):
+        with spans.span("render:march"):
             if (not train and scfg.eval_coarse_prefilter
                     and binaries is not None and not cfg.disable_occupancy_grid):
                 stride = 1
@@ -463,14 +465,14 @@ class NeRSembleModel:
         ps = scfg.eval_termination_probe_stride
         if (not train and scfg.eval_early_stop_trans > 0 and budget < Rg * S
                 and ps > 1 and S >= 2 * ps):
-            with record_function("render:sigma_probe"):
+            with spans.span("render:sigma_probe"):
                 keep = self._probe_termination(params, fparams, samples,
                                                ray_pack, budget, sched, mesh)
             samples = samples._replace(mask=samples.mask & keep)
             n_samples_out = samples.mask.sum(-1)
             mask_monotone = False
 
-        with record_function("render:field"):
+        with spans.span("render:field"):
             samples, sigmas, rgbs, offsets_norm, n_budget_dropped = \
                 self._evaluate_samples(params, fparams, samples, ray_pack,
                                        budget, mask_monotone, sched, train,

@@ -14,10 +14,10 @@ from collections import Counter
 from typing import Dict, List, Optional, Sequence
 
 import torch
-from torch.profiler import record_function
 
 from nersemble_tpu_torch.ops import cuda_lib
 from nersemble_tpu_torch.ops.mlp import activate, apply_mlp, round_to
+from nersemble_tpu_torch.utils import spans
 
 MAX_LAYERS = 8      # csrc/fused_mlp_fwd.cu MLP_MAX_LAYERS
 MAX_WIDTH = 128     # widest layer one warpgroup's accumulators hold
@@ -617,7 +617,7 @@ class _FusedMLP(torch.autograd.Function):
     def backward(ctx, g):
         x = ctx.saved_tensors[0]
         params = ctx.params
-        with record_function("bwd:fused_mlp"):
+        with spans.span("bwd:fused_mlp"):
             if x.device.type == "cpu":
                 dx, dws, dbs = fused_mlp_bwd_plain(params, x, g, ctx.out_activation,
                                                    ctx.compute_dtype, ctx.skips)

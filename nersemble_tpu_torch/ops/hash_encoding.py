@@ -28,10 +28,10 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from nersemble_tpu_torch.ops import cuda_lib
 from nersemble_tpu_torch.ops.quad_kernel import N_QUARTERS, quad_build
+from nersemble_tpu_torch.utils import spans
 from nersemble_tpu_torch.utils.device import device_constant
 
 _PRIMES = (2654435761, 805459861, 3674653429)
@@ -737,7 +737,7 @@ class _BlendedEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, quad_table, code, wy, fx, fz, entry_idx, n_levels,
                 features_per_logical, keep_residuals):
-        with record_function("fwd:hash_encode"):
+        with spans.span("encode:fwd"):
             if quad_table.device.type == "cpu":
                 out, CG, BH = blended_encode_fwd_plain(
                     quad_table, code, wy, fx, fz, entry_idx, n_levels,
@@ -754,15 +754,15 @@ class _BlendedEncode(torch.autograd.Function):
         return out
 
     @staticmethod
-    @record_function("bwd:hash_encode")
     def backward(ctx, gbar):
         CG, BH, code, entry_idx, wy, fx, fz = ctx.saved_tensors
         need_table = ctx.needs_input_grad[0]
         bwd = blended_encode_bwd_plain if CG.device.type == "cpu" \
             else blended_encode_bwd_cuda
-        d_table, d_code, d_wy, d_fx, d_fz = bwd(
-            gbar, CG, BH, code, entry_idx, wy, fx, fz, ctx.table_shape,
-            need_table)
+        with spans.span("bwd:hash_encode"):
+            d_table, d_code, d_wy, d_fx, d_fz = bwd(
+                gbar, CG, BH, code, entry_idx, wy, fx, fz, ctx.table_shape,
+                need_table)
         return (d_table, d_code, d_wy, d_fx, d_fz, None, None, None, None)
 
 

@@ -14,9 +14,9 @@ import functools
 from typing import List, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from nersemble_tpu_torch.ops import cuda_lib
+from nersemble_tpu_torch.utils import spans
 
 N_QUARTERS = 4
 MAX_LEVELS = 32  # csrc/quad_layout.cuh QUAD_MAX_LEVELS
@@ -198,11 +198,12 @@ class _QuadBuild(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with record_function("bwd:quad_fold"):
+        with spans.span("bwd:quad_fold"):
             return quad_fold(g.contiguous(), ctx.levels), None
 
 
 def quad_build(table: torch.Tensor, levels) -> torch.Tensor:
     """[E, W] (already cast) -> [E, 4W] quad gather operand: kernel B3 on
     CUDA, the plain version on CPU; its gradient is the fold (B4)."""
-    return _QuadBuild.apply(table, levels)
+    with spans.span("encode:quad_build"):
+        return _QuadBuild.apply(table, levels)

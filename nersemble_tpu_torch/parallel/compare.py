@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from nersemble_tpu_torch.config import ParallelConfig
+from nersemble_tpu_torch.utils import spans
 
 SEED = 0
 LAYOUTS = {
@@ -140,7 +141,7 @@ def run_steps(mesh, spec: Dict) -> Dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         start = time.perf_counter()
-        comm_s0 = 0.0 if mesh is None else mesh.comm_s
+        comm_s0 = spans.counter("comm_s")
         if jitters is None:
             total, aux = trainer.run_step(step, batch)
         else:
@@ -150,7 +151,7 @@ def run_steps(mesh, spec: Dict) -> Dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         times.append(time.perf_counter() - start)
-        comm_ms.append(0.0 if mesh is None else 1e3 * (mesh.comm_s - comm_s0))
+        comm_ms.append(1e3 * (spans.counter("comm_s") - comm_s0))
         result["loss"].append(float(total))
         result["losses"].append({k: float(v) for k, v in aux["losses"].items()})
         result["num_samples"].append(float(aux["num_samples"]))

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from nersemble_tpu_torch.utils import spans
+
 
 def pad_to_multiple(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
@@ -58,17 +60,18 @@ def _reduce_scatter_tensor(out: torch.Tensor, x: torch.Tensor, group) -> None:
 
 
 def _collective(method):
-    """Counts the call and its host seconds (``comm_calls``, ``comm_s``):
-    the whole collective on gloo, which waits for it; the enqueue on NCCL,
-    whose device time a profile shows as its ``nccl`` kernels."""
+    """Counts the call and its host seconds (the counters ``comm_calls`` and
+    ``comm_s``, ``utils/spans.py``): the whole collective on gloo, which
+    waits for it; the enqueue on NCCL, whose device time a profile shows as
+    its ``nccl`` kernels."""
     @functools.wraps(method)
     def wrapper(self, x, *args, **kwargs):
         if self.group is None:
             return x
         start = time.perf_counter()
         out = method(self, x, *args, **kwargs)
-        self.comm_calls += 1
-        self.comm_s += time.perf_counter() - start
+        spans.count("comm_calls")
+        spans.count("comm_s", time.perf_counter() - start)
         return out
     return wrapper
 
@@ -85,7 +88,6 @@ class DataMesh:
             else (group if backend == "gloo" else None)
         self.size = dist.get_world_size(group) if group is not None else 1
         self.rank = dist.get_rank(group) if group is not None else 0
-        self.comm_calls, self.comm_s = 0, 0.0  # see _collective
 
     def __repr__(self) -> str:
         return f"DataMesh(rank {self.rank} of {self.size}, {self.backend})"

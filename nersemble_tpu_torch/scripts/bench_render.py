@@ -1,5 +1,6 @@
 """Render benchmark of the port: novel-view frames/s on a trained run
-(scripts/bench_render.py's flags and JSON line, plus ``--device``).
+(scripts/bench_render.py's flags and JSON line, less its ``vs_baseline``,
+plus ``--device``).
 
 Loads a trained run (default: the newest quality-static run of
 scripts/quality_benchmark.py under ``--models-root``) as an eval-only
@@ -208,7 +209,6 @@ def main(argv=None) -> dict:
         "metric": "render_fps",
         "value": round(fps, 3),
         "unit": "frames/s",
-        "vs_baseline": round(fps / 5.0, 3),  # the > 5 fps target
         "extra": {
             "resolution": [height, width],
             "rays_per_frame": height * width,

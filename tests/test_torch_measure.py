@@ -176,7 +176,7 @@ def _run_bench(capsys, *argv):
 
 def test_bench_prints_bench_py_json_line(capsys):
     result, _ = _run_bench(capsys)
-    assert set(result) == {"metric", "value", "unit", "vs_baseline", "extra"}
+    assert set(result) == {"metric", "value", "unit", "extra"}
     assert set(result["extra"]) == {"ray_samples_per_sec", "step_ms", "n_rays",
                                     "budget", "n_candidates", "device", "loss",
                                     "power_limit"}

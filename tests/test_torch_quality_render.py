@@ -329,7 +329,7 @@ def test_bench_render_line(quality, flags, empty, capsys, monkeypatch):
     cells = result.pop("cc_cells")
     assert json.loads(out.strip().splitlines()[-1]) == result
     top, extra = _jax_render_keys()
-    assert set(result) == top
+    assert set(result) == top - {"vs_baseline"}
     assert set(result["extra"]) == extra | {"device", "power_limit", "launches_per_frame"}
     e = result["extra"]
     assert e["run"] == "NERS-001-quality-static" and e["cc_filter"] == (not flags)
