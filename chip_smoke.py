@@ -88,6 +88,17 @@ Phases, each printing its own lines:
                   seven-fetch (P4; cat), P4 held first on seven distinct
                   inputs and timed, as the ladder runs it, on one input
                   passed seven times;
+ 3c. adam      -- the one-pass Adam kernel (csrc/fused_adam.cu) at the
+                  flagship's leaves (the [6,537,216, 64] f32 table and the
+                  rest, three groups' learning rates): three steps through
+                  engine/optimizers.fused_adam_update on seeded gradients,
+                  once by the plain update and once by the kernel (under
+                  torch.cuda.set_sync_debug_mode("error"), one launch a
+                  step), from the same start: SHA-256 of every parameter and
+                  both moments must agree; then the kernel timed by CUDA
+                  events and by its device time under torch.profiler,
+                  beside its bound (28 bytes an element over 3.35 TB/s) and
+                  the plain update's time;
   4. render    -- the flagship model (random weights from a seed, with
                   contrast added so the hash table, the time codes and the
                   warp shape the frames) renders three 550x802 frames through
@@ -108,7 +119,8 @@ Phases, each printing its own lines:
                   then one sampled occupancy update timed alone. Losses must
                   be finite and fall, the timed steps must make no
                   synchronizing call (torch.cuda.set_sync_debug_mode), and
-                  all six train-path kernels' launch counters must grow
+                  all seven train-path kernels' launch counters (B1-fwd,
+                  B2, B3, B4, A3-fwd, A3-bwd, Adam) must grow
                   during this phase; B1-fwd's rows-per-launch histograms of the timed
                   steps and of the occupancy update;
  6b. repeat    -- ROADMAP C11 at default settings (no deterministic
@@ -279,8 +291,8 @@ Phases, each printing its own lines:
                   models/field.tp_window), and one rank: the first step's
                   gradients within (b)'s bounds; B3, B4, A3-fwd and A3-bwd
                   launched on every rank.
-Then one JSON line with the ten kernels (launches on the training path
-for B1-B4 and A3 and on the measurement path for P1-P4, times, the bound
+Then one JSON line with the eleven kernels (launches on the training path
+for B1-B4, A3 and Adam and on the measurement path for P1-P4, times, the bound
 and the library call's time; A3 with every case of phase 3; B3/B4 also
 with their narrow-row, sharded-row and one-feature column times and bounds
 (B3 beside its library call, index_select at a cached quad index), B1-fwd
@@ -324,7 +336,7 @@ OWN_KERNELS = ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel", "pack_stream_kern
                "be_fwd_kernel", "be_fwd_narrow_kernel", "be_sample_kernel",
                "be_chunk_kernel", "be_span_kernel", "be_col_count_kernel",
                "be_col_colscan_kernel", "be_col_scatter_kernel", "be_col_starts_kernel",
-               "be_col_reduce_kernel")
+               "be_col_reduce_kernel", "fused_adam_kernel")
 # A3-bwd's kernels on quad rows of 4 elements (one feature)
 COLUMN_BWD_KERNELS = ("be_sample_kernel", "be_col_count_kernel", "be_col_colscan_kernel",
                       "be_col_scatter_kernel", "be_col_starts_kernel", "be_col_reduce_kernel")
@@ -390,6 +402,10 @@ TRAIN_RANGES = ("loop:step", "loop:occupancy", "loop:budget", "train:forward",
 TRAIN_REF_TOL = {"loss_rtol": 1e-3, "rtol": 1e-2, "atol": 2e-3,
                  "table_atol": 2.0 ** -6}
 COPY_ROUNDS = 3  # P2 and clone() timed in turns
+# Adam at the flagship's leaves (phase 3c, tests/test_torch_kernels.py):
+# three groups' learning rates, three steps
+ADAM_LRS = {"fields": 5e-3, "deformation_field": 1e-3, "embeddings": 4e-3}
+ADAM_STEPS = 3
 # the sequence phase: the train CLI at its flagship defaults on a synthetic
 # capture, 49 steps with the schedule windows inside the run, resumed to 53
 SEQ_NAME, SEQ_PARTICIPANT, SEQ_SEQUENCE = "seq", 30, "SYN-SEQ"
@@ -1467,6 +1483,130 @@ def copy_kernel_phase(levels, device):
     del x, seven
     torch.cuda.empty_cache()
     return results
+
+
+@contextlib.contextmanager
+def plain_adam():
+    """``ops/fused_adam.adam_update`` swapped for its plain version, which
+    runs on any device."""
+    from nersemble_tpu_torch.ops import fused_adam
+
+    def plain(leaves, *args):
+        for leaf in leaves:
+            fused_adam.adam_update_plain(*leaf, *args)
+
+    kernel, fused_adam.adam_update = fused_adam.adam_update, plain
+    try:
+        yield
+    finally:
+        fused_adam.adam_update = kernel
+
+
+def adam_flagship(device):
+    """The flagship's parameters (seeded), a fresh Adam state and its
+    three groups' key_to_group."""
+    import torch
+    from nersemble_tpu_torch.config import flagship_model_config
+    from nersemble_tpu_torch.engine.optimizers import group_of_param, init_adam
+    from nersemble_tpu_torch.models.nersemble import NeRSembleModel
+
+    model = NeRSembleModel(flagship_model_config(tiny=False), device)
+    params = model.init_params(torch.Generator(device=device).manual_seed(SEED))
+    return params, init_adam(params), group_of_param(model.param_groups(params))
+
+
+def adam_steps(params, state, key_to_group, steps=ADAM_STEPS, shards=None,
+               skip=(), g_dtypes=None, plain=False):
+    """``steps`` Adam steps through ``engine/optimizers.fused_adam_update``
+    on seeded gradients, drawn on the state's card step by step and leaf by
+    leaf in the moments' shapes, at scales 1 to 1e-6; returns the state.
+    ``shards`` {name: rows}: leaves stepped on those rows (``row_shards``),
+    their gradient in ``g_dtypes[name]`` if given; ``skip``: leaves without
+    a gradient. ``plain``: the plain update in the kernel's place."""
+    import torch
+    from nersemble_tpu_torch.engine.optimizers import fused_adam_update
+
+    device = state.count.device
+    shards, g_dtypes = shards or {}, g_dtypes or {}
+    mus = dict(state.mu.named_parameters())
+    with plain_adam() if plain else contextlib.nullcontext():
+        for step in range(steps):
+            gen = torch.Generator(device=device).manual_seed(1000 + step)
+            row_shards = {}
+            for i, (name, p) in enumerate(params.named_parameters()):
+                p.grad = None
+                if name in skip:
+                    continue
+                g = torch.randn(mus[name].shape, generator=gen, device=device)
+                g = (g * 10.0 ** -(i % 7)).to(g_dtypes.get(name, torch.float32))
+                if name in shards:
+                    row_shards[name] = (shards[name], g)
+                else:
+                    p.grad = g
+            state = fused_adam_update(params, state, key_to_group, ADAM_LRS,
+                                      row_shards=row_shards)
+    return state
+
+
+def adam_digest(params, state) -> str:
+    """SHA-256 of every parameter and both moments, leaf by leaf."""
+    digest = hashlib.sha256()
+    for tree in (params, state.mu, state.nu):
+        for _, value in tree.named_parameters():
+            digest.update(value.detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def adam_kernel_phase(device) -> dict:
+    """Phase 3c: Adam at the flagship's leaves, the kernel against the
+    plain update; returns {"fused_adam": kernel_entry(...)}."""
+    import torch
+    from nersemble_tpu_torch.engine.optimizers import fused_adam_update
+    from nersemble_tpu_torch.ops import fused_adam
+    from nersemble_tpu_torch.utils.timing import bound_ms, cuda_time_ms
+
+    params, state, key_to_group = adam_flagship(device)
+    n = sum(p.numel() for p in params.parameters())
+    state = adam_steps(params, state, key_to_group, plain=True)
+    plain_digest = adam_digest(params, state)
+    del params, state
+    torch.cuda.empty_cache()
+    params, state, key_to_group = adam_flagship(device)
+    launches = fused_adam.LAUNCHES
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = adam_steps(params, state, key_to_group)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = fused_adam.LAUNCHES - launches
+    digest = adam_digest(params, state)
+    log("adam", f"{len(list(params.parameters()))} leaves, {n} elements, "
+                f"{ADAM_STEPS} steps: kernel {digest} ({launches} launches), plain "
+                f"{plain_digest}")
+    if digest != plain_digest:
+        raise AssertionError("the Adam kernel differs from the plain update")
+    if launches != ADAM_STEPS:
+        raise AssertionError(f"the Adam kernel launched {launches} times in "
+                             f"{ADAM_STEPS} steps, not once a step")
+
+    def update():  # the last step's gradients again; the state stays
+        fused_adam_update(params, state, key_to_group, ADAM_LRS)
+
+    k_ms = cuda_time_ms(update)
+    device_ms = kernel_device_ms(update, "fused_adam_kernel")
+    with plain_adam():
+        p_ms = cuda_time_ms(update, iters=3)
+    bound = bound_ms(28 * n)
+    log("adam", f"kernel {k_ms:.3f} ms by CUDA events, {device_ms:.3f} ms device; "
+                f"bound {bound[0]:.3f} ms ({bound[1]}; {100 * bound[0] / device_ms:.1f}% "
+                f"of it by device time); plain update {p_ms:.3f} ms")
+    for p in params.parameters():
+        p.grad = None
+    del params, state
+    torch.cuda.empty_cache()
+    return {"fused_adam": {**kernel_entry(0.0, k_ms, p_ms, bound),
+                           "device_ms": device_ms, "digest": digest}}
 
 
 def bench_phase(train_step_ms: float) -> None:
@@ -2874,6 +3014,9 @@ def main() -> None:
     # ---- 3b. the measurement path's copy kernels vs plain ----------------------
     kernel_results.update(copy_kernel_phase(levels, device))
 
+    # ---- 3c. Adam at the flagship's leaves vs the plain update -----------------
+    kernel_results.update(adam_kernel_phase(device))
+
     # ---- 4. render ------------------------------------------------------------
     model = NeRSembleModel(cfg, device)
     params = add_contrast(model.init_params(
@@ -2995,6 +3138,8 @@ def main() -> None:
         "fetch7": ("copy_ladder.cu", "scripts/bench_quad_build.py:110"),
         "blended_encode_fwd": ("blended_encode.cu", "nersemble_tpu/ops/hash_encoding.py:545"),
         "blended_encode_bwd": ("blended_encode.cu", "nersemble_tpu/ops/hash_encoding.py:593"),
+        "fused_adam": ("fused_adam.cu", "none (XLA elementwise: "
+                                        "nersemble_tpu/engine/optimizers.py:47)"),
     }
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda",

@@ -13,13 +13,16 @@ in f32 (as the JAX package does):
 
 ``torch.optim.Adam`` puts eps inside the bias correction differently and
 keeps another state layout, so it is not used. Parameters and moments are
-updated in place (the JAX version returns new arrays).
+updated in place (the JAX version returns new arrays): on the card by one
+kernel over every leaf (``ops/fused_adam.py``, one pass over each byte),
+on the CPU by the same formula op by op, leaf by leaf.
 """
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from nersemble_tpu_torch.ops import fused_adam
 from nersemble_tpu_torch.utils.params import ParamTree, params_like
 
 
@@ -63,6 +66,7 @@ def fused_adam_update(params: ParamTree, state: AdamState,
     mus = dict(state.mu.named_parameters())
     nus = dict(state.nu.named_parameters())
     row_shards = row_shards or {}
+    leaves = []
     for name, p in params.named_parameters():
         if name in row_shards:
             rows, g = row_shards[name]
@@ -72,10 +76,6 @@ def fused_adam_update(params: ParamTree, state: AdamState,
         else:
             g = p.grad
         lr = lrs[key_to_group[name.split(".")[0]]]
-        g = g.to(torch.float32)
-        mu, nu = mus[name], nus[name]
-        mu.copy_(b1 * mu + (1.0 - b1) * g)
-        nu.copy_(b2 * nu + (1.0 - b2) * torch.square(g))
-        update = (mu / c1) / (torch.sqrt(nu / c2) + eps)
-        p.sub_(lr * update.to(p.dtype))
+        leaves.append((p, g, mus[name], nus[name], lr))
+    fused_adam.adam_update(leaves, c1, c2, b1, b2, eps)
     return AdamState(count, state.mu, state.nu)

@@ -2,7 +2,7 @@
 
 A step is ``render_rays(train=True)`` with a per-ray jitter -> the scaled
 losses -> backward (kernels B2 and B4 on the GPU) -> ``fused_adam_update``
-over the three parameter groups. Around it: the occupancy grid's EMA update
+over the three parameter groups (one kernel launch on the GPU). Around it: the occupancy grid's EMA update
 every 16 steps (all cells during warm-up), the adaptive compaction budget
 with its fast-grow path, and checkpoints in the JAX package's format that
 carry the budget state, so a resumed run makes the same decisions at the

@@ -22,7 +22,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("fused_mlp_fwd.cu", "fused_mlp_bwd.cu", "quad_build.cu",
            "quad_fold.cu", "gather_rows.cu", "copy_ladder.cu",
-           "blended_encode.cu")
+           "blended_encode.cu", "fused_adam.cu")
 HEADERS = ("quad_layout.cuh",)  # included by sources; part of the build's hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _VOID_P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _LL_P = ctypes.POINTER(ctypes.c_longlong)
+_F = ctypes.c_float
 _SIGNATURES = {
     # x, out, wt, bias, meta, n_rows, stream
     "fused_mlp_fwd": (_VOID_P, _VOID_P, _VOID_P, _VOID_P, _LL_P, _LL, _VOID_P),
@@ -66,6 +67,8 @@ _SIGNATURES = {
     # gbar, cg, entry_idx, wy, fx, fz, d_wy, d_fx, d_fz, d_table, scratch, n, L,
     # E, elem_bytes, parts, stream
     "blended_encode_bwd_column": (*(_VOID_P,) * 11, *(_LL,) * 5, _VOID_P),
+    # segments, n_segs, c1, c2, b1, b2, 1 - b1, 1 - b2, eps, stream
+    "fused_adam": (_VOID_P, _LL, _VOID_P, _VOID_P, *(_F,) * 5, _VOID_P),
 }
 _RESTYPES = {"blended_encode_bwd_column_scratch": ctypes.c_longlong}  # else c_int
 

@@ -617,3 +617,137 @@ def test_device_batches_through_pinned_slots(cuda, capture):
         for key, value in batch.items():
             assert value.device.type == "cuda"
             assert np.array_equal(value.cpu().numpy(), want[key]), (i, key)
+
+
+def _adam_tree(device, shapes, offset=0):
+    """A ParamTree of f32 leaves {name: shape} under three groups' top-level
+    keys, each leaf a view ``offset`` elements into its own buffer, and a
+    zero Adam state of views at the same offset."""
+    from nersemble_tpu_torch.engine.optimizers import AdamState
+
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def tree(fill):
+        out = {}
+        for name, shape in shapes.items():
+            n = int(np.prod(shape))
+            buf = fill(n + offset)
+            node = out
+            *path, leaf = name.split(".")
+            for key in path:
+                node = node.setdefault(key, {})
+            node[leaf] = buf[offset:].view(shape)
+        return ParamTree(out)
+
+    params = tree(lambda n: torch.randn(n, generator=gen, device=device))
+    state = AdamState(torch.zeros((), dtype=torch.int32, device=device),
+                      tree(lambda n: torch.zeros(n, device=device)),
+                      tree(lambda n: torch.zeros(n, device=device)))
+    return params, state
+
+
+_ADAM_GROUPS = {"field": "fields", "deformation": "deformation_field",
+                "time_embedding": "embeddings", "time_embedding_deformation": "embeddings"}
+
+
+def _adam_case(case, device):
+    """(params, state, key_to_group, steps' keywords, launches a step)."""
+    from nersemble_tpu_torch.engine.optimizers import AdamState
+
+    if case == "flagship":
+        params, state, key_to_group = chip_smoke.adam_flagship(device)
+        return params, state, key_to_group, {}, 1
+    if case == "odd counts, a leaf without a gradient":
+        params, state = _adam_tree(device, {
+            "field.table": (4099,), "field.mlp_base.w": (7, 3),
+            "deformation.b": (3,), "time_embedding": (1,),
+            "time_embedding_deformation": (8, 4)})
+        return params, state, _ADAM_GROUPS, {"skip": ("time_embedding_deformation",)}, 1
+    if case == "leaves 4 bytes into their buffers":  # heads, bodies, tails
+        params, state = _adam_tree(device, {"field.table": (1001, 2),
+                                            "deformation.w": (64, 3),
+                                            "time_embedding": (2,)}, offset=1)
+        return params, state, _ADAM_GROUPS, {}, 1
+    if case.startswith("row shard"):
+        # the moments-only layout: the table's rows from an odd row on, its
+        # moments those rows alone
+        width = 2 if "2-wide" in case else 64
+        params, state = _adam_tree(device, {"field.table": (1001, width),
+                                            "time_embedding": (16, 4)})
+        rows = slice(501, 1001)
+        for moments in (state.mu, state.nu):
+            moments.field.table = torch.nn.Parameter(
+                moments.field.table[rows].contiguous(), requires_grad=False)
+        return params, state, _ADAM_GROUPS, {"shards": {"field.table": rows}}, 1
+    if case == "bf16 gradient":
+        params, state = _adam_tree(device, {"field.table": (4097, 3),
+                                            "deformation.w": (5,)})
+        return (params, state, _ADAM_GROUPS,
+                {"shards": {"field.table": slice(None), "deformation.w": slice(None)},
+                 "g_dtypes": {"field.table": torch.bfloat16,
+                              "deformation.w": torch.bfloat16}}, 1)
+    assert case == "more segments than one launch takes"
+    # 70 leaves of 5 elements: a body and a tail each, 140 segments
+    params, state = _adam_tree(device, {f"deformation.w{i}": (5,) for i in range(70)})
+    return params, state, _ADAM_GROUPS, {}, 3
+
+
+ADAM_CASES = ["flagship", "odd counts, a leaf without a gradient",
+              "leaves 4 bytes into their buffers", "row shard at an odd row",
+              "row shard of 2-wide rows at an odd row", "bf16 gradient",
+              "more segments than one launch takes"]
+
+
+@pytest.mark.parametrize("case", ADAM_CASES)
+def test_fused_adam_kernel_matches_plain_over_three_steps(cuda, case):
+    """Three Adam steps through ``fused_adam_update`` (the step count on
+    the card) by the kernel and by the plain update from the same start:
+    parameters and both moments bit for bit, no synchronising call, the
+    expected launches."""
+    from nersemble_tpu_torch.ops import fused_adam
+
+    params, state, key_to_group, kw, per_step = _adam_case(case, cuda)
+    state = chip_smoke.adam_steps(params, state, key_to_group, plain=True, **kw)
+    want = [t.clone() for tree in (params, state.mu, state.nu) for t in tree.parameters()]
+    del params, state
+    params, state, key_to_group, kw, per_step = _adam_case(case, cuda)
+    trees = (params, state.mu, state.nu)
+    versions = [t._version for tree in trees for t in tree.parameters()]
+    before = fused_adam.LAUNCHES
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = chip_smoke.adam_steps(params, state, key_to_group, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert fused_adam.LAUNCHES == before + chip_smoke.ADAM_STEPS * per_step
+    assert int(state.count) == chip_smoke.ADAM_STEPS
+    got = [t for tree in (params, state.mu, state.nu) for t in tree.parameters()]
+    assert len(got) == len(want)
+    for i, (mine, theirs) in enumerate(zip(got, want)):
+        assert torch.equal(mine, theirs), (case, i)
+    # the leaf without a gradient keeps its zero moments; every other moves,
+    # and its version counter with it (caches keyed by it, such as the fused
+    # MLPs' packed weights, must see the update)
+    for name, mu in state.mu.named_parameters():
+        assert bool(mu.any()) == (name not in kw.get("skip", ())), name
+    stepped = [name not in kw.get("skip", ()) for tree in trees
+               for name, _ in tree.named_parameters()]
+    for was, t, moved in zip(versions, (t for tree in trees for t in tree.parameters()),
+                             stepped):
+        assert (t._version > was) == moved
+
+
+def test_fused_adam_kernel_refuses_what_it_cannot_take(cuda):
+    from nersemble_tpu_torch.ops import fused_adam
+
+    c = torch.ones((), device=cuda)
+    p, mu, nu = (torch.zeros(8, 4, device=cuda) for _ in range(3))
+    for g, match in ((torch.zeros(4, 8, device=cuda).t(), "contiguous"),
+                     (torch.zeros(8, 4, dtype=torch.float16, device=cuda), "bf16"),
+                     (torch.zeros(8, 4), "is on cpu")):
+        with pytest.raises(ValueError, match=match):
+            fused_adam.adam_update([(p, g, mu, nu, 1e-3)], c, c, 0.9, 0.999, 1e-15)
+    with pytest.raises(ValueError, match="f32"):
+        fused_adam.adam_update([(p.double(), p, mu, nu, 1e-3)], c, c, 0.9, 0.999, 1e-15)

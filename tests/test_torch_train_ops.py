@@ -374,6 +374,89 @@ def test_fused_adam_update_matches_jax_over_three_groups():
                                        rtol=2e-6, atol=1e-12, err_msg=name)
 
 
+# the Adam kernel's segment plan: (p, g, mu, nu) element offsets from
+# 512-byte-aligned allocations, numel, the gradient's element size; the
+# expected (start, count, vector) segments
+_BASE = 1 << 20
+PLAN_CASES = [
+    ((0, 0, 0, 0), 4096, 4, [(0, 4096, True)]),
+    ((0, 0, 0, 0), 4099, 4, [(0, 4096, True), (4096, 3, False)]),
+    ((0, 0, 0, 0), 3, 4, [(0, 3, False)]),
+    ((0, 0, 0, 0), 1, 4, [(0, 1, False)]),
+    # a row shard of rows 2 wide starting at an odd row, moments and
+    # gradient shifted alike: head, body, tail
+    ((2, 2, 2, 2), 1001, 4, [(0, 2, False), (2, 996, True), (998, 3, False)]),
+    ((1, 1, 1, 1), 12, 4, [(0, 3, False), (3, 8, True), (11, 1, False)]),
+    ((3, 3, 3, 3), 2, 4, [(0, 2, False)]),
+    # the moments-only row shard: p at an odd row of the 2-feature table,
+    # moments and gradient of the shard aligned: one scalar segment
+    ((2, 0, 0, 0), 1000, 4, [(0, 1000, False)]),
+    # a gradient viewed out of a flat all-reduce buffer
+    ((0, 6, 0, 0), 64, 4, [(0, 64, False)]),
+    ((0, 0, 1, 0), 64, 4, [(0, 64, False)]),
+    # bf16 gradients: 4 elements are 8 bytes
+    ((0, 0, 0, 0), 4098, 2, [(0, 4096, True), (4096, 2, False)]),
+    ((0, 4, 0, 0), 64, 2, [(0, 64, True)]),
+    ((0, 2, 0, 0), 64, 2, [(0, 64, False)]),
+    ((1, 1, 1, 1), 9, 2, [(0, 3, False), (3, 4, True), (7, 2, False)]),
+    ((0, 0, 0, 0), 0, 4, []),
+]
+
+
+@pytest.mark.parametrize("offsets,numel,g_bytes,expected", PLAN_CASES)
+def test_adam_plan_covers_every_element_once(offsets, numel, g_bytes, expected):
+    from nersemble_tpu_torch.ops import fused_adam
+
+    po, go, mo, vo = offsets
+    leaf = (_BASE + 4 * po, 3 * _BASE + g_bytes * go, 5 * _BASE + 4 * mo,
+            7 * _BASE + 4 * vo, numel, g_bytes)
+    other = (9 * _BASE, 11 * _BASE, 13 * _BASE, 15 * _BASE, 8, 4)
+    plan = fused_adam.plan_segments([other, leaf])
+    assert plan[0] == fused_adam.Segment(0, 0, 8, True)
+    mine = [s for s in plan if s.leaf == 1]
+    assert [(s.start, s.count, s.vector) for s in mine] == expected
+    covered = np.zeros(numel, np.int64)
+    for s in mine:
+        assert s.count > 0
+        covered[s.start:s.start + s.count] += 1
+        if s.vector:
+            assert s.count % 4 == 0
+            for addr, size in ((leaf[0], 4), (leaf[2], 4), (leaf[3], 4)):
+                assert (addr + size * s.start) % fused_adam.VECTOR_BYTES == 0
+            assert (leaf[1] + g_bytes * s.start) % (4 * g_bytes) == 0
+    assert (covered == 1).all()
+    # around a body, a head up to p's first 16-byte boundary and a tail,
+    # each under 4 elements
+    vec = [i for i, s in enumerate(mine) if s.vector]
+    if vec:
+        (body,) = vec
+        assert all(s.count < 4 for i, s in enumerate(mine) if i != body)
+        assert (leaf[0] + 4 * mine[body].start) % 16 == 0 and mine[body].start < 4
+
+
+def test_adam_update_takes_the_plain_path_on_cpu():
+    from nersemble_tpu_torch.ops import fused_adam
+
+    rng = np.random.default_rng(3)
+    leaves, ref = [], []
+    for shape, dtype, lr in (((37, 5), torch.float32, 5e-3), ((11,), torch.bfloat16, 1e-3)):
+        p, mu = (t(rng.normal(size=shape).astype(np.float32)) for _ in range(2))
+        nu = t(rng.uniform(size=shape).astype(np.float32))
+        g = t(rng.normal(size=shape).astype(np.float32)).to(dtype)
+        leaves.append((p, g, mu, nu, lr))
+        ref.append(tuple(x.clone() for x in (p, g, mu, nu)) + (lr,))
+    c1, c2 = torch.tensor(0.271), torch.tensor(0.00299)
+    before = fused_adam.LAUNCHES
+    fused_adam.adam_update(leaves, c1, c2, 0.9, 0.999, 1e-15)
+    assert fused_adam.LAUNCHES == before
+    for (p, _, mu, nu, _), (rp, rg, rmu, rnu, lr) in zip(leaves, ref):
+        fused_adam.adam_update_plain(rp, rg, rmu, rnu, lr, c1, c2, 0.9, 0.999, 1e-15)
+        for mine, theirs in ((p, rp), (mu, rmu), (nu, rnu)):
+            assert torch.equal(mine, theirs)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_adam.adam_update_cuda(leaves, c1, c2, 0.9, 0.999, 1e-15)
+
+
 # -- occupancy ---------------------------------------------------------------------
 
 def _occ_density(positions, timesteps, lib):
