@@ -40,6 +40,13 @@ from nersemble_tpu_torch.data.multi_view_data import NeRSembleDataManager
 from nersemble_tpu_torch.utils import png
 
 
+def scene_box(participant_id: int, scale_factor: float) -> np.ndarray:
+    """[2, 3] float32: the participant's scene box (the default one for an
+    unknown participant), scaled."""
+    box = SCENE_BOXES.get(participant_id, DEFAULT_SCENE_BOX)
+    return np.asarray(box, np.float32) * scale_factor / 9.0
+
+
 @dataclass
 class ImageEntry:
     image_idx: int
@@ -187,13 +194,11 @@ class NeRSembleDataParser:
                                 (self._original_w, self._original_h))
                         for pose in c2w]
 
-        box = SCENE_BOXES.get(cfg.participant_id, DEFAULT_SCENE_BOX)
-        scene_box = np.asarray(box, np.float32) * cfg.scale_factor / 9.0
-
         return DataparserOutputs(
             split=split, cam_ids=cam_ids, c2w=c2w, intrinsics=intrinsics,
             image_width=width, image_height=height, entries=entries,
             image_paths=image_paths, alpha_paths=alpha_paths,
             color_correction_paths=cc_paths, depth_paths=depth_paths,
-            scene_box=scene_box, frustums=frustums,
+            scene_box=scene_box(cfg.participant_id, cfg.scale_factor),
+            frustums=frustums,
             n_timesteps=cfg.n_timesteps)

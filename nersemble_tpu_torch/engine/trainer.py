@@ -375,9 +375,12 @@ class NeRSembleTrainer:
         on the host only every interval/4 steps (every 25 through the first
         two intervals); a sampled step that dropped more than 2% of its
         valid samples grows the budget at once, shrinks wait for the
-        interval boundary. Step-indexed, so a resumed run decides alike."""
+        interval boundary. Step-indexed, so a resumed run decides alike. A
+        dense march that evaluates each step's valid samples
+        (``NeRSembleModel.evaluates_valid_samples``) adapts nothing."""
         scfg = self.config.sampling
-        if not scfg.adaptive_budget:
+        if not scfg.adaptive_budget or self.model.evaluates_valid_samples(
+                self._budget, self.n_rays * scfg.max_samples_per_ray):
             return
         interval = max(scfg.adaptive_budget_interval, 1)
         cadence = max(interval // 4, 1)

@@ -59,13 +59,17 @@ from nersemble_tpu_torch.ops.rendering import (
     render_weights,
 )
 from nersemble_tpu_torch.ops.sampling import (
+    box_span,
+    candidates_to_span,
     coarse_entry_steps,
     compact_samples,
+    dense_budget,
     dilate_binaries,
     march_range,
     march_rays,
     monotone_ranks,
     scatter_rows_back,
+    spanning_comb,
 )
 from nersemble_tpu_torch.parallel.mesh import DataMesh, pad_to_multiple
 from nersemble_tpu_torch.utils import spans
@@ -84,6 +88,12 @@ def _gather_rows(weight: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     atomics across threads (ROADMAP C12); there ``F.embedding``, whose
     backward walks each row's indices in order."""
     return weight[index] if weight.is_cuda else F.embedding(index, weight)
+
+
+def _field_chunk(body, inputs: tuple):
+    spans.tally("field_chunks")
+    with spans.span("render:chunk"):
+        return body(*inputs)
 
 
 class NeRSembleModel:
@@ -107,11 +117,12 @@ class NeRSembleModel:
                 config.latent_dim_time != config.hash_ensemble.n_hash_encodings:
             raise ValueError("latent_dim_time must equal n_hash_encodings")
         # the candidate comb must span the (coarsest-level) scene box
-        diag = float(np.linalg.norm(box[1] - box[0])) \
-            * (2.0 ** (config.grid_levels - 1))
+        diag = box_span(config.scene_box, config.grid_levels)
         needed = self._candidates_to_span(diag)
         if config.sampling.max_candidates_per_ray == -1:
-            config.sampling.max_candidates_per_ray = (needed + 127) // 128 * 128
+            config.sampling.max_candidates_per_ray = spanning_comb(
+                config.scene_box, config.grid_levels, config.render_step_size,
+                config.cone_angle, config.near_plane)
         elif config.sampling.max_candidates_per_ray < needed:
             print(f"[nersemble-torch] WARNING: max_candidates_per_ray="
                   f"{config.sampling.max_candidates_per_ray} candidates cannot "
@@ -120,17 +131,28 @@ class NeRSembleModel:
 
     def _candidates_to_span(self, span: float) -> int:
         """Candidate steps that cover ``span`` world units from the entry
-        point with the least growth: span / step, or with a cone angle the
-        steps ``max(t * cone_angle, step)`` counted on the host."""
+        point (``ops.sampling.candidates_to_span`` at this model's step,
+        cone angle and near plane)."""
         cfg = self.config
-        if cfg.cone_angle <= 0:
-            return int(np.ceil(span / cfg.render_step_size))
-        t = max(cfg.near_plane, cfg.render_step_size)
-        end, n = t + span, 0
-        while t < end:
-            t += max(t * cfg.cone_angle, cfg.render_step_size)
-            n += 1
-        return n
+        return candidates_to_span(span, cfg.render_step_size, cfg.cone_angle,
+                                  cfg.near_plane)
+
+    def evaluates_valid_samples(self, budget: int, n_slots: int) -> bool:
+        """Whether a training step at ``budget`` of its ``n_slots`` slots
+        evaluates just its valid samples, as many as the step has
+        (``_dense_budget``): a dense march (no occupancy grid, most slots
+        empty) asked for every slot. The adaptive budget then has nothing
+        to adapt."""
+        return self.config.disable_occupancy_grid and budget >= n_slots
+
+    def _dense_budget(self, mask: torch.Tensor, mesh) -> int:
+        """The rows a dense march's training step evaluates: its valid
+        samples over every rank, read on the host (the span
+        ``render:size``) and rounded up to 256 rows; the compaction then
+        keeps every one."""
+        with spans.span("render:size"):
+            n_valid = spans.host_value(mesh.all_reduce_sum(mask.sum()))
+        return dense_budget(n_valid, mask.numel() * mesh.size)
 
     # -- parameters ----------------------------------------------------------
 
@@ -189,13 +211,14 @@ class NeRSembleModel:
     def _chunked_samples(self, body, inputs: tuple, n: int):
         """``body(*inputs)`` over the leading sample axis in equal,
         256-aligned pieces of at most ``max_n_samples_per_batch`` rows,
-        bounding the [piece, 2L, 4W] gather buffers."""
+        bounding the [piece, 2L, 4W] gather buffers. Each piece is a field
+        chunk: the span ``render:chunk``, counted in ``field_chunks``."""
         chunk = self.config.max_n_samples_per_batch
         if chunk == -1 or n <= chunk:
-            return body(*inputs)
+            return _field_chunk(body, inputs)
         k = -(-n // chunk)
         chunk = -(-(-(-n // k)) // 256) * 256
-        outs = [body(*(a[lo:lo + chunk] for a in inputs))
+        outs = [_field_chunk(body, tuple(a[lo:lo + chunk] for a in inputs))
                 for lo in range(0, n, chunk)]
         if isinstance(outs[0], tuple):
             return tuple(torch.cat(parts) for parts in zip(*outs))
@@ -472,11 +495,18 @@ class NeRSembleModel:
             n_samples_out = samples.mask.sum(-1)
             mask_monotone = False
 
+        if train and self.evaluates_valid_samples(budget, Rg * S):
+            budget = self._dense_budget(samples.mask, mesh)
         with spans.span("render:field"):
             samples, sigmas, rgbs, offsets_norm, n_budget_dropped = \
                 self._evaluate_samples(params, fparams, samples, ray_pack,
                                        budget, mask_monotone, sched, train,
                                        mesh)
+        if spans.is_on():  # this rank's share of the batch's samples
+            spans.tally("samples_valid", n_samples_out.sum())
+            spans.tally("samples_evaluated",
+                        pad_to_multiple(budget, mesh.size) // mesh.size)
+            spans.tally("samples_budget_dropped", n_budget_dropped)
 
         # alpha_thre pruning (nerfacc's sigma_fn filter): low-opacity samples
         # neither attenuate nor render nor receive gradients; the mask comes

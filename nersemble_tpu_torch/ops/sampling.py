@@ -14,6 +14,7 @@ occupied coarse probe (``coarse_entry_steps``, the two-phase prefilter).
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -249,6 +250,45 @@ def coarse_entry_steps(origins, directions, t_near, t_far, dilated_binaries,
     k0 = (torch.clamp(first - 1, min=0) * stride).to(origins.dtype)
     return torch.where(occ.any(dim=-1), k0,
                        torch.full_like(k0, float(n_candidates)))
+
+
+def box_span(scene_box, grid_levels: int = 1) -> float:
+    """World units a march may have to cover: the diagonal of the scene
+    box (of the coarsest cascade level's box)."""
+    box = np.asarray(scene_box, np.float32)
+    return float(np.linalg.norm(box[1] - box[0])) * (2.0 ** (grid_levels - 1))
+
+
+def candidates_to_span(span: float, render_step_size: float,
+                       cone_angle: float = 0.0, near_plane: float = 0.0) -> int:
+    """Candidate steps that cover ``span`` world units from the entry
+    point with the least growth: span / step, or with a cone angle the
+    steps ``max(t * cone_angle, step)`` counted on the host."""
+    if cone_angle <= 0:
+        return int(np.ceil(span / render_step_size))
+    t = max(near_plane, render_step_size)
+    end, n = t + span, 0
+    while t < end:
+        t += max(t * cone_angle, render_step_size)
+        n += 1
+    return n
+
+
+def spanning_comb(scene_box, grid_levels: int, render_step_size: float,
+                  cone_angle: float = 0.0, near_plane: float = 0.0) -> int:
+    """The candidate comb that spans the (coarsest cascade level's) scene
+    box from the entry point, rounded up to 128: the auto-sized candidate
+    count, and the samples a ray of a dense march."""
+    n = candidates_to_span(box_span(scene_box, grid_levels), render_step_size,
+                           cone_angle, near_plane)
+    return -(-n // 128) * 128
+
+
+def dense_budget(n_valid: int, n_slots: int) -> int:
+    """The rows a dense march's step evaluates: its ``n_valid`` valid
+    samples rounded up to a multiple of 256 (at least 256, at most the
+    ``n_slots`` slots)."""
+    return min(max(-(-int(n_valid) // 256) * 256, 256), n_slots)
 
 
 def quantized_budget(measured_samples: float, n_rays: int, n_slots: int,

@@ -6,6 +6,13 @@ reopens one with ``--resume-run``: a run either package wrote), saves
 config.yml, and runs the trainer's loop on the GPU unless ``--device cpu``.
 ``--vis viewer`` serves the live viewer (``--viewer-port``) between steps.
 
+``--disable-occupancy-grid`` marches densely (README.md:100-104 of the
+reference trains sequence 97 so): every step inside the scene box is a
+sample. Unless given, ``--max-samples-per-ray`` is then the candidate
+comb's own box-spanning count, so that no ray stops inside the box, and
+``--global-budget-fraction`` 1.0: each step evaluates all of its valid
+samples and no others (``NeRSembleModel.evaluates_valid_samples``).
+
 ``--data-axis-size N`` trains over N ranks, one card each (-1, the default:
 every visible card), the JAX mesh's data axis: it starts the N processes
 itself unless torchrun started them (``torchrun --nproc-per-node N -m
@@ -33,11 +40,21 @@ from nersemble_tpu_torch.config import (
     SE3DeformationFieldConfig,
     TrainConfig,
 )
+from nersemble_tpu_torch.data.dataparser import scene_box
 from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
 from nersemble_tpu_torch.model_manager import NeRSembleModelFolder
+from nersemble_tpu_torch.ops.sampling import spanning_comb
 from nersemble_tpu_torch.parallel import launch
 from nersemble_tpu_torch.parallel import mesh as mesh_lib
 from nersemble_tpu_torch.utils.device import resolve_device
+
+
+class _Given(argparse.Action):
+    """Stores the flag's value and notes that it was given (``given``)."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        setattr(namespace, self.dest, values)
+        namespace.given = getattr(namespace, "given", frozenset()) | {self.dest}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -109,10 +126,11 @@ def build_parser() -> argparse.ArgumentParser:
     # slots (the reference train default — the S=64 cap measurably dropped
     # 68% of valid samples, PERF.md round 2b), candidates auto-sized to span
     # the scene box, budget fraction 0.125 (131,072 samples at R=4096).
-    p.add_argument("--max-samples-per-ray", type=int, default=256)
+    p.add_argument("--max-samples-per-ray", type=int, default=256, action=_Given)
     p.add_argument("--max-candidates-per-ray", type=int, default=-1,
                    help="-1 auto-sizes to span the scene-box diagonal")
     p.add_argument("--global-budget-fraction", type=float, default=0.125,
+                   action=_Given,
                    help="evaluate only this fraction of the R*S sample slots "
                         "per batch (global compaction; 1.0 disables)")
     p.add_argument("--max-n-samples-per-batch", type=int, default=98304,
@@ -164,8 +182,30 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def dense_sampling(args, scale_factor: float, render_step_size: float,
+                   near_plane: float):
+    """(samples per ray, budget fraction) of the run: the flags', or, with
+    the occupancy grid off and the flag not given, the comb that spans the
+    participant's scene box (the auto-sized candidate count) and every
+    valid sample."""
+    S, frac = args.max_samples_per_ray, args.global_budget_fraction
+    if args.disable_occupancy_grid:
+        given = getattr(args, "given", frozenset())
+        if "max_samples_per_ray" not in given:
+            S = spanning_comb(scene_box(args.participant_id, scale_factor),
+                              args.grid_levels, render_step_size, args.cone_angle,
+                              near_plane)
+        if "global_budget_fraction" not in given:
+            frac = 1.0
+    return S, frac
+
+
 def build_config(args, run_name: str, output_dir: str) -> TrainConfig:
     scale_factor = 9.0
+    render_step_size = 0.011 * scale_factor / 9.0
+    near_plane = 0.2 * scale_factor / 9.0
+    samples_per_ray, budget_fraction = dense_sampling(
+        args, scale_factor, render_step_size, near_plane)
 
     use_sh = 0  # reference train config leaves SH degree at its default 0
     model = ModelConfig(
@@ -193,8 +233,8 @@ def build_config(args, run_name: str, output_dir: str) -> TrainConfig:
         window_deform_begin=args.window_deform_begin,
         window_deform_end=args.window_deform_end,
         # ray marching (reference: train_nersemble.py:186-197)
-        render_step_size=0.011 * scale_factor / 9.0,
-        near_plane=0.2 * scale_factor / 9.0,
+        render_step_size=render_step_size,
+        near_plane=near_plane,
         far_plane=1e3 * scale_factor / 9.0,
         cone_angle=args.cone_angle,
         alpha_thre=args.alpha_thre,
@@ -208,9 +248,9 @@ def build_config(args, run_name: str, output_dir: str) -> TrainConfig:
         grid_levels=args.grid_levels,
         disable_occupancy_grid=args.disable_occupancy_grid,
         sampling=SamplingConfig(
-            max_samples_per_ray=args.max_samples_per_ray,
+            max_samples_per_ray=samples_per_ray,
             max_candidates_per_ray=args.max_candidates_per_ray,
-            global_budget_fraction=args.global_budget_fraction,
+            global_budget_fraction=budget_fraction,
             adaptive_budget_max_chunks=args.adaptive_budget_max_chunks,
         ),
         max_n_samples_per_batch=args.max_n_samples_per_batch,

@@ -31,7 +31,12 @@ inserted only while the tracer is on.
 
 Counters: ``batch_wait_s`` and ``batch_copy_s`` (``DeviceBatches``),
 ``comm_calls`` and ``comm_s`` (``DataMesh``) count whether the tracer is on
-or not, each a host add, as the attributes they replace did. While the
+or not, each a host add, as the attributes they replace did. ``tally``
+counts only while the tracer is on, and takes device values without
+reading them (summed on their device, read by ``counters()``): the
+renderer's ``samples_valid``, ``samples_evaluated`` (rows the field
+evaluated, padding included), ``samples_budget_dropped`` and
+``field_chunks``. While the
 tracer is on, ``host_syncs.<site>`` counts each read of a device value on
 the host: the loop's own through ``host_value`` and, on a CUDA device, any
 other, which ``torch.cuda.set_sync_debug_mode("warn")`` turns into a warning
@@ -172,6 +177,7 @@ class Tracer:
         self.step: Optional[int] = None  # the step of the last loop:step
         self._backward: Dict[int, Span] = {}  # step -> its open train:backward
         self._counts: Dict[str, float] = defaultdict(float)
+        self._tallies: Dict[str, torch.Tensor] = {}  # device values, unread
         self._lock = threading.Lock()
         self._ids = itertools.count(1)
         self._local = threading.local()
@@ -196,6 +202,14 @@ class Tracer:
     def count(self, name: str, value: float = 1.0) -> None:
         with self._lock:
             self._counts[name] += value
+
+    def tally(self, name: str, value) -> None:
+        if not isinstance(value, torch.Tensor):
+            return self.count(name, float(value))
+        value = value.detach().to(torch.float64)
+        with self._lock:
+            held = self._tallies.get(name)
+            self._tallies[name] = value if held is None else held + value
 
     # -- on and off ------------------------------------------------------------
 
@@ -260,6 +274,7 @@ class Tracer:
         self._anchor = None
         with self._lock:
             self._counts.clear()
+            self._tallies.clear()
 
     # -- out -------------------------------------------------------------------
 
@@ -268,6 +283,13 @@ class Tracer:
 
         with self._lock:
             out = dict(self._counts)
+            tallies = dict(self._tallies)
+        self._local.explicit = True  # the read is the counters', no step's
+        try:
+            for name, value in tallies.items():
+                out[name] = out.get(name, 0.0) + float(value)
+        finally:
+            self._local.explicit = False
         out.update({f"launches.{k}": n for k, n in launch_counts.read().items()})
         return out
 
@@ -335,6 +357,14 @@ def export() -> Dict:
 
 def count(name: str, value: float = 1.0) -> None:
     TRACER.count(name, value)
+
+
+def tally(name: str, value=1.0) -> None:
+    """Add ``value`` (a number, or a device tensor summed where it lies and
+    read only by ``counters()``) to the counter ``name`` while the tracer
+    is on; off, nothing."""
+    if TRACER.on:
+        TRACER.tally(name, value)
 
 
 def counter(name: str) -> float:
