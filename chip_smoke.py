@@ -99,7 +99,20 @@ Phases, each printing its own lines:
                   events and by its device time under torch.profiler,
                   beside its bound (28 bytes an element over 3.35 TB/s) and
                   the plain update's time;
-  4. render    -- the flagship model (random weights from a seed, with
+  3d. time code -- the time codes' backward kernel (csrc/time_code_bwd.cu)
+                  at the cells' shapes (TIME_CODE_CASES: a step's and a
+                  field chunk's samples of nersemble.train and
+                  nersemble_seq97.train, 16 timesteps, the 32-wide hash
+                  code and the 128-wide deformation code, samples in rays
+                  of one timestep): within the f32 sum's error bound of a
+                  float64 index_add_, a second call bit for bit, timed by
+                  CUDA events and by its two kernels' device time beside
+                  its bound (the gradient read once, the indices, the rows
+                  written) and beside index_put_(accumulate=True), the
+                  indexing backward it replaced; then one flagship train
+                  step at nersemble.train's budget (131,072 samples, two
+                  field chunks) must launch it 4 times;
+ 4. render    -- the flagship model (random weights from a seed, with
                   contrast added so the hash table, the time codes and the
                   warp shape the frames) renders three 550x802 frames through
                   Renderer.render_image(chunk=8192) over bench.py's synthetic
@@ -336,7 +349,8 @@ OWN_KERNELS = ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel", "pack_stream_kern
                "be_fwd_kernel", "be_fwd_narrow_kernel", "be_sample_kernel",
                "be_chunk_kernel", "be_span_kernel", "be_col_count_kernel",
                "be_col_colscan_kernel", "be_col_scatter_kernel", "be_col_starts_kernel",
-               "be_col_reduce_kernel", "fused_adam_kernel")
+               "be_col_reduce_kernel", "fused_adam_kernel", "tc_rows_kernel",
+               "tc_sum_kernel")
 # A3-bwd's kernels on quad rows of 4 elements (one feature)
 COLUMN_BWD_KERNELS = ("be_sample_kernel", "be_col_count_kernel", "be_col_colscan_kernel",
                       "be_col_scatter_kernel", "be_col_starts_kernel", "be_col_reduce_kernel")
@@ -406,6 +420,16 @@ COPY_ROUNDS = 3  # P2 and clone() timed in turns
 # three groups' learning rates, three steps
 ADAM_LRS = {"fields": 5e-3, "deformation_field": 1e-3, "embeddings": 4e-3}
 ADAM_STEPS = 3
+# the time codes' backward (phase 3d, tests/test_torch_kernels.py): (case,
+# samples, samples a ray) at 16 timesteps and the two codes' widths; a
+# field chunk holds at most 98,304 samples
+TIME_CODE_T, TIME_CODE_WIDTHS = 16, (32, 128)
+TIME_CODE_CASES = [("nersemble.train step", 131072, 32),
+                   ("nersemble.train chunk", 65536, 32),
+                   ("nersemble_seq97.train step", 372000, 91),
+                   ("nersemble_seq97.train chunk", 93184, 91)]
+TIME_CODE_KERNELS = ("tc_rows_kernel", "tc_sum_kernel")
+TIME_CODE_BUDGET = 131072  # nersemble.train's: 0.125 of 4096 rays x 256 slots
 # the sequence phase: the train CLI at its flagship defaults on a synthetic
 # capture, 49 steps with the schedule windows inside the run, resumed to 53
 SEQ_NAME, SEQ_PARTICIPANT, SEQ_SEQUENCE = "seq", 30, "SYN-SEQ"
@@ -1607,6 +1631,120 @@ def adam_kernel_phase(device) -> dict:
     torch.cuda.empty_cache()
     return {"fused_adam": {**kernel_entry(0.0, k_ms, p_ms, bound),
                            "device_ms": device_ms, "digest": digest}}
+
+
+def time_code_inputs(n: int, t_rows: int, d: int, per_ray: int, device, seed: int = 0):
+    """A seeded gradient [n, d] f32 and its samples' timesteps [n] in ray
+    order: rays of ``per_ray`` samples, each ray of one timestep drawn
+    uniformly (the compaction keeps a ray's samples together)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randn(n, d, generator=gen, device=device)
+    rays = torch.randint(0, max(t_rows, 1), (-(-n // per_ray),), generator=gen,
+                         device=device)
+    return g, rays.repeat_interleave(per_ray)[:n]
+
+
+def sum_gamma(k: int) -> float:
+    """Higham's gamma_k for f32: a sum computed by any tree of additions
+    whose longest path from a term to the result has k additions lies within
+    gamma_k times the sum of the terms' magnitudes of the exact sum."""
+    u = 2.0 ** -24
+    return k * u / (1 - k * u)
+
+
+def time_code_gamma(n: int, t_rows: int, d: int) -> float:
+    """gamma_k of the time-code kernel's sums (ops/time_code.py plan): at
+    most per_group additions in a group's row, then groups in the block's
+    row, then a slice of the blocks and the eight slices in pass 2."""
+    from nersemble_tpu_torch.ops import time_code
+    p = time_code.plan(n, t_rows, d)
+    return sum_gamma(p.per_group + p.groups + -(-p.blocks // time_code.SUM_WARPS)
+                     + time_code.SUM_WARPS)
+
+
+def time_code_check(out, g, idx, t_rows: int, gamma: float) -> float:
+    """Raise unless ``out`` lies within ``gamma`` times the row sums of
+    |g| of the float64 row sums of ``g``; returns (the largest error, the
+    largest error as a share of its bound)."""
+    import torch
+    ref = torch.zeros(t_rows, g.shape[1], dtype=torch.float64, device=g.device)
+    ref.index_add_(0, idx, g.double())
+    mag = torch.zeros_like(ref).index_add_(0, idx, g.double().abs())
+    err = (out.double() - ref).abs()
+    if not bool((err <= gamma * mag).all()):
+        raise AssertionError(f"the time-code sums are off by {float(err.max()):.3g}, "
+                             f"past gamma {gamma:.3g} of their terms' magnitudes")
+    if not err.numel():
+        return 0.0, 0.0
+    return float(err.max()), float((err / (gamma * mag).clamp_min(1e-300)).max())
+
+
+def time_code_phase(cfg, device) -> dict:
+    """Phase 3d: the time codes' backward kernel alone at the cells' shapes,
+    against float64 sums and beside the indexing backward it replaced; then
+    its launches in one flagship step at nersemble.train's budget."""
+    import torch
+    from nersemble_tpu_torch.bench import LRS
+    from nersemble_tpu_torch.config import OptimizerConfig
+    from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
+    from nersemble_tpu_torch.ops import time_code
+    from nersemble_tpu_torch.utils.bench_data import bench_batch, bench_grid
+    from nersemble_tpu_torch.utils.timing import bound_ms, cuda_time_ms
+
+    results = {}
+    for what, n, per_ray in TIME_CODE_CASES:
+        for d in TIME_CODE_WIDTHS:
+            g, idx = time_code_inputs(n, TIME_CODE_T, d, per_ray, device)
+            out = time_code.time_code_bwd_cuda(g, idx, TIME_CODE_T)
+            again = time_code.time_code_bwd_cuda(g, idx, TIME_CODE_T)
+            err, share = time_code_check(out, g, idx, TIME_CODE_T,
+                                         time_code_gamma(n, TIME_CODE_T, d))
+            if not torch.equal(out, again):
+                raise AssertionError(f"time code {what} D={d}: a second call differs")
+            def call():
+                return time_code.time_code_bwd_cuda(g, idx, TIME_CODE_T)
+
+            ms = cuda_time_ms(call, iters=20)
+            dev = {kernel: kernel_device_ms(call, kernel) for kernel in TIME_CODE_KERNELS}
+            dev["sum"] = sum(dev.values())
+            lib_ms = cuda_time_ms(lambda: torch.zeros(TIME_CODE_T, d, device=device)
+                                  .index_put_((idx,), g, accumulate=True), iters=5)
+            bound = bound_ms(4 * n * d + 8 * n + 4 * TIME_CODE_T * d)
+            log("time code", f"{what}: {n} samples, D={d}, {time_code.plan(n, TIME_CODE_T, d)}: "
+                             f"kernel {ms:.4f} ms by CUDA events, device "
+                             f"{dev['sum']:.4f} ({dev['tc_rows_kernel']:.4f} + "
+                             f"{dev['tc_sum_kernel']:.4f}); bound {bound[0]:.4f} ms "
+                             f"({100 * bound[0] / dev['sum']:.1f}% of it by device time); "
+                             f"index_put_ {lib_ms:.3f} ms; max abs error {err:.3g}, "
+                             f"{share:.3g} of its bound")
+            results[f"{what} D={d}"] = {**kernel_entry(err, ms, None, bound, lib_ms),
+                                        "device_ms": dev["sum"], "share_of_gamma": share}
+            del g, idx, out, again
+
+    optimizers = {name: OptimizerConfig(lr=lr, scheduler_gamma=1.0)
+                  for name, lr in LRS.items()}
+    trainer = NeRSembleTrainer(cfg, TRAIN_RAYS, optimizers, seed=SEED, device=device,
+                               grid_occs=bench_grid(cfg.grid_resolution).to(device))
+    trainer._budget = TIME_CODE_BUDGET
+    batch = bench_batch(TRAIN_RAYS, cfg.n_timesteps, cfg.grid_resolution, device)
+    step0 = cfg.window_hash_encodings_end + 1  # off the update and budget cadences
+    trainer.run_step(step0, batch)
+    torch.cuda.synchronize()
+    before = time_code.LAUNCHES
+    trainer.run_step(step0 + 1, batch)
+    torch.cuda.synchronize()
+    launches = time_code.LAUNCHES - before
+    log("time code", f"one flagship step at a budget of {TIME_CODE_BUDGET}: "
+                     f"{launches} launches")
+    if launches != 4:
+        raise AssertionError(f"a flagship step at a budget of {TIME_CODE_BUDGET} launched "
+                             f"the time-code kernel {launches} times, not 4 (2 field "
+                             f"chunks x 2 codes)")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    first = f"{TIME_CODE_CASES[0][0]} D={TIME_CODE_WIDTHS[-1]}"
+    return {"time_code_bwd": {**results[first], "case": first, "cases": results}}
 
 
 def bench_phase(train_step_ms: float) -> None:
@@ -3017,6 +3155,9 @@ def main() -> None:
     # ---- 3c. Adam at the flagship's leaves vs the plain update -----------------
     kernel_results.update(adam_kernel_phase(device))
 
+    # ---- 3d. the time codes' backward at the cells' shapes ---------------------
+    kernel_results.update(time_code_phase(cfg, device))
+
     # ---- 4. render ------------------------------------------------------------
     model = NeRSembleModel(cfg, device)
     params = add_contrast(model.init_params(
@@ -3140,6 +3281,8 @@ def main() -> None:
         "blended_encode_bwd": ("blended_encode.cu", "nersemble_tpu/ops/hash_encoding.py:593"),
         "fused_adam": ("fused_adam.cu", "none (XLA elementwise: "
                                         "nersemble_tpu/engine/optimizers.py:47)"),
+        "time_code_bwd": ("time_code_bwd.cu", "none (XLA scatter-add, the transpose of "
+                                              "nersemble_tpu/models/nersemble.py:146)"),
     }
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda",

@@ -43,6 +43,7 @@ from nersemble_tpu_torch.models.field import (
     prepare_field,
 )
 from nersemble_tpu_torch.ops import losses as L
+from nersemble_tpu_torch.ops import time_code
 from nersemble_tpu_torch.ops.distortion import distortion_loss
 from nersemble_tpu_torch.ops.occupancy import (
     OccupancyDraws,
@@ -81,13 +82,14 @@ _BACKGROUNDS = {"white": (1.0, 1.0, 1.0), "black": (0.0, 0.0, 0.0)}
 
 def _gather_rows(weight: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """``weight[index]`` with a backward that sums each row's gradient in a
-    fixed order, so that a run repeats bit for bit. On the card that is
-    the indexing backward (a sort, then each row's run in order; the
-    backward of ``F.embedding`` there is not: two runs differed in the
-    time embeddings). On the CPU the indexing backward adds rows with
-    atomics across threads (ROADMAP C12); there ``F.embedding``, whose
-    backward walks each row's indices in order."""
-    return weight[index] if weight.is_cuda else F.embedding(index, weight)
+    fixed order, so that a run repeats bit for bit. On the card the
+    time-code kernel (``ops/time_code.py``), which sums in an order fixed
+    by the shapes alone (the backward of ``F.embedding`` there is not: two
+    runs differed in the time embeddings). On the CPU the indexing backward
+    adds rows with atomics across threads (ROADMAP C12); there
+    ``F.embedding``, whose backward walks each row's indices in order."""
+    return time_code.gather_rows(weight, index) if weight.is_cuda \
+        else F.embedding(index, weight)
 
 
 def _field_chunk(body, inputs: tuple):

@@ -22,7 +22,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("fused_mlp_fwd.cu", "fused_mlp_bwd.cu", "quad_build.cu",
            "quad_fold.cu", "gather_rows.cu", "copy_ladder.cu",
-           "blended_encode.cu", "fused_adam.cu")
+           "blended_encode.cu", "fused_adam.cu", "time_code_bwd.cu")
 HEADERS = ("quad_layout.cuh",)  # included by sources; part of the build's hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -69,6 +69,10 @@ _SIGNATURES = {
     "blended_encode_bwd_column": (*(_VOID_P,) * 11, *(_LL,) * 5, _VOID_P),
     # segments, n_segs, c1, c2, b1, b2, 1 - b1, 1 - b2, eps, stream
     "fused_adam": (_VOID_P, _LL, _VOID_P, _VOID_P, *(_F,) * 5, _VOID_P),
+    # g, ld, idx, idx_bytes, partials, out, n, t_rows, d, lanes, rows_per_tile,
+    # blocks, tiles, per_block, per_group, smem, vec, stream
+    "time_code_bwd": (_VOID_P, _LL, _VOID_P, _LL, _VOID_P, _VOID_P, *(_LL,) * 11,
+                      _VOID_P),
 }
 _RESTYPES = {"blended_encode_bwd_column_scratch": ctypes.c_longlong}  # else c_int
 

@@ -5,7 +5,8 @@ one to its counter where it launches its kernel."""
 
 from typing import Dict
 
-from nersemble_tpu_torch.ops import fused_adam, fused_mlp, hash_encoding, quad_kernel
+from nersemble_tpu_torch.ops import (fused_adam, fused_mlp, hash_encoding, quad_kernel,
+                                     time_code)
 
 # kernel name: (module, counter)
 COUNTERS = {
@@ -16,6 +17,7 @@ COUNTERS = {
     "blended_encode_fwd": (hash_encoding, "LAUNCHES"),
     "blended_encode_bwd": (hash_encoding, "BWD_LAUNCHES"),
     "fused_adam": (fused_adam, "LAUNCHES"),
+    "time_code_bwd": (time_code, "LAUNCHES"),
     # of those, the launches on narrow rows: B3/B4 on rows or quarters of 2
     # to 8 bytes (the single grid and its columns), A3 on quad rows of 4
     # elements (the single grid's column of one feature)
@@ -25,7 +27,7 @@ COUNTERS = {
     "blended_encode_bwd narrow": (hash_encoding, "NARROW_BWD_LAUNCHES"),
 }
 KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "quad_build", "quad_fold",
-           "blended_encode_fwd", "blended_encode_bwd", "fused_adam")
+           "blended_encode_fwd", "blended_encode_bwd", "fused_adam", "time_code_bwd")
 NARROW = ("quad_build narrow", "quad_fold narrow", "blended_encode_fwd narrow",
           "blended_encode_bwd narrow")
 # the kernels a forward pass alone (a render) launches

@@ -751,3 +751,136 @@ def test_fused_adam_kernel_refuses_what_it_cannot_take(cuda):
             fused_adam.adam_update([(p, g, mu, nu, 1e-3)], c, c, 0.9, 0.999, 1e-15)
     with pytest.raises(ValueError, match="f32"):
         fused_adam.adam_update([(p.double(), p, mu, nu, 1e-3)], c, c, 0.9, 0.999, 1e-15)
+
+
+# the time codes' backward (csrc/time_code_bwd.cu): the cells' two code widths;
+# 1 and 16 timesteps in one row tile, 476 (a long sequence) and 2000 in many
+TC_WIDTHS = [32, 128]
+TC_ROWS = [1, 16, 476, 2000]
+TC_SAMPLES = [0, 1, 255, 131072, 372000]
+# the gradient as it arrives: whole rows, a column slice of a wider
+# gradient (16-byte aligned: float4 loads), one that is not (scalar loads)
+TC_LAYOUTS = {"contiguous": 0, "column slice": 16, "unaligned column slice": 1}
+
+
+def _tc_grad(g, layout):
+    offset = TC_LAYOUTS[layout]
+    if not offset:
+        return g
+    wide = torch.zeros(g.shape[0], g.shape[1] + 2 * offset, device=g.device)
+    wide[:, offset:offset + g.shape[1]] = g
+    return wide[:, offset:offset + g.shape[1]]
+
+
+@pytest.mark.parametrize("layout", list(TC_LAYOUTS))
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", TC_SAMPLES)
+@pytest.mark.parametrize("t_rows", TC_ROWS)
+@pytest.mark.parametrize("d", TC_WIDTHS)
+def test_time_code_kernel_matches_float64_sums(cuda, d, t_rows, n, index_dtype, layout):
+    """Each row of the gradient within gamma_k (the kernel's longest chain
+    of f32 additions, chip_smoke.time_code_gamma) of the sum of its terms'
+    magnitudes from the float64 sum: the bound on any order of f32 sums."""
+    from nersemble_tpu_torch.ops import time_code
+
+    g, idx = chip_smoke.time_code_inputs(n, t_rows, d, 32, cuda, seed=n + d)
+    grad = _tc_grad(g, layout)
+    before = time_code.LAUNCHES
+    out = time_code.time_code_bwd_cuda(grad, idx.to(index_dtype), t_rows)
+    torch.cuda.synchronize()
+    assert time_code.LAUNCHES == before + 1
+    assert out.shape == (t_rows, d) and out.dtype == torch.float32
+    chip_smoke.time_code_check(out, g, idx, t_rows, chip_smoke.time_code_gamma(n, t_rows, d))
+    if n == 0:
+        assert not out.any()
+
+
+# (D, T, N): rows of four columns and of fewer (6, 1: scalar loads, idle
+# lanes), one and several row tiles, one block and several
+TC_PLAIN_CASES = [(32, 16, 255), (128, 16, 4097), (6, 16, 1000), (128, 476, 3000),
+                  (32, 17, 5000), (1, 3, 700), (128, 2000, 600)]
+
+
+@pytest.mark.parametrize("d,t_rows,n", TC_PLAIN_CASES)
+def test_time_code_kernel_gives_the_plain_versions_bits(cuda, d, t_rows, n):
+    """The kernel against ``time_code_bwd_plain``, which walks the same plan
+    in the same order in numpy, bit for bit; runs of 1 to 40 samples, and
+    indices outside [0, T) that add nowhere."""
+    from nersemble_tpu_torch.ops import time_code
+
+    gen = torch.Generator(device=cuda).manual_seed(d * t_rows + n)
+    g = torch.randn(n, d, generator=gen, device=cuda)
+    runs = torch.randint(1, 41, (n,), generator=gen, device=cuda)
+    rows = torch.randint(-1, t_rows + 1, (n,), generator=gen, device=cuda)
+    idx = rows.repeat_interleave(runs)[:n]
+    out = time_code.time_code_bwd_cuda(g, idx, t_rows)
+    assert torch.equal(out.cpu(), time_code.time_code_bwd_plain(g, idx, t_rows))
+
+
+@pytest.mark.parametrize("d", TC_WIDTHS)
+@pytest.mark.parametrize("t_rows", [16, 476])
+def test_time_code_kernel_repeats_bit_for_bit(cuda, d, t_rows):
+    from nersemble_tpu_torch.ops import time_code
+
+    g, idx = chip_smoke.time_code_inputs(372000, t_rows, d, 91, cuda)
+    first = time_code.time_code_bwd_cuda(g, idx, t_rows)
+    assert torch.equal(first, time_code.time_code_bwd_cuda(g, idx, t_rows))
+
+
+@pytest.mark.parametrize("d", TC_WIDTHS)
+@pytest.mark.parametrize("n", [255, 131072, 372000])
+def test_time_code_kernel_against_the_indexing_backward(cuda, d, n):
+    """Against the card's own backward of ``weight[index]``: each of the two
+    lies within gamma_k of its terms' magnitudes of the exact sum, k the
+    longest chain of additions (the kernel's plan; PyTorch's walk sums a
+    row's samples in one chain, so at most n), so they lie within the sum
+    of the two gammas of each other."""
+    from nersemble_tpu_torch.ops import time_code
+
+    g, idx = chip_smoke.time_code_inputs(n, 16, d, 32, cuda)
+    weight = torch.zeros(16, d, device=cuda, requires_grad=True)
+    (theirs,) = torch.autograd.grad(weight[idx], weight, g)
+    mine = time_code.time_code_bwd_cuda(g, idx, 16)
+    mag = torch.zeros(16, d, dtype=torch.float64, device=cuda).index_add_(
+        0, idx, g.double().abs())
+    gamma = chip_smoke.time_code_gamma(n, 16, d) + chip_smoke.sum_gamma(n)
+    assert bool(((mine.double() - theirs.double()).abs() <= gamma * mag).all())
+
+
+def test_time_code_gather_on_the_card(cuda):
+    """The model's gather of a CUDA weight: ``weight[index]``'s bits
+    forward, the kernel's gradient backward (one launch, no synchronising
+    call), for both index types and a 2-D index."""
+    from nersemble_tpu_torch.models import nersemble
+    from nersemble_tpu_torch.ops import time_code
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    weight = torch.randn(16, 128, generator=gen, device=cuda, requires_grad=True)
+    for idx in (torch.randint(0, 16, (4096,), generator=gen, device=cuda),
+                torch.randint(0, 16, (64, 32), generator=gen, device=cuda).int()):
+        g = torch.randn(*idx.shape, 128, generator=gen, device=cuda)
+        before = time_code.LAUNCHES
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rows = nersemble._gather_rows(weight, idx)
+            (grad,) = torch.autograd.grad(rows, weight, g)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert time_code.LAUNCHES == before + 1
+        assert torch.equal(rows, weight[idx])
+        assert torch.equal(grad, time_code.time_code_bwd_cuda(g, idx, 16))
+
+
+def test_time_code_kernel_refuses_what_it_cannot_take(cuda):
+    from nersemble_tpu_torch.ops import time_code
+
+    idx = torch.zeros(8, dtype=torch.int64, device=cuda)
+    g = torch.zeros(8, 32, device=cuda)
+    for args, match in (((g.bfloat16(), idx), "f32 gradient"),
+                        ((g, idx.float()), "int32 or int64"),
+                        ((g, idx.cpu()), "one card"),
+                        ((g[:4], idx), "8 indices for 4"),
+                        ((torch.zeros(8, 1025, device=cuda), idx), "rows of 1 to 1024")):
+        with pytest.raises(ValueError, match=match):
+            time_code.time_code_bwd_cuda(*args, 16)
