@@ -1170,7 +1170,6 @@ def encode_kernel_phase(cfg, levels, device):
                          f"bit for bit")
         log("kernels", f"A3-bwd {what} parts alone, their serial sum and the "
                        f"wrapper's wall"
-                       + (" with the memset on a side stream" if "memset" in parts else "")
                        + " (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
         if bd is not None:
             log("kernels", f"A3-bwd {what} kernels' device time per call (ms): "
@@ -1188,9 +1187,8 @@ def encode_bwd_parts(he, bwd_args, wall_ms: float) -> dict:
     current stream (ms): the sort of the entry keys, the per-sample kernel,
     the table's zeros, the chunk walk and the spanning runs; on quad rows of
     4 elements the per-sample kernel, the counting sort's passes (``order``)
-    and the reduce. And the wrapper's wall time (which zeroes the table on a
-    side stream while the sort and the per-sample kernel run, where it
-    zeroes it)."""
+    and the reduce. And the wrapper's wall time (every part, the zeros
+    included, on the current stream)."""
     from nersemble_tpu_torch.utils.timing import cuda_time_ms
 
     plan = he.BlendedBwdPlan(*bwd_args)
@@ -1586,7 +1584,7 @@ def adam_kernel_phase(device) -> dict:
     plain update; returns {"fused_adam": kernel_entry(...)}."""
     import torch
     from nersemble_tpu_torch.engine.optimizers import fused_adam_update
-    from nersemble_tpu_torch.ops import fused_adam
+    from nersemble_tpu_torch.ops import fused_adam, launch_counts
     from nersemble_tpu_torch.utils.timing import bound_ms, cuda_time_ms
 
     params, state, key_to_group = adam_flagship(device)
@@ -1596,14 +1594,14 @@ def adam_kernel_phase(device) -> dict:
     del params, state
     torch.cuda.empty_cache()
     params, state, key_to_group = adam_flagship(device)
-    launches = fused_adam.LAUNCHES
+    launches = launch_counts.read()["fused_adam"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         state = adam_steps(params, state, key_to_group)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    launches = fused_adam.LAUNCHES - launches
+    launches = launch_counts.read()["fused_adam"] - launches
     digest = adam_digest(params, state)
     log("adam", f"{len(list(params.parameters()))} leaves, {n} elements, "
                 f"{ADAM_STEPS} steps: kernel {digest} ({launches} launches), plain "
@@ -1688,7 +1686,7 @@ def time_code_phase(cfg, device) -> dict:
     from nersemble_tpu_torch.bench import LRS
     from nersemble_tpu_torch.config import OptimizerConfig
     from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
-    from nersemble_tpu_torch.ops import time_code
+    from nersemble_tpu_torch.ops import launch_counts, time_code
     from nersemble_tpu_torch.utils.bench_data import bench_batch, bench_grid
     from nersemble_tpu_torch.utils.timing import bound_ms, cuda_time_ms
 
@@ -1731,10 +1729,10 @@ def time_code_phase(cfg, device) -> dict:
     step0 = cfg.window_hash_encodings_end + 1  # off the update and budget cadences
     trainer.run_step(step0, batch)
     torch.cuda.synchronize()
-    before = time_code.LAUNCHES
+    before = launch_counts.read()["time_code_bwd"]
     trainer.run_step(step0 + 1, batch)
     torch.cuda.synchronize()
-    launches = time_code.LAUNCHES - before
+    launches = launch_counts.read()["time_code_bwd"] - before
     log("time code", f"one flagship step at a budget of {TIME_CODE_BUDGET}: "
                      f"{launches} launches")
     if launches != 4:
@@ -1782,10 +1780,10 @@ def diagnostics_phase() -> dict:
     """The measurement scripts, in this process; returns the launch counts
     of P1-P4 on this path."""
     import torch
-    from nersemble_tpu_torch.ops import copy_kernels
+    from nersemble_tpu_torch.ops import launch_counts
     from nersemble_tpu_torch.scripts import bench_quad_build, gather_probe, profile_step
 
-    copy_kernels.reset_counts()
+    launch_counts.reset()
     for module, argv in ((bench_quad_build, ["--diag"]), (bench_quad_build, []),
                          (gather_probe, ["--rows", str(2 ** 18)]),
                          (profile_step, ["--iters", "3"])):
@@ -1795,7 +1793,7 @@ def diagnostics_phase() -> dict:
         module.main(argv)
         torch.cuda.empty_cache()
         log("diagnostics", f"{command}: {time.perf_counter() - start:.1f} s")
-    launches = copy_kernels.counts()
+    launches = launch_counts.read(launch_counts.COPIES)
     log("diagnostics", f"launches {launches}")
     for kernel, count in launches.items():
         if count <= 0:
@@ -2422,7 +2420,7 @@ def variants_phase(root, device) -> dict:
     from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
     from nersemble_tpu_torch.model_manager import NeRSembleModelFolder
     from nersemble_tpu_torch.models import nersemble
-    from nersemble_tpu_torch.ops import fused_mlp, quad_kernel
+    from nersemble_tpu_torch.ops import fused_mlp
     from nersemble_tpu_torch.scripts import (
         evaluate_nersemble,
         render_nersemble,
@@ -2464,10 +2462,10 @@ def variants_phase(root, device) -> dict:
                         f"passes {entry_calls[0]}")
         if not losses[-1][1] < losses[0][1]:
             raise AssertionError(f"(a) the loss did not fall: {losses}")
-        if not (quad_kernel.NARROW_LAUNCHES == quad_kernel.LAUNCHES
-                and quad_kernel.NARROW_FOLD_LAUNCHES == quad_kernel.FOLD_LAUNCHES):
-            raise AssertionError(f"(a) B3/B4 ran on rows that are not narrow: "
-                                 f"{train_launches()}")
+        launches = train_launches()
+        if not (launches["quad_build narrow"] == launches["quad_build"]
+                and launches["quad_fold narrow"] == launches["quad_fold"]):
+            raise AssertionError(f"(a) B3/B4 ran on rows that are not narrow: {launches}")
         del monitor, cfg
 
         with RenderLog() as renders:

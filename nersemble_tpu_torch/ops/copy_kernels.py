@@ -1,6 +1,7 @@
 """The measurement path's copy kernels: the row gather (P1) and the quad
 build's cost ladder (P2 copy, P3 broadcast-quarters, P4 seven-fetch), each
-with its plain PyTorch version and a launch counter.
+with its plain PyTorch version and a launch counter (``ops/launch_counts.py``:
+``gather_rows``, ``copy``, ``bcast_quarters``, ``fetch7``).
 
 Counterparts of the Pallas kernels of scripts/pallas_gather_probe.py
 (``make_pallas_gather``) and scripts/bench_quad_build.py
@@ -18,18 +19,13 @@ stride; the default is the JAX package's 2048 rows.
 
 import torch
 
-from nersemble_tpu_torch.ops import cuda_lib
+from nersemble_tpu_torch.ops import cuda_lib, launch_counts
 
 N_QUARTERS = 4
 BLOCK = 2048                  # rows per thread block (the Pallas block)
 DEPTHS = (8, 16, 32, 64)      # the gather probe's sweep
 DEFAULT_DEPTH = 32            # make_pallas_gather's default
 MAX_GATHER_ROW_BYTES = 256    # csrc/gather_rows.cu GR_MAX_CHUNKS * 16
-
-GATHER_LAUNCHES = 0  # P1 launches since the last reset (chip_smoke.py reads them)
-COPY_LAUNCHES = 0    # P2
-BCAST_LAUNCHES = 0   # P3
-FETCH7_LAUNCHES = 0  # P4
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -72,7 +68,6 @@ def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor,
     number of row reads each warp keeps in flight. The indices are not
     range-checked on the device (that would need a synchronizing read):
     an index outside [0, E) reads outside the table."""
-    global GATHER_LAUNCHES
     row_bytes = _check_rows("gather_rows_cuda", table)
     if row_bytes > MAX_GATHER_ROW_BYTES:
         raise ValueError(f"gather_rows_cuda: rows of {row_bytes} B; the kernel "
@@ -85,11 +80,9 @@ def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"depth must be one of {DEPTHS}, got {depth}")
     out = torch.empty(idx.shape[0], table.shape[1], dtype=table.dtype,
                       device=table.device)
-    status = cuda_lib.library().gather_rows(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-        row_bytes, idx.element_size(), depth, _stream(table))
-    cuda_lib.check(status, "gather_rows")
-    GATHER_LAUNCHES += 1
+    cuda_lib.run("gather_rows", table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                 idx.shape[0], row_bytes, idx.element_size(), depth, _stream(table))
+    launch_counts.add("gather_rows")
     return out
 
 
@@ -104,14 +97,12 @@ def copy_plain(x: torch.Tensor) -> torch.Tensor:
 
 def copy_cuda(x: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
     """Launch kernel P2 on a contiguous CUDA [E, W] tensor."""
-    global COPY_LAUNCHES
     row_bytes = _check_rows("copy_cuda", x)
     _check_block(block)
     out = torch.empty_like(x)
-    status = cuda_lib.library().ladder_copy(
-        x.data_ptr(), out.data_ptr(), x.shape[0], row_bytes, block, _stream(x))
-    cuda_lib.check(status, "ladder_copy")
-    COPY_LAUNCHES += 1
+    cuda_lib.run("ladder_copy", x.data_ptr(), out.data_ptr(), x.shape[0], row_bytes,
+                 block, _stream(x))
+    launch_counts.add("copy")
     return out
 
 
@@ -128,15 +119,13 @@ def bcast_quarters_plain(x: torch.Tensor) -> torch.Tensor:
 
 def bcast_quarters_cuda(x: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
     """Launch kernel P3 on a contiguous CUDA [E, W] tensor."""
-    global BCAST_LAUNCHES
     row_bytes = _check_rows("bcast_quarters_cuda", x)
     _check_block(block)
     out = torch.empty(x.shape[0], N_QUARTERS * x.shape[1], dtype=x.dtype,
                       device=x.device)
-    status = cuda_lib.library().ladder_bcast(
-        x.data_ptr(), out.data_ptr(), x.shape[0], row_bytes, block, _stream(x))
-    cuda_lib.check(status, "ladder_bcast")
-    BCAST_LAUNCHES += 1
+    cuda_lib.run("ladder_bcast", x.data_ptr(), out.data_ptr(), x.shape[0], row_bytes,
+                 block, _stream(x))
+    launch_counts.add("bcast_quarters")
     return out
 
 
@@ -166,7 +155,6 @@ def fetch7_plain(*refs: torch.Tensor) -> torch.Tensor:
 
 def fetch7_cuda(*refs: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
     """Launch kernel P4: all seven inputs are read, four are written."""
-    global FETCH7_LAUNCHES
     _check_seven(refs)
     row_bytes = _check_rows("fetch7_cuda", refs[0])
     for r in refs[1:]:
@@ -175,21 +163,7 @@ def fetch7_cuda(*refs: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
     x = refs[0]
     out = torch.empty(x.shape[0], N_QUARTERS * x.shape[1], dtype=x.dtype,
                       device=x.device)
-    status = cuda_lib.library().ladder_fetch7(
-        *(r.data_ptr() for r in refs), out.data_ptr(), x.shape[0], row_bytes,
-        block, _stream(x))
-    cuda_lib.check(status, "ladder_fetch7")
-    FETCH7_LAUNCHES += 1
+    cuda_lib.run("ladder_fetch7", *(r.data_ptr() for r in refs), out.data_ptr(),
+                 x.shape[0], row_bytes, block, _stream(x))
+    launch_counts.add("fetch7")
     return out
-
-
-def reset_counts() -> None:
-    """Set the four launch counters to 0."""
-    global GATHER_LAUNCHES, COPY_LAUNCHES, BCAST_LAUNCHES, FETCH7_LAUNCHES
-    GATHER_LAUNCHES = COPY_LAUNCHES = BCAST_LAUNCHES = FETCH7_LAUNCHES = 0
-
-
-def counts() -> dict:
-    """The four launch counters by kernel name."""
-    return {"gather_rows": GATHER_LAUNCHES, "copy": COPY_LAUNCHES,
-            "bcast_quarters": BCAST_LAUNCHES, "fetch7": FETCH7_LAUNCHES}

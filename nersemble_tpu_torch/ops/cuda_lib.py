@@ -160,3 +160,9 @@ def check(status: int, kernel: str) -> None:
     """Raise if a launch returned a CUDA error (``cudaGetLastError``)."""
     if status != 0:
         raise RuntimeError(f"{kernel}: CUDA error {status} (cudaError_t)")
+
+
+def run(entry: str, *args) -> None:
+    """Call the library's C entry ``entry`` and raise if it returned a CUDA
+    error."""
+    check(getattr(library(), entry)(*args), entry)

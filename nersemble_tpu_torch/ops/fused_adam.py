@@ -19,9 +19,8 @@ from typing import List, NamedTuple, Sequence, Tuple
 import torch
 from torch.autograd.graph import increment_version
 
-from nersemble_tpu_torch.ops import cuda_lib
+from nersemble_tpu_torch.ops import cuda_lib, launch_counts
 
-LAUNCHES = 0  # kernel launches since the last reset (ops/launch_counts.py)
 MAX_SEGMENTS = 64  # csrc/fused_adam.cu ADAM_MAX_SEGS: one launch's segments
 VECTOR_BYTES = 16  # the kernel's float4 loads and stores
 # the kernel's segment kinds: the gradient's type, VECTOR on a float4 body
@@ -113,7 +112,6 @@ def adam_update_cuda(leaves, c1: torch.Tensor, c2: torch.Tensor, b1: float,
     """Launch the kernel over ``leaves`` (contiguous CUDA tensors, f32 but
     for the gradient) in place: one launch per ``MAX_SEGMENTS`` segments.
     ``c1``, ``c2``: the bias corrections, f32 scalars on the same card."""
-    global LAUNCHES
     device = c1.device
     if device.type != "cuda" or c2.device != device:
         raise ValueError("adam_update_cuda takes CUDA tensors")
@@ -133,14 +131,13 @@ def adam_update_cuda(leaves, c1: torch.Tensor, c2: torch.Tensor, b1: float,
         kind = G_KINDS[leaves[seg.leaf][1].dtype] | (VECTOR if seg.vector else 0)
         rows.append((p + 4 * seg.start, g + g_bytes * seg.start, mu + 4 * seg.start,
                      nu + 4 * seg.start, seg.count, leaves[seg.leaf][4], kind))
-    lib = cuda_lib.library()
     stream = torch.cuda.current_stream(device).cuda_stream
     for first in range(0, len(rows), MAX_SEGMENTS):
         part = rows[first:first + MAX_SEGMENTS]
-        status = lib.fused_adam((_Segment * len(part))(*part), len(part), c1.data_ptr(),
-                                c2.data_ptr(), b1, b2, 1.0 - b1, 1.0 - b2, eps, stream)
-        cuda_lib.check(status, "fused_adam")
-        LAUNCHES += 1
+        cuda_lib.run("fused_adam", (_Segment * len(part))(*part), len(part),
+                     c1.data_ptr(), c2.data_ptr(), b1, b2, 1.0 - b1, 1.0 - b2, eps,
+                     stream)
+        launch_counts.add("fused_adam")
     # the kernel wrote through pointers: bump the version counters, as an
     # in-place op would, so caches keyed by them (the fused MLPs' packed
     # weights, the renderer's quad table) see the new values

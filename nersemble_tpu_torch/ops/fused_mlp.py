@@ -15,7 +15,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from nersemble_tpu_torch.ops import cuda_lib
+from nersemble_tpu_torch.ops import cuda_lib, launch_counts
 from nersemble_tpu_torch.ops.mlp import activate, apply_mlp, round_to
 from nersemble_tpu_torch.utils import spans
 
@@ -51,11 +51,9 @@ _BWD_ROWS, _BWD_KC, _BWD_NC, _BWD_PASS, _BWD_MAX_CHUNKS = 64, 64, 32, 128, 96
 # of the error (chip_smoke.py prints the share used).
 _BWD_G_TERMS, _BWD_W_TERMS, _BWD_MAX_ORDER = 3, 3, 2
 
-LAUNCHES = 0      # B1-fwd launches since the last reset (chip_smoke.py reads it)
 # B1-fwd launches by (d_in, d_out, rows) while a caller holds a Counter here
 # (chip_smoke.py's rows-per-launch histograms); None: not recorded
 ROWS: Optional[Counter] = None
-BWD_LAUNCHES = 0  # B2 launches since the last reset
 
 # B2 vs plain tolerance, per output (dx, every dW and db), held on
 # ``positive_`` parameters and inputs. On random ones the bf16 forward that
@@ -279,17 +277,23 @@ def pack_weights(params, d_in: int, skip_connections: Sequence[int] = ()):
             prev_out, "b" in layers[0])
 
 
-def _packed_weights(params, d_in: int, skip_connections: Sequence[int]):
-    """``pack_weights``, cached on the MLP module until a weight changes
-    (keyed by storage and version counter): a render calls each MLP
-    thousands of times with the same weights."""
-    key = (d_in, tuple(skip_connections),
-           tuple((t.data_ptr(), t._version) for t in params.parameters()))
-    cached = getattr(params, "_fused_mlp_packed", None)
-    if cached is None or cached[0] != key:
-        cached = (key, pack_weights(params, d_in, skip_connections))
-        params._fused_mlp_packed = cached
+def _cached(params, tag: str, key, build):
+    """``build()``, cached on the MLP module as its attribute ``tag`` until
+    ``key`` or a weight changes (weights keyed by storage and version
+    counter)."""
+    full_key = (key, tuple((t.data_ptr(), t._version) for t in params.parameters()))
+    cached = getattr(params, tag, None)
+    if cached is None or cached[0] != full_key:
+        cached = (full_key, build())
+        setattr(params, tag, cached)
     return cached[1]
+
+
+def _packed_weights(params, d_in: int, skip_connections: Sequence[int]):
+    """``pack_weights``, cached on the MLP module (``_cached``): a render
+    calls each MLP thousands of times with the same weights."""
+    return _cached(params, "_fused_mlp_packed", (d_in, tuple(skip_connections)),
+                   lambda: pack_weights(params, d_in, skip_connections))
 
 
 def fwd_layout(per_layer, d_in: int, kx: int) -> Dict:
@@ -367,17 +371,14 @@ def _fwd_operands(params, d_in: int, skip_connections: Sequence[int]):
     x aligned): meta}), cached on the MLP module like ``_packed_weights``
     (training rebuilds it every step); a render launches each MLP hundreds
     of times per frame with the same weights, so the meta arrays are kept."""
-    key = (d_in, tuple(skip_connections),
-           tuple((t.data_ptr(), t._version) for t in params.parameters()))
-    cached = getattr(params, "_fused_mlp_fwd_image", None)
-    if cached is None or cached[0] != key:
+    def build():
         wt, bias, per_layer, kx, _, d_out, has_bias = _packed_weights(
             params, d_in, skip_connections)
         layout = fwd_layout(per_layer, d_in, kx)
         image = fwd_weight_image(wt, per_layer, layout)
-        cached = (key, (image, bias, layout, kx, d_out, has_bias, {}))
-        params._fused_mlp_fwd_image = cached
-    return cached[1]
+        return image, bias, layout, kx, d_out, has_bias, {}
+    return _cached(params, "_fused_mlp_fwd_image", (d_in, tuple(skip_connections)),
+                   build)
 
 
 @functools.lru_cache(maxsize=None)
@@ -389,7 +390,6 @@ def fused_mlp_cuda(params, x: torch.Tensor, out_activation: Optional[str] = None
                    skip_connections: Sequence[int] = ()) -> torch.Tensor:
     """Launch kernel B1-fwd on a CUDA tensor ``x [N, d_in]`` float32 (any
     alignment: x not 16-byte aligned is read without bulk copies)."""
-    global LAUNCHES
     if not x.is_cuda:
         raise ValueError("fused_mlp_cuda takes a CUDA tensor")
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
@@ -414,11 +414,10 @@ def fused_mlp_cuda(params, x: torch.Tensor, out_activation: Optional[str] = None
              layout["smem_bytes"], layout["off_xa"], layout["off_xraw"],
              layout["off_bias"], layout["off_bars"], layout["image_bytes"],
              layout["x_stages"], *(v for entry in layout["layers"] for v in entry)])
-    status = cuda_lib.library().fused_mlp_fwd(
-        x.data_ptr(), out.data_ptr(), image.data_ptr(), bias.data_ptr(), meta,
-        x.shape[0], torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_lib.check(status, "fused_mlp_fwd")
-    LAUNCHES += 1
+    cuda_lib.run("fused_mlp_fwd", x.data_ptr(), out.data_ptr(), image.data_ptr(),
+                 bias.data_ptr(), meta, x.shape[0],
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    launch_counts.add("fused_mlp_fwd")
     return out
 
 
@@ -450,13 +449,8 @@ def bwd_layout(params, d_in: int, skip_connections: Sequence[int]):
 
 def _packed_bwd(params, d_in: int, skip_connections: Sequence[int]):
     """``bwd_layout``, cached on the MLP module like ``_packed_weights``."""
-    key = (d_in, tuple(skip_connections),
-           tuple((t.data_ptr(), t._version) for t in params.parameters()))
-    cached = getattr(params, "_fused_mlp_bwd_packed", None)
-    if cached is None or cached[0] != key:
-        cached = (key, bwd_layout(params, d_in, skip_connections))
-        params._fused_mlp_bwd_packed = cached
-    return cached[1]
+    return _cached(params, "_fused_mlp_bwd_packed", (d_in, tuple(skip_connections)),
+                   lambda: bwd_layout(params, d_in, skip_connections))
 
 
 def split_partial_sum(total: torch.Tensor, per_layer, has_bias: bool):
@@ -545,7 +539,6 @@ def fused_mlp_bwd_cuda(params, x: torch.Tensor, g: torch.Tensor,
                        skip_connections: Sequence[int] = ()):
     """Launch kernel B2 on CUDA tensors ``x [N, d_in]`` and ``g [N, d_out]``
     (float32): returns (dx, [dW_i], [db_i] or None), all f32."""
-    global BWD_LAUNCHES
     if not (x.is_cuda and g.is_cuda):
         raise ValueError("fused_mlp_bwd_cuda takes CUDA tensors")
     for name, t in (("x", x), ("g", g)):
@@ -589,13 +582,12 @@ def fused_mlp_bwd_cuda(params, x: torch.Tensor, g: torch.Tensor,
             _BWD_MAX_ORDER, stream_elems, partial_floats]
     for i, (in_real, out_real, hw, w_off, b_off) in enumerate(per_layer_bwd):
         meta += [*per_layer[5 * i:5 * i + 5], in_real, out_real, hw, w_off, b_off]
-    status = cuda_lib.library().fused_mlp_bwd(
-        x.data_ptr(), g.data_ptr(), dx.data_ptr(), wt.data_ptr(),
+    cuda_lib.run(
+        "fused_mlp_bwd", x.data_ptr(), g.data_ptr(), dx.data_ptr(), wt.data_ptr(),
         bias.data_ptr(), wf.data_ptr(), wstream.data_ptr(), partials.data_ptr(),
         total.data_ptr(), cuda_lib.int64_array(meta), n_rows, n_parts,
         torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_lib.check(status, "fused_mlp_bwd")
-    BWD_LAUNCHES += 1
+    launch_counts.add("fused_mlp_bwd")
     dws, dbs = split_partial_sum(total, per_layer_bwd, has_bias)
     return dx, dws, dbs
 

@@ -29,7 +29,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from nersemble_tpu_torch.ops import cuda_lib
+from nersemble_tpu_torch.ops import cuda_lib, launch_counts
 from nersemble_tpu_torch.ops.quad_kernel import N_QUARTERS, quad_build
 from nersemble_tpu_torch.utils import spans
 from nersemble_tpu_torch.utils.device import device_constant
@@ -40,11 +40,6 @@ _PRIMES = (2654435761, 805459861, 3674653429)
 # is part of the table layout now; the CUDA kernel has no block constraint.
 LAYOUT_BLOCK = 2048
 
-LAUNCHES = 0       # A3-fwd launches since the last reset (chip_smoke.py reads it)
-BWD_LAUNCHES = 0   # A3-bwd launches since the last reset
-# of those, the launches on quad rows of 4 elements (one feature, no code)
-NARROW_LAUNCHES = 0
-NARROW_BWD_LAUNCHES = 0
 TABLE_CHUNK = 64   # csrc/blended_encode.cu BE_CHUNK: sorted rows per chunk
 # A3-bwd on quad rows of 4 elements (csrc/blended_encode.cu BE_COL_*): the
 # positions per block of a counting-sort pass, the bits of a pass's digit,
@@ -501,7 +496,6 @@ def blended_encode_fwd_cuda(quad_table, code, wy, fx, fz, entry_idx,
                             keep_residuals: bool):
     """Kernel A3-fwd on CUDA tensors; returns what
     ``blended_encode_fwd_plain`` returns."""
-    global LAUNCHES, NARROW_LAUNCHES
     if not quad_table.is_cuda:
         raise ValueError("blended_encode_fwd_cuda takes CUDA tensors")
     W, H = _kernel_shape(quad_table, code, n_levels, features_per_logical)
@@ -514,14 +508,14 @@ def blended_encode_fwd_cuda(quad_table, code, wy, fx, fz, entry_idx,
             BH = torch.empty(n, L, H, Fl, dtype=dt, device=wy.device)
     if n == 0:
         return out, CG, BH
-    status = cuda_lib.library().blended_encode_fwd(
-        quad_table.data_ptr(), entry_idx.data_ptr(), wy.data_ptr(), fx.data_ptr(),
-        fz.data_ptr(), _ptr(code), out.data_ptr(), _ptr(CG), _ptr(BH), n, L, H, W, Fl,
-        quad_table.element_size(),
+    cuda_lib.run(
+        "blended_encode_fwd", quad_table.data_ptr(), entry_idx.data_ptr(),
+        wy.data_ptr(), fx.data_ptr(), fz.data_ptr(), _ptr(code), out.data_ptr(),
+        _ptr(CG), _ptr(BH), n, L, H, W, Fl, quad_table.element_size(),
         torch.cuda.current_stream(wy.device).cuda_stream)
-    cuda_lib.check(status, "blended_encode_fwd")
-    LAUNCHES += 1
-    NARROW_LAUNCHES += W == 1
+    launch_counts.add("blended_encode_fwd")
+    if W == 1:
+        launch_counts.add("blended_encode_fwd narrow")
     return out, CG, BH
 
 
@@ -534,25 +528,10 @@ def _scratch_widths(features_per_logical: int, n_tables: int, elem_bytes: int):
             -(-n_tables // per) * per)
 
 
-_SIDE_STREAMS: Dict[int, tuple] = {}  # device index -> (stream, fork, join)
-
-
-def _side_stream(device: torch.device):
-    """A3-bwd's second stream, where the table gradient is zeroed, and the
-    two events that fork it from and join it to the caller's stream;
-    created once per device."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _SIDE_STREAMS:
-        _SIDE_STREAMS[index] = (torch.cuda.Stream(device=index), torch.cuda.Event(),
-                                torch.cuda.Event())
-    return _SIDE_STREAMS[index]
-
-
 class BlendedBwdPlan:
     """One A3-bwd call: its outputs, its scratch and its parts, each a
-    launch on the current stream. ``blended_encode_bwd_cuda`` runs them with
-    the zeroing on a side stream; chip_smoke.py times each part alone
-    (``parts``).
+    launch on the current stream. ``blended_encode_bwd_cuda`` runs them in
+    turn; chip_smoke.py times each part alone (``parts``).
 
     The parts: ``zero`` (the table gradient, rows no sample reached),
     ``sort`` (the entry indices as int32 keys, a stable ``torch.sort``:
@@ -607,11 +586,10 @@ class BlendedBwdPlan:
     def _shape(self):
         return (self.n, self.L, self.H, self.W, self.Fl, self.inputs[1].element_size())
 
-    def zero(self, stream) -> None:
+    def zero(self) -> None:
         d = self.d_table
-        cuda_lib.check(cuda_lib.library().blended_encode_zero(
-            d.data_ptr(), d.numel() * d.element_size(), stream.cuda_stream),
-            "blended_encode_zero")
+        cuda_lib.run("blended_encode_zero", d.data_ptr(), d.numel() * d.element_size(),
+                     self._stream())
 
     def sort(self) -> None:
         flat = self.inputs[4].reshape(-1).to(torch.int32)
@@ -619,47 +597,45 @@ class BlendedBwdPlan:
 
     def sample(self) -> None:
         gbar, CG, BH, code, _, wy, fx, fz = self.inputs
-        cuda_lib.check(cuda_lib.library().blended_encode_bwd_sample(
-            gbar.data_ptr(), CG.data_ptr(), _ptr(BH), _ptr(code), wy.data_ptr(),
-            fx.data_ptr(), fz.data_ptr(), _ptr(self.mfac), _ptr(self.coder),
-            _ptr(self.d_code), self.d_wy.data_ptr(), self.d_fx.data_ptr(),
-            self.d_fz.data_ptr(), *self._shape(), self._stream()),
-            "blended_encode_bwd_sample")
+        cuda_lib.run(
+            "blended_encode_bwd_sample", gbar.data_ptr(), CG.data_ptr(), _ptr(BH),
+            _ptr(code), wy.data_ptr(), fx.data_ptr(), fz.data_ptr(), _ptr(self.mfac),
+            _ptr(self.coder), _ptr(self.d_code), self.d_wy.data_ptr(),
+            self.d_fx.data_ptr(), self.d_fz.data_ptr(), *self._shape(), self._stream())
 
     def chunks(self) -> None:
-        cuda_lib.check(cuda_lib.library().blended_encode_bwd_chunks(
-            self.skey.data_ptr(), self.perm.data_ptr(), self.mfac.data_ptr(),
-            _ptr(self.coder), self.d_table.data_ptr(), self.partial.data_ptr(),
-            *self._shape(), self._stream()), "blended_encode_bwd_chunks")
+        cuda_lib.run(
+            "blended_encode_bwd_chunks", self.skey.data_ptr(), self.perm.data_ptr(),
+            self.mfac.data_ptr(), _ptr(self.coder), self.d_table.data_ptr(),
+            self.partial.data_ptr(), *self._shape(), self._stream())
 
     def spans(self) -> None:
         n, L, _, W, _, es = self._shape()
-        cuda_lib.check(cuda_lib.library().blended_encode_bwd_spans(
-            self.skey.data_ptr(), self.partial.data_ptr(), self.d_table.data_ptr(),
-            n, L, W, es, self._stream()), "blended_encode_bwd_spans")
+        cuda_lib.run("blended_encode_bwd_spans", self.skey.data_ptr(),
+                     self.partial.data_ptr(), self.d_table.data_ptr(), n, L, W, es,
+                     self._stream())
 
     def column(self, parts: int = 7) -> None:
         """On quad rows of 4 elements, the parts given as a sum: 4 ``sample``
         (with the rounded factors), 1 ``order``, 2 ``reduce``; 7 all three
         in one call."""
         gbar, CG, _, _, entry_idx, wy, fx, fz = self.inputs
-        cuda_lib.check(cuda_lib.library().blended_encode_bwd_column(
-            gbar.data_ptr(), CG.data_ptr(), entry_idx.data_ptr(), wy.data_ptr(),
-            fx.data_ptr(), fz.data_ptr(), self.d_wy.data_ptr(), self.d_fx.data_ptr(),
-            self.d_fz.data_ptr(), self.d_table.data_ptr(), self.scratch.data_ptr(), self.n,
-            self.L, self.d_table.shape[0], CG.element_size(), parts, self._stream()),
-            "blended_encode_bwd_column")
+        cuda_lib.run(
+            "blended_encode_bwd_column", gbar.data_ptr(), CG.data_ptr(),
+            entry_idx.data_ptr(), wy.data_ptr(), fx.data_ptr(), fz.data_ptr(),
+            self.d_wy.data_ptr(), self.d_fx.data_ptr(), self.d_fz.data_ptr(),
+            self.d_table.data_ptr(), self.scratch.data_ptr(), self.n, self.L,
+            self.d_table.shape[0], CG.element_size(), parts, self._stream())
 
     def parts(self) -> Dict[str, object]:
-        """{name: the part as a call on the current stream}, in the order
-        the wrapper runs them."""
+        """{name: the part as a call on the current stream}; run in this
+        order they give the wrapper's outputs (the wrapper writes the zeros
+        first)."""
         if self.scratch is not None:
             return {"sample": lambda: self.column(4), "order": lambda: self.column(1),
                     "reduce": lambda: self.column(2)}
-        stream = torch.cuda.current_stream(self.inputs[1].device)
-        return {"sort": self.sort, "sample": self.sample,
-                "memset": lambda: self.zero(stream), "chunk": self.chunks,
-                "span": self.spans}
+        return {"sort": self.sort, "sample": self.sample, "memset": self.zero,
+                "chunk": self.chunks, "span": self.spans}
 
     def outputs(self):
         return self.d_table, self.d_code, self.d_wy, self.d_fx, self.d_fz
@@ -670,12 +646,10 @@ def blended_encode_bwd_cuda(gbar, CG, BH, code, entry_idx, wy, fx, fz,
     """Kernel A3-bwd on CUDA tensors; returns what
     ``blended_encode_bwd_plain`` returns. The table gradient is summed per
     row in f32 in a fixed order (the stable sort of the entry indices) and
-    rounded once: bit for bit from run to run. Its zeros are written on a
-    side stream while the sort and the per-sample kernel run on the current
-    one (``BlendedBwdPlan``); an event joins the two before the table's
-    kernels. Quad rows of 4 elements take the kernels' own counting sort,
-    which writes every row."""
-    global BWD_LAUNCHES, NARROW_BWD_LAUNCHES
+    rounded once: bit for bit from run to run. Every part runs on the
+    current stream (``BlendedBwdPlan``): the zeros, the sort, the per-sample
+    kernel, then the table's kernels. Quad rows of 4 elements take the
+    kernels' own counting sort, which writes every row."""
     if not CG.is_cuda:
         raise ValueError("blended_encode_bwd_cuda takes CUDA tensors")
     plan = BlendedBwdPlan(gbar, CG, BH, code, entry_idx, wy, fx, fz, table_shape,
@@ -687,28 +661,16 @@ def blended_encode_bwd_cuda(gbar, CG, BH, code, entry_idx, wy, fx, fz,
     if need_table and plan.scratch is not None:
         plan.column()
     elif need_table:
-        stream = torch.cuda.current_stream(CG.device)
-        side, fork, join = _side_stream(CG.device)
-        fork.record(stream)
-        side.wait_event(fork)
-        plan.zero(side)
-        join.record(side)
-        try:
-            plan.sort()
-            plan.sample()
-        finally:
-            # d_table belongs to the current stream and is freed only after
-            # this wait is queued on it, so every later reuse of its memory
-            # is ordered after the zeros (no record_stream: a block it marks
-            # waits for the side stream on the host's clock, and a host that
-            # runs ahead then takes a fresh [E, 4W] block per call)
-            stream.wait_event(join)
+        plan.zero()
+        plan.sort()
+        plan.sample()
         plan.chunks()
         plan.spans()
     else:
         plan.sample()
-    BWD_LAUNCHES += 1
-    NARROW_BWD_LAUNCHES += plan.W == 1
+    launch_counts.add("blended_encode_bwd")
+    if plan.W == 1:
+        launch_counts.add("blended_encode_bwd narrow")
     return plan.outputs()
 
 

@@ -15,7 +15,7 @@ from typing import List, Tuple
 
 import torch
 
-from nersemble_tpu_torch.ops import cuda_lib
+from nersemble_tpu_torch.ops import cuda_lib, launch_counts
 from nersemble_tpu_torch.utils import spans
 
 N_QUARTERS = 4
@@ -25,13 +25,6 @@ MAX_LEVELS = 32  # csrc/quad_layout.cuh QUAD_MAX_LEVELS
 # group of rows lies in one level and its rolled rows never wrap
 ROW_GROUP = 32
 MAX_ROWS = 2 ** 31 - 1
-
-LAUNCHES = 0       # B3 launches since the last reset (chip_smoke.py reads it)
-FOLD_LAUNCHES = 0  # B4 launches since the last reset
-# of those, the launches on narrow rows (B3) or quarters (B4) of 2, 4 or 8
-# bytes
-NARROW_LAUNCHES = 0
-NARROW_FOLD_LAUNCHES = 0
 
 
 def _narrow(nbytes: int) -> bool:
@@ -105,7 +98,6 @@ def _kernel_meta(levels):
 
 def quad_build_cuda(table: torch.Tensor, levels) -> torch.Tensor:
     """Launch kernel B3 on a contiguous CUDA table [E, W]."""
-    global LAUNCHES, NARROW_LAUNCHES
     meta = _kernel_meta(levels)
     if not table.is_cuda:
         raise ValueError("quad_build_cuda takes a CUDA tensor")
@@ -121,12 +113,11 @@ def quad_build_cuda(table: torch.Tensor, levels) -> torch.Tensor:
                          "aligned to their loads")
     out = torch.empty(table.shape[0], N_QUARTERS * table.shape[1],
                       dtype=table.dtype, device=table.device)
-    status = cuda_lib.library().quad_build(
-        table.data_ptr(), out.data_ptr(), table.shape[0], row_bytes, meta,
-        torch.cuda.current_stream(table.device).cuda_stream)
-    cuda_lib.check(status, "quad_build")
-    LAUNCHES += 1
-    NARROW_LAUNCHES += _narrow(row_bytes)
+    cuda_lib.run("quad_build", table.data_ptr(), out.data_ptr(), table.shape[0],
+                 row_bytes, meta, torch.cuda.current_stream(table.device).cuda_stream)
+    launch_counts.add("quad_build")
+    if _narrow(row_bytes):
+        launch_counts.add("quad_build narrow")
     return out
 
 
@@ -152,7 +143,6 @@ def quad_fold_plain(g: torch.Tensor, levels) -> torch.Tensor:
 def quad_fold_cuda(g: torch.Tensor, levels) -> torch.Tensor:
     """Launch kernel B4 on a contiguous CUDA quad gradient [E, 4W] (bf16 or
     f32)."""
-    global FOLD_LAUNCHES, NARROW_FOLD_LAUNCHES
     meta = _kernel_meta(levels)
     if not g.is_cuda:
         raise ValueError("quad_fold_cuda takes a CUDA tensor")
@@ -169,12 +159,11 @@ def quad_fold_cuda(g: torch.Tensor, levels) -> torch.Tensor:
                          "quarters of 2 (bf16), 4 or 8 B or 16-byte chunks of "
                          "quarters up to 4096 B, aligned to their loads")
     out = torch.empty(g.shape[0], width, dtype=g.dtype, device=g.device)
-    status = cuda_lib.library().quad_fold(
-        g.data_ptr(), out.data_ptr(), g.shape[0], quarter_bytes,
-        g.element_size(), meta, torch.cuda.current_stream(g.device).cuda_stream)
-    cuda_lib.check(status, "quad_fold")
-    FOLD_LAUNCHES += 1
-    NARROW_FOLD_LAUNCHES += _narrow(quarter_bytes)
+    cuda_lib.run("quad_fold", g.data_ptr(), out.data_ptr(), g.shape[0], quarter_bytes,
+                 g.element_size(), meta, torch.cuda.current_stream(g.device).cuda_stream)
+    launch_counts.add("quad_fold")
+    if _narrow(quarter_bytes):
+        launch_counts.add("quad_fold narrow")
     return out
 
 

@@ -20,9 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from nersemble_tpu_torch.ops import cuda_lib
+from nersemble_tpu_torch.ops import cuda_lib, launch_counts
 
-LAUNCHES = 0  # kernel launches since the last reset (ops/launch_counts.py)
 THREADS = 256  # csrc/time_code_bwd.cu TC_THREADS
 SUM_WARPS = 8  # csrc/time_code_bwd.cu TC_SUM_WARPS
 MAX_WIDTH = 4 * THREADS  # a lane owns four columns: rows of at most 1024
@@ -90,7 +89,6 @@ def time_code_bwd_cuda(grad_out: torch.Tensor, index: torch.Tensor,
     ``weight``, from the output's gradient ``grad_out`` [*index.shape, D]
     f32 on the card: one call, two launches on the current stream, no host
     read. Indices (int32 or int64) outside [0, t_rows) add nowhere."""
-    global LAUNCHES
     g = _rows_2d(grad_out)
     n, d = g.shape
     device = g.device
@@ -110,13 +108,12 @@ def time_code_bwd_cuda(grad_out: torch.Tensor, index: torch.Tensor,
     vec = d % 4 == 0 and ld % 4 == 0 and g.data_ptr() % 16 == 0
     out = torch.empty(t_rows, d, dtype=torch.float32, device=device)
     partials = torch.empty(p.blocks * t_rows * d, dtype=torch.float32, device=device)
-    status = cuda_lib.library().time_code_bwd(
-        g.data_ptr(), ld, idx.data_ptr(), idx.element_size(), partials.data_ptr(),
+    cuda_lib.run(
+        "time_code_bwd", g.data_ptr(), ld, idx.data_ptr(), idx.element_size(), partials.data_ptr(),
         out.data_ptr(), n, t_rows, d, p.lanes, p.rows_per_tile, p.blocks, p.tiles,
         p.per_block, p.per_group, p.smem, int(vec),
         torch.cuda.current_stream(device).cuda_stream)
-    cuda_lib.check(status, "time_code_bwd")
-    LAUNCHES += 1
+    launch_counts.add("time_code_bwd")
     return out
 
 

@@ -59,6 +59,8 @@ from typing import Dict, List, Optional
 import torch
 from torch.autograd import profiler as _profiler
 
+from nersemble_tpu_torch.ops import launch_counts
+
 STEP = "loop:step"
 BACKWARD = "train:backward"
 OUTSIDE = "outside"
@@ -123,7 +125,7 @@ class Span:
         if self.profiled:
             self._range = torch.profiler.record_function(self.name)
             self._range.__enter__()
-        self._launches0 = tr._launches() if self._issues else {}
+        self._launches0 = launch_counts.read() if self._issues else {}
         self.t0 = time.perf_counter_ns()
         if self._issues and tr.cuda:
             start = torch.cuda.Event(enable_timing=True)
@@ -141,7 +143,7 @@ class Span:
         # the launch counters are the process's: a host-only span would
         # count other threads' launches
         if self._issues:
-            launches = tr._launches()
+            launches = launch_counts.read()
             self.launches = {k: n - self._launches0[k] for k, n in launches.items()
                              if n != self._launches0[k]}
         if self._range is not None:
@@ -183,7 +185,6 @@ class Tracer:
         self._local = threading.local()
         self._anchor = None  # (event, host ns) of the device clock's anchor
         self._restore = None  # what enable() changed, for disable()
-        self._launches = dict  # launch_counts.read once enabled
 
     def _stack(self) -> List[Span]:
         stack = getattr(self._local, "stack", None)
@@ -216,9 +217,6 @@ class Tracer:
     def enable(self, device=None) -> None:
         if self.on:
             return
-        from nersemble_tpu_torch.ops import launch_counts
-
-        self._launches = launch_counts.read
         device = torch.device(device if device is not None else
                               ("cuda" if torch.cuda.is_available() else "cpu"))
         self.cuda = device.type == "cuda"
@@ -279,8 +277,6 @@ class Tracer:
     # -- out -------------------------------------------------------------------
 
     def counters(self) -> Dict[str, float]:
-        from nersemble_tpu_torch.ops import launch_counts
-
         with self._lock:
             out = dict(self._counts)
             tallies = dict(self._tallies)

@@ -21,7 +21,7 @@ the plain version's order), the table gradient within one table-dtype ulp
 plus the f32 error bound of its rows summed in two orders
 (``compare_table_grads``); the backward twice, bit for bit; every row
 width the port runs, the forward without residuals, no samples, and the
-backward with its side stream against its parts run in turn. On the CPU
+backward against its parts run in turn (``BlendedBwdPlan.parts``). On the CPU
 also the forward's combination of table runs (a binary counter) against
 ``_sum_tables``, bit for bit. JAX is imported only by the CPU parity
 tests, so that the card, which has no JAX, collects this file:
@@ -35,6 +35,7 @@ import torch
 from nersemble_tpu_torch.config import flagship_model_config
 from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
 from nersemble_tpu_torch.ops import hash_encoding as the
+from nersemble_tpu_torch.ops import launch_counts
 from nersemble_tpu_torch.ops.quad_kernel import quad_build_plain
 
 LEVELS = (6, 10, 4, 1.5)  # dense and 1024-row hashed levels (tests/test_ops.py)
@@ -328,7 +329,7 @@ def test_cpu_trainer_launches_no_encode_kernel(monkeypatch):
     monkeypatch.setattr(the, "blended_encode_bwd_plain", bwd)
     monkeypatch.setattr(the, "blended_encode_fwd_cuda", refuse)
     monkeypatch.setattr(the, "blended_encode_bwd_cuda", refuse)
-    before = (the.LAUNCHES, the.BWD_LAUNCHES)
+    before = launch_counts.read()
     trainer = NeRSembleTrainer(flagship_model_config(tiny=True), n_rays=64,
                                device="cpu")
     rng = np.random.default_rng(0)
@@ -343,7 +344,7 @@ def test_cpu_trainer_launches_no_encode_kernel(monkeypatch):
     total, _ = trainer.run_step(0, batch)
     assert np.isfinite(float(total))
     assert calls["fwd"] > 0 and calls["bwd"] > 0
-    assert (the.LAUNCHES, the.BWD_LAUNCHES) == before
+    assert launch_counts.read() == before
 
 
 # ---- on the card -------------------------------------------------------------
@@ -386,7 +387,7 @@ def _card_case(device, levels, width, fl, with_code, dtype, n_samples, seed,
 def _hold_kernels(args, gbar):
     """Both kernels once against the plain version (one launch each)."""
     quad, code, wy, fx, fz, entry_idx = args[:6]
-    before = (the.LAUNCHES, the.BWD_LAUNCHES)
+    before = launch_counts.read()
     ours = the.blended_encode_fwd_cuda(*args)
     refs = the.blended_encode_fwd_plain(*args)
     the.compare_to_plain(ours, refs, ("out", "CG", "BH"))
@@ -398,7 +399,9 @@ def _hold_kernels(args, gbar):
     g_refs = the.blended_encode_bwd_plain(gbar, *refs[1:], code, entry_idx, wy, fx,
                                           fz, tuple(quad.shape))
     torch.cuda.synchronize()
-    assert (the.LAUNCHES, the.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    after = launch_counts.read()
+    assert [after[k] - before[k] for k in ("blended_encode_fwd", "blended_encode_bwd")] \
+        == [1, 1]
     the.compare_to_plain(g_ours[1:], g_refs[1:], ("d_code", "d_wy", "d_fx", "d_fz"))
     the.compare_table_grads(g_ours[0], g_refs[0], *the.table_grad_mass(
         gbar, code, entry_idx, wy, fx, fz, tuple(quad.shape), quad.dtype))
@@ -468,21 +471,20 @@ def test_kernel_backward_is_bit_for_bit(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [CARD_CASES[0], CARD_CASES[4]])
-def test_kernel_backward_side_stream_is_bit_for_bit(cuda, case):
-    """The hot-entry case with the table gradient zeroed on the side stream
-    while the sort and the per-sample kernel run (the wrapper) against the
-    same parts one after another on the current stream."""
+def test_kernel_backward_equals_its_parts_bit_for_bit(cuda, case):
+    """The hot-entry case: the wrapper's outputs against its parts
+    (``BlendedBwdPlan.parts``, as chip_smoke.py times them) run in turn on
+    the current stream, bit for bit."""
     _, args, gbar = _card_case(cuda, *case, 20000, seed=7, hot=True)
     quad, code, wy, fx, fz, entry_idx = args[:6]
     _, CG, BH = the.blended_encode_fwd_cuda(*args)
     shape = tuple(quad.shape)
     ours = the.blended_encode_bwd_cuda(gbar, CG, BH, code, entry_idx, wy, fx, fz, shape)
     plan = the.BlendedBwdPlan(gbar, CG, BH, code, entry_idx, wy, fx, fz, shape)
-    plan.zero(torch.cuda.current_stream())
-    plan.sort()
-    plan.sample()
-    plan.chunks()
-    plan.spans()
+    parts = plan.parts()
+    assert list(parts) == ["sort", "sample", "memset", "chunk", "span"]
+    for part in parts.values():
+        part()
     torch.cuda.synchronize()
     for a, b in zip(ours, plan.outputs()):
         assert (a is None and b is None) or torch.equal(a, b)
@@ -492,12 +494,14 @@ def test_kernel_backward_side_stream_is_bit_for_bit(cuda, case):
 def test_autograd_routes_to_the_kernels(cuda):
     lv, args, gbar = _card_case(cuda, *CARD_CASES[0], 512, seed=11)
     quad = args[0].detach().clone().requires_grad_(True)
-    before = (the.LAUNCHES, the.BWD_LAUNCHES)
+    before = launch_counts.read()
     x = torch.rand(512, 3, device=cuda, requires_grad=True)
     code = torch.rand(512, 32, device=cuda, requires_grad=True)
     the.hash_encode_blended(quad, x, code, lv, 2).backward(gbar)
     torch.cuda.synchronize()
-    assert (the.LAUNCHES, the.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    after = launch_counts.read()
+    assert [after[k] - before[k] for k in ("blended_encode_fwd", "blended_encode_bwd")] \
+        == [1, 1]
     assert quad.grad.dtype == quad.dtype and x.grad is not None and code.grad is not None
 
 

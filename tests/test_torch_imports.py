@@ -12,6 +12,7 @@ import re
 import subprocess
 import sys
 import textwrap
+from types import SimpleNamespace
 
 import pytest
 from torch_parity import REPO
@@ -72,6 +73,38 @@ def test_imports_without_jax_and_yaml():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_launch_counts_and_the_tracer_import_no_kernel_wrapper():
+    """The launch counters and the tracer sit below the kernel wrappers:
+    every wrapper imports them, neither imports a wrapper."""
+    code = ("import sys\n"
+            "import nersemble_tpu_torch.ops.launch_counts\n"
+            "import nersemble_tpu_torch.utils.spans\n"
+            "print(*sorted(m for m in sys.modules "
+            "if m.startswith('nersemble_tpu_torch.ops.')))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["nersemble_tpu_torch.ops.launch_counts"]
+
+
+def test_cuda_lib_run_raises_with_the_entry_name(monkeypatch):
+    """``cuda_lib.run`` calls the library's entry with its arguments and
+    raises, naming the entry, on a nonzero status."""
+    from nersemble_tpu_torch.ops import cuda_lib
+
+    statuses, calls = [0, 700], []
+
+    def entry(*args):
+        calls.append(args)
+        return statuses.pop(0)
+
+    monkeypatch.setattr(cuda_lib, "_library", SimpleNamespace(quad_fold=entry))
+    cuda_lib.run("quad_fold", 1, 2)
+    with pytest.raises(RuntimeError, match=r"^quad_fold: CUDA error 700 "):
+        cuda_lib.run("quad_fold", 3, 4)
+    assert calls == [(1, 2), (3, 4)]
 
 
 def test_no_source_imports_jax_or_the_jax_package():

@@ -16,7 +16,7 @@ import chip_smoke
 
 from nersemble_tpu_torch.config import flagship_model_config
 from nersemble_tpu_torch.models.nersemble import NeRSembleModel
-from nersemble_tpu_torch.ops import copy_kernels
+from nersemble_tpu_torch.ops import copy_kernels, launch_counts
 from nersemble_tpu_torch.ops import fused_mlp as tfm
 from nersemble_tpu_torch.ops import quad_kernel
 from nersemble_tpu_torch.ops.hash_encoding import HashGridLevels
@@ -63,10 +63,10 @@ def test_fused_mlp_kernel_matches_plain(cuda, d_in, d_out, n_layers, width,
     g = torch.Generator(device=cuda).manual_seed(0)
     params = ParamTree(init_mlp(g, d_in, d_out, n_layers, width, skips, bias))
     x = torch.randn(rows, d_in, generator=g, device=cuda)
-    before = tfm.LAUNCHES
+    before = launch_counts.read()["fused_mlp_fwd"]
     out = tfm.fused_mlp_apply(params, x, out_act, torch.bfloat16, skips)
     torch.cuda.synchronize()
-    assert tfm.LAUNCHES == before + 1
+    assert launch_counts.read()["fused_mlp_fwd"] == before + 1
     ref = tfm.fused_mlp_plain(params, x, out_act, torch.bfloat16, skips)
     assert out.shape == (rows, d_out) and out.dtype == torch.float32
     tfm.compare_to_plain(out, ref)  # the tolerance stated in ops/fused_mlp.py
@@ -149,10 +149,10 @@ def test_fused_mlp_bwd_kernel_matches_plain(cuda, d_in, d_out, n_layers, width,
                                               skips, bias)), g)
     x = tfm.positive_input(rows, d_in, g)
     gy = tfm.positive_input(rows, d_out, g)
-    before = tfm.BWD_LAUNCHES
+    before = launch_counts.read()["fused_mlp_bwd"]
     out = tfm.fused_mlp_bwd_cuda(params, x, gy, out_act, skips)
     torch.cuda.synchronize()
-    assert tfm.BWD_LAUNCHES == before + 1
+    assert launch_counts.read()["fused_mlp_bwd"] == before + 1
     ref = tfm.fused_mlp_bwd_plain(params, x, gy, out_act, torch.bfloat16, skips)
     assert out[0].shape == (rows, d_in)
     assert [tuple(w.shape) for w in out[1]] == [tuple(w.shape) for w in ref[1]]
@@ -186,11 +186,12 @@ def test_fused_mlp_autograd_launches_both_kernels(cuda):
         p.requires_grad_(True)
     x = tfm.positive_input(3000, 173, g).requires_grad_(True)
     gy = tfm.positive_input(3000, 128, g)
-    before = (tfm.LAUNCHES, tfm.BWD_LAUNCHES)
+    before = launch_counts.read()
     out = tfm.fused_mlp_apply(params, x, "relu", torch.bfloat16, (4,))
     out.backward(gy)
     torch.cuda.synchronize()
-    assert (tfm.LAUNCHES, tfm.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    after = launch_counts.read()
+    assert [after[k] - before[k] for k in ("fused_mlp_fwd", "fused_mlp_bwd")] == [1, 1]
     ref = tfm.fused_mlp_bwd_plain(params, x.detach(), gy, "relu",
                                   torch.bfloat16, (4,))
     layers = params.layers
@@ -221,10 +222,10 @@ def test_quad_build_kernel_is_bit_exact(cuda, layout, width, dtype):
     g = torch.Generator(device=cuda).manual_seed(1)
     table = torch.randn(levels.total_entries, width, generator=g,
                         device=cuda).to(dtype)
-    before = quad_kernel.LAUNCHES
+    before = launch_counts.read()["quad_build"]
     out = quad_kernel.quad_build(table, levels)
     torch.cuda.synchronize()
-    assert quad_kernel.LAUNCHES == before + 1
+    assert launch_counts.read()["quad_build"] == before + 1
     assert torch.equal(out, quad_kernel.quad_build_plain(table, levels))
 
 
@@ -239,10 +240,10 @@ def test_quad_fold_kernel_is_bit_exact(cuda, layout, width, dtype):
     g = torch.Generator(device=cuda).manual_seed(4)
     grad = torch.randn(levels.total_entries, 4 * width, generator=g,
                        device=cuda).to(dtype)
-    before = quad_kernel.FOLD_LAUNCHES
+    before = launch_counts.read()["quad_fold"]
     out = quad_kernel.quad_fold(grad, levels)
     torch.cuda.synchronize()
-    assert quad_kernel.FOLD_LAUNCHES == before + 1
+    assert launch_counts.read()["quad_fold"] == before + 1
     assert out.shape == (levels.total_entries, width) and out.dtype == dtype
     assert torch.equal(out, quad_kernel.quad_fold_plain(grad, levels))
 
@@ -265,12 +266,12 @@ def test_quad_kernels_take_narrow_rows(cuda, layout, dtype):
                         device=cuda).to(dtype)
     grad = torch.randn(levels.total_entries, 8, generator=g,
                        device=cuda).to(dtype)
-    before = (quad_kernel.LAUNCHES, quad_kernel.FOLD_LAUNCHES)
+    before = launch_counts.read()
     out = quad_kernel.quad_build(table, levels)
     folded = quad_kernel.quad_fold(grad, levels)
     torch.cuda.synchronize()
-    assert (quad_kernel.LAUNCHES, quad_kernel.FOLD_LAUNCHES) == \
-        (before[0] + 1, before[1] + 1)
+    after = launch_counts.read()
+    assert [after[k] - before[k] for k in ("quad_build", "quad_fold")] == [1, 1]
     assert torch.equal(out, quad_kernel.quad_build_plain(table, levels))
     assert torch.equal(folded, quad_kernel.quad_fold_plain(grad, levels))
 
@@ -314,8 +315,8 @@ def test_quad_kernels_at_every_width(cuda, layout, dtype, row_bytes):
     g = torch.Generator(device=cuda).manual_seed(row_bytes)
     table = torch.randn(levels.total_entries, width, generator=g,
                         device=cuda).to(dtype)
-    before = (quad_kernel.LAUNCHES, quad_kernel.FOLD_LAUNCHES,
-              quad_kernel.NARROW_LAUNCHES, quad_kernel.NARROW_FOLD_LAUNCHES)
+    names = ("quad_build", "quad_fold", "quad_build narrow", "quad_fold narrow")
+    before = launch_counts.read(names)
     out = quad_kernel.quad_build(table, levels)
     torch.cuda.synchronize()
     assert torch.equal(out, quad_kernel.quad_build_plain(table, levels))
@@ -326,9 +327,8 @@ def test_quad_kernels_at_every_width(cuda, layout, dtype, row_bytes):
     torch.cuda.synchronize()
     assert torch.equal(folded, quad_kernel.quad_fold_plain(grad, levels))
     narrow = row_bytes in (4, 8)
-    assert (quad_kernel.LAUNCHES, quad_kernel.FOLD_LAUNCHES,
-            quad_kernel.NARROW_LAUNCHES, quad_kernel.NARROW_FOLD_LAUNCHES) == \
-        (before[0] + 1, before[1] + 1, before[2] + narrow, before[3] + narrow)
+    after = launch_counts.read(names)
+    assert [after[k] - before[k] for k in names] == [1, 1, narrow, narrow]
 
 
 @pytest.mark.parametrize("layout", ["tiny", "padded", "cli tiny", "single grid",
@@ -342,11 +342,12 @@ def test_quad_kernels_on_two_byte_rows(cuda, layout):
     g = torch.Generator(device=cuda).manual_seed(2)
     table = torch.randn(levels.total_entries, 1, generator=g, device=cuda).to(torch.bfloat16)
     grad = torch.randn(levels.total_entries, 4, generator=g, device=cuda).to(torch.bfloat16)
-    before = (quad_kernel.NARROW_LAUNCHES, quad_kernel.NARROW_FOLD_LAUNCHES)
+    names = ("quad_build narrow", "quad_fold narrow")
+    before = launch_counts.read(names)
     out, folded = quad_kernel.quad_build(table, levels), quad_kernel.quad_fold(grad, levels)
     torch.cuda.synchronize()
-    assert (quad_kernel.NARROW_LAUNCHES, quad_kernel.NARROW_FOLD_LAUNCHES) == \
-        (before[0] + 1, before[1] + 1)
+    after = launch_counts.read(names)
+    assert [after[k] - before[k] for k in names] == [1, 1]
     assert torch.equal(out, quad_kernel.quad_build_plain(table, levels))
     assert torch.equal(folded, quad_kernel.quad_fold_plain(grad, levels))
     if layout == "single grid":
@@ -378,13 +379,12 @@ def test_train_step_on_cuda_matches_cpu(cuda):
     params = add_contrast(NeRSembleModel(cfg, "cpu").init_params(
         torch.Generator().manual_seed(0)))
     ref_losses, ref_grads = chip_smoke.tiny_train_grads(cfg, params, "cpu")
-    before = (tfm.LAUNCHES, tfm.BWD_LAUNCHES, quad_kernel.LAUNCHES,
-              quad_kernel.FOLD_LAUNCHES)
+    names = ("fused_mlp_fwd", "fused_mlp_bwd", "quad_build", "quad_fold")
+    before = launch_counts.read(names)
     losses, grads = chip_smoke.tiny_train_grads(cfg, params, cuda)
     torch.cuda.synchronize()
-    after = (tfm.LAUNCHES, tfm.BWD_LAUNCHES, quad_kernel.LAUNCHES,
-             quad_kernel.FOLD_LAUNCHES)
-    assert all(a > b for a, b in zip(after, before)), (before, after)
+    after = launch_counts.read(names)
+    assert all(after[k] > before[k] for k in names), (before, after)
     assert losses.keys() == ref_losses.keys() and len(losses) == 6
     for k in losses:
         assert losses[k] == pytest.approx(ref_losses[k],
@@ -418,11 +418,12 @@ def test_render_rays_on_cuda_matches_cpu(cuda):
             "timesteps": torch.from_numpy(rng.integers(0, 8, 256))}
     sched = {"window_deform": 7.0, "window_hash": 8.0}
     ref = cpu_model.render_rays(params, rays, cpu_model.binaries(occ), sched)
-    before = (tfm.LAUNCHES, quad_kernel.LAUNCHES)
+    before = launch_counts.read()
     out = gpu_model.render_rays(params.to(cuda),
                                 {k: v.to(cuda) for k, v in rays.items()},
                                 gpu_model.binaries(occ.to(cuda)), sched)
-    assert tfm.LAUNCHES > before[0] and quad_kernel.LAUNCHES > before[1]
+    after = launch_counts.read()
+    assert all(after[k] > before[k] for k in ("fused_mlp_fwd", "quad_build"))
     assert float(ref["accumulation"].max()) > 0.01
     assert float(ref["deformation"].abs().max()) > 1e-4
     for key in ("rgb", "depth", "accumulation", "deformation"):
@@ -450,10 +451,10 @@ def test_gather_rows_kernel_is_bit_exact(cuda, entries, width, rows, depth,
     table = torch.randn(entries, width, generator=g, device=cuda).to(dtype)
     idx = torch.randint(0, entries, (rows,), generator=g, device=cuda,
                         dtype=idx_dtype)
-    before = copy_kernels.GATHER_LAUNCHES
+    before = launch_counts.read(launch_counts.COPIES)["gather_rows"]
     out = copy_kernels.gather_rows_cuda(table, idx, depth)
     torch.cuda.synchronize()
-    assert copy_kernels.GATHER_LAUNCHES == before + 1
+    assert launch_counts.read(launch_counts.COPIES)["gather_rows"] == before + 1
     assert torch.equal(out, copy_kernels.gather_rows_plain(table, idx))
 
 
@@ -486,14 +487,14 @@ def test_copy_ladder_kernels_are_bit_exact(cuda, rows, width, block, dtype):
     seven = [torch.randn(rows, width, generator=g, device=cuda).to(dtype)
              for _ in range(7)]
     x = seven[0]
-    before = copy_kernels.counts()
+    before = launch_counts.read(launch_counts.COPIES)
     assert torch.equal(copy_kernels.copy_cuda(x, block), copy_kernels.copy_plain(x))
     assert torch.equal(copy_kernels.bcast_quarters_cuda(x, block),
                        copy_kernels.bcast_quarters_plain(x))
     assert torch.equal(copy_kernels.fetch7_cuda(*seven, block=block),
                        copy_kernels.fetch7_plain(*seven))
     torch.cuda.synchronize()
-    after = copy_kernels.counts()
+    after = launch_counts.read(launch_counts.COPIES)
     assert [after[k] - before[k] for k in ("copy", "bcast_quarters", "fetch7")] \
         == [1, 1, 1]
 
@@ -504,10 +505,10 @@ def test_copy_kernel_copies_past_2_gib(cuda):
     rows = (2 ** 31) // 128 + 2048 + 7
     g = torch.Generator(device=cuda).manual_seed(9)
     x = torch.randn(rows, 64, generator=g, device=cuda).to(torch.bfloat16)
-    before = copy_kernels.COPY_LAUNCHES
+    before = launch_counts.read(launch_counts.COPIES)["copy"]
     out = copy_kernels.copy_cuda(x)
     torch.cuda.synchronize()
-    assert copy_kernels.COPY_LAUNCHES == before + 1
+    assert launch_counts.read(launch_counts.COPIES)["copy"] == before + 1
     assert x.numel() * x.element_size() > 2 ** 31
     assert torch.equal(out, x)
 
@@ -572,12 +573,11 @@ def test_train_cli_on_cuda_matches_cpu(cuda, capture):
     loss tolerance; the four train-path kernels launch on the card."""
     from nersemble_tpu_torch.scripts import train_nersemble
     cpu = train_nersemble.main(TINY_CLI + ["--device", "cpu", "--name", "cpu"])
-    before = (tfm.LAUNCHES, tfm.BWD_LAUNCHES, quad_kernel.LAUNCHES,
-              quad_kernel.FOLD_LAUNCHES)
+    names = ("fused_mlp_fwd", "fused_mlp_bwd", "quad_build", "quad_fold")
+    before = launch_counts.read(names)
     gpu = train_nersemble.main(TINY_CLI + ["--name", "gpu"])
-    after = (tfm.LAUNCHES, tfm.BWD_LAUNCHES, quad_kernel.LAUNCHES,
-             quad_kernel.FOLD_LAUNCHES)
-    assert all(a > b for a, b in zip(after, before)), (before, after)
+    after = launch_counts.read(names)
+    assert all(after[k] > before[k] for k in names), (before, after)
     losses = {}
     for name in ("cpu", "gpu"):
         path = capture / "models" / "nersemble" / f"NERS-00{1 + (name == 'gpu')}-{name}"
@@ -704,8 +704,6 @@ def test_fused_adam_kernel_matches_plain_over_three_steps(cuda, case):
     the card) by the kernel and by the plain update from the same start:
     parameters and both moments bit for bit, no synchronising call, the
     expected launches."""
-    from nersemble_tpu_torch.ops import fused_adam
-
     params, state, key_to_group, kw, per_step = _adam_case(case, cuda)
     state = chip_smoke.adam_steps(params, state, key_to_group, plain=True, **kw)
     want = [t.clone() for tree in (params, state.mu, state.nu) for t in tree.parameters()]
@@ -713,7 +711,7 @@ def test_fused_adam_kernel_matches_plain_over_three_steps(cuda, case):
     params, state, key_to_group, kw, per_step = _adam_case(case, cuda)
     trees = (params, state.mu, state.nu)
     versions = [t._version for tree in trees for t in tree.parameters()]
-    before = fused_adam.LAUNCHES
+    before = launch_counts.read()["fused_adam"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -721,7 +719,7 @@ def test_fused_adam_kernel_matches_plain_over_three_steps(cuda, case):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert fused_adam.LAUNCHES == before + chip_smoke.ADAM_STEPS * per_step
+    assert launch_counts.read()["fused_adam"] == before + chip_smoke.ADAM_STEPS * per_step
     assert int(state.count) == chip_smoke.ADAM_STEPS
     got = [t for tree in (params, state.mu, state.nu) for t in tree.parameters()]
     assert len(got) == len(want)
@@ -785,10 +783,10 @@ def test_time_code_kernel_matches_float64_sums(cuda, d, t_rows, n, index_dtype, 
 
     g, idx = chip_smoke.time_code_inputs(n, t_rows, d, 32, cuda, seed=n + d)
     grad = _tc_grad(g, layout)
-    before = time_code.LAUNCHES
+    before = launch_counts.read()["time_code_bwd"]
     out = time_code.time_code_bwd_cuda(grad, idx.to(index_dtype), t_rows)
     torch.cuda.synchronize()
-    assert time_code.LAUNCHES == before + 1
+    assert launch_counts.read()["time_code_bwd"] == before + 1
     assert out.shape == (t_rows, d) and out.dtype == torch.float32
     chip_smoke.time_code_check(out, g, idx, t_rows, chip_smoke.time_code_gamma(n, t_rows, d))
     if n == 0:
@@ -859,7 +857,7 @@ def test_time_code_gather_on_the_card(cuda):
     for idx in (torch.randint(0, 16, (4096,), generator=gen, device=cuda),
                 torch.randint(0, 16, (64, 32), generator=gen, device=cuda).int()):
         g = torch.randn(*idx.shape, 128, generator=gen, device=cuda)
-        before = time_code.LAUNCHES
+        before = launch_counts.read()["time_code_bwd"]
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -867,7 +865,7 @@ def test_time_code_gather_on_the_card(cuda):
             (grad,) = torch.autograd.grad(rows, weight, g)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        assert time_code.LAUNCHES == before + 1
+        assert launch_counts.read()["time_code_bwd"] == before + 1
         assert torch.equal(rows, weight[idx])
         assert torch.equal(grad, time_code.time_code_bwd_cuda(g, idx, 16))
 

@@ -18,7 +18,7 @@ from chip_smoke import tiny_config
 from nersemble_tpu_torch.data.ray_batcher import DeviceBatches
 from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
 from nersemble_tpu_torch.engine.writer import MetricsWriter
-from nersemble_tpu_torch.ops import launch_counts, quad_kernel
+from nersemble_tpu_torch.ops import launch_counts
 from nersemble_tpu_torch.utils import spans
 
 # the spans of a step on one device (train:reduce needs a mesh; render:sigma_probe
@@ -184,16 +184,15 @@ def test_host_syncs_count_the_log_and_budget_reads_at_their_sites(tmp_path):
     assert logged["train_loss"] == float(total)
 
 
-def test_span_launches_match_the_launch_counters(monkeypatch):
-    for module, counter in launch_counts.COUNTERS.values():
-        monkeypatch.setattr(module, counter, 0)
+def test_span_launches_match_the_launch_counters():
+    launch_counts.reset()
     spans.enable("cpu")
     # a host-only span open meanwhile (the prefetch thread's): no launches
     build = spans.span("data:build", step=4, device=False).open(stacked=False)
     with spans.span("train:backward", step=3):
         with spans.span("bwd:quad_fold"):
-            quad_kernel.FOLD_LAUNCHES += 2
-        quad_kernel.LAUNCHES += 1
+            launch_counts.add("quad_fold", 2)
+        launch_counts.add("quad_build")
     build.close()
     spans.disable()
     exported = {s["name"]: s for s in spans.export()["spans"]}

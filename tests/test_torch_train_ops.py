@@ -435,7 +435,7 @@ def test_adam_plan_covers_every_element_once(offsets, numel, g_bytes, expected):
 
 
 def test_adam_update_takes_the_plain_path_on_cpu():
-    from nersemble_tpu_torch.ops import fused_adam
+    from nersemble_tpu_torch.ops import fused_adam, launch_counts
 
     rng = np.random.default_rng(3)
     leaves, ref = [], []
@@ -446,9 +446,9 @@ def test_adam_update_takes_the_plain_path_on_cpu():
         leaves.append((p, g, mu, nu, lr))
         ref.append(tuple(x.clone() for x in (p, g, mu, nu)) + (lr,))
     c1, c2 = torch.tensor(0.271), torch.tensor(0.00299)
-    before = fused_adam.LAUNCHES
+    before = launch_counts.read()["fused_adam"]
     fused_adam.adam_update(leaves, c1, c2, 0.9, 0.999, 1e-15)
-    assert fused_adam.LAUNCHES == before
+    assert launch_counts.read()["fused_adam"] == before
     for (p, _, mu, nu, _), (rp, rg, rmu, rnu, lr) in zip(leaves, ref):
         fused_adam.adam_update_plain(rp, rg, rmu, rnu, lr, c1, c2, 0.9, 0.999, 1e-15)
         for mine, theirs in ((p, rp), (mu, rmu), (nu, rnu)):
