@@ -430,6 +430,12 @@ TIME_CODE_CASES = [("nersemble.train step", 131072, 32),
                    ("nersemble_seq97.train chunk", 93184, 91)]
 TIME_CODE_KERNELS = ("tc_rows_kernel", "tc_sum_kernel")
 TIME_CODE_BUDGET = 131072  # nersemble.train's: 0.125 of 4096 rays x 256 slots
+# the SE(3) warp's kernels (phase 3e, tests/test_torch_se3_warp.py): a field
+# chunk of each cell; the window at a partial value; the head's r at the
+# scale of a trained field's (~1e-2)
+SE3_WARP_CASES = [("nersemble.train chunk", 65536), ("nersemble_seq97.train chunk", 93184)]
+SE3_WARP_KERNELS = ("warp_input", "se3_warp_fwd", "se3_warp_bwd")
+SE3_WARP_WINDOW, SE3_WARP_R_SCALE = 3.37, 1e-2
 # the sequence phase: the train CLI at its flagship defaults on a synthetic
 # capture, 49 steps with the schedule windows inside the run, resumed to 53
 SEQ_NAME, SEQ_PARTICIPANT, SEQ_SEQUENCE = "seq", 30, "SYN-SEQ"
@@ -1743,6 +1749,169 @@ def time_code_phase(cfg, device) -> dict:
     torch.cuda.empty_cache()
     first = f"{TIME_CODE_CASES[0][0]} D={TIME_CODE_WIDTHS[-1]}"
     return {"time_code_bwd": {**results[first], "case": first, "cases": results}}
+
+
+def se3_warp_inputs(n: int, dcfg, device):
+    """Seeded inputs of the warp at ``n`` rows: positions (a tenth outside
+    the box), the warp code, the head's output [n, 128] (r at
+    SE3_WARP_R_SCALE) and the offsets' gradient."""
+    import torch
+    from nersemble_tpu_torch.models.deformation import HEAD_PAD
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    pos = torch.rand(n, 3, generator=gen, device=device) * 1.2 - 0.1
+    code = torch.randn(n, dcfg.warp_code_dim, generator=gen, device=device)
+    head = torch.randn(n, HEAD_PAD, generator=gen, device=device) * 1e-2
+    head[:, 3:6] *= SE3_WARP_R_SCALE / 1e-2
+    g = torch.randn(n, 3, generator=gen, device=device)
+    return pos, code, head, g
+
+
+def chain_screw_grad(screw, pos, g):
+    """Autograd's gradient of the guarded chain's offsets (ops/se3_warp.py
+    ``se3_offsets_plain``) with respect to the screw [N, 6], in ``screw``'s
+    dtype."""
+    from nersemble_tpu_torch.ops.se3_warp import se3_offsets_plain
+
+    leaf = screw.detach().clone().requires_grad_(True)
+    se3_offsets_plain(leaf, pos).backward(g)
+    return leaf.grad
+
+
+def se3_warp_phase(cfg, device) -> dict:
+    """Phase 3e: the SE(3) warp's three kernels at a field chunk of each
+    cell against the chain they replace; each timed by CUDA events and by its
+    device time against its bytes over the memory rate; the chain they
+    replace (``windowed_posenc`` and the concatenation, the guard and
+    ``se3_apply``, autograd's backward) and the kernels' chain, forward and
+    backward, by the host's issue time and by CUDA events; then their
+    launches in one flagship step and in an occupancy update."""
+    import torch
+    from nersemble_tpu_torch.bench import LRS
+    from nersemble_tpu_torch.config import OptimizerConfig
+    from nersemble_tpu_torch.engine.trainer import NeRSembleTrainer
+    from nersemble_tpu_torch.ops import launch_counts
+    from nersemble_tpu_torch.ops import se3_warp as sw
+    from nersemble_tpu_torch.ops.posenc import windowed_posenc
+    from nersemble_tpu_torch.utils.bench_data import bench_batch, bench_grid
+    from nersemble_tpu_torch.utils.timing import bound_ms, cuda_time_ms
+
+    dcfg = cfg.deformation_field
+    f, d, w = dcfg.n_freq_pos, dcfg.warp_code_dim, SE3_WARP_WINDOW
+    results = {}
+    for what, n in SE3_WARP_CASES:
+        pos, code, head, g = se3_warp_inputs(n, dcfg, device)
+        width = head.shape[1]
+        stem = sw.warp_input_cuda(pos, code, f, w)
+        stem_ref = torch.cat([windowed_posenc(pos, f, min_freq_exp=0.0, max_freq_exp=f - 1,
+                                              include_input=True, window_param=w), code], dim=-1)
+        stem_f32 = float((stem - stem_ref).abs().max())
+        if not torch.equal(stem.to(torch.bfloat16), stem_ref.to(torch.bfloat16)):
+            raise AssertionError(f"se3 warp {what}: the stem's input differs after bf16 "
+                                 f"rounding (f32 gap {stem_f32:.3g})")
+        off, screw = sw.se3_warp_fwd_cuda(head, pos)
+        off_gap = float((off - sw.se3_offsets_plain(head[:, :6], pos)).abs().max())
+        dhead = sw.se3_warp_bwd_cuda(g, screw, pos, width)
+        # autograd of the chain, held to tests/test_torch_se3_warp.py's
+        # tolerance: 1e-5 (1 + |ref|) and a quarter of the f32 chain's largest
+        # error against float64 in the column
+        ref_g, truth = (chain_screw_grad(head[:, :6].to(t), pos.to(t), g.to(t))
+                        for t in (torch.float32, torch.float64))
+        tol = 1e-5 * (1 + ref_g.abs()) + 0.25 * (ref_g - truth).abs().amax(dim=0).float()
+        bwd_gap = float(((dhead[:, :6] - ref_g).abs() / tol).max())
+        if off_gap > 1e-6 or bwd_gap > 1 or not torch.equal(screw, head[:, :6]) \
+                or (dhead[:, 6:] != 0).any():
+            raise AssertionError(f"se3 warp {what}: offsets {off_gap:.3g}, head's "
+                                 f"gradient {bwd_gap:.3g} of its tolerance from the chain's")
+        calls = {"warp_input": lambda: sw.warp_input_cuda(pos, code, f, w),
+                 "se3_warp_fwd": lambda: sw.se3_warp_fwd_cuda(head, pos),
+                 "se3_warp_bwd": lambda: sw.se3_warp_bwd_cuda(g, screw, pos, width)}
+        # bytes: f32 reads and writes; the head's 6 columns one 32-byte sector
+        moved = {"warp_input": 4 * n * (3 + d + 6 * f + 3 + d),
+                 "se3_warp_fwd": n * (32 + 12 + 12 + 24),
+                 "se3_warp_bwd": n * (12 + 24 + 12 + 4 * width)}
+        case = {"f32_gap_stem": stem_f32, "offsets_gap": off_gap, "bwd_gap_of_tol": bwd_gap}
+        for kernel, call in calls.items():
+            ms = cuda_time_ms(call, iters=20)
+            dev = kernel_device_ms(call, f"{kernel}_kernel")
+            bound = bound_ms(moved[kernel])
+            case[kernel] = {"ms": ms, "device_ms": dev, "bound_ms": bound[0],
+                            "bound_share": bound[0] / dev}
+            log("se3 warp", f"{what}: {kernel} {ms:.4f} ms by CUDA events, device "
+                            f"{dev:.4f}; bound {bound[0]:.4f} ms ({bound[1]}; "
+                            f"{100 * bound[0] / dev:.1f}% of it by device time)")
+        leaf = head.detach().clone().requires_grad_(True)
+        leaf_code = code.detach().clone().requires_grad_(True)
+
+        def plain_chain():
+            enc = windowed_posenc(pos, f, min_freq_exp=0.0, max_freq_exp=f - 1,
+                                  include_input=True, window_param=w)
+            stem_in = torch.cat([enc, leaf_code], dim=-1)
+            off = sw.se3_offsets_plain(leaf[:, :6].to(torch.float32), pos)
+            torch.autograd.backward([off, stem_in], [g, stem_in.detach()])
+
+        def kernel_chain():
+            stem_in = sw.warp_input(pos, leaf_code, f, w)
+            off = sw.se3_offsets(leaf, pos)
+            torch.autograd.backward([off, stem_in], [g, stem_in.detach()])
+
+        for name, chain in (("plain chain", plain_chain), ("kernels' chain", kernel_chain)):
+            chain()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(20):
+                chain()
+            host_ms = (time.perf_counter() - start) * 1e3 / 20
+            torch.cuda.synchronize()
+            ms = cuda_time_ms(chain, iters=20)
+            case[name] = {"host_ms": host_ms, "ms": ms}
+            log("se3 warp", f"{what}: {name} forward and backward: host {host_ms:.3f} ms "
+                            f"a call to issue, {ms:.3f} ms by CUDA events")
+        log("se3 warp", f"{what}: stem input f32 gap {stem_f32:.3g} (bf16 equal), offsets "
+                        f"gap {off_gap:.3g}, head's gradient {bwd_gap:.3g} of its tolerance "
+                        f"from autograd of the chain")
+        results[what] = case
+        del pos, code, head, g, stem, stem_ref, off, screw, dhead, ref_g, truth, tol, leaf
+        del leaf_code
+
+    optimizers = {name: OptimizerConfig(lr=lr, scheduler_gamma=1.0)
+                  for name, lr in LRS.items()}
+    trainer = NeRSembleTrainer(cfg, TRAIN_RAYS, optimizers, seed=SEED, device=device,
+                               grid_occs=bench_grid(cfg.grid_resolution).to(device))
+    trainer._budget = TIME_CODE_BUDGET
+    batch = bench_batch(TRAIN_RAYS, cfg.n_timesteps, cfg.grid_resolution, device)
+    step0 = cfg.window_hash_encodings_end + 1  # off the update and budget cadences
+    trainer.run_step(step0, batch)
+    counted = {}
+    for what, run in (("step", lambda: trainer.run_step(step0 + 1, batch)),
+                      ("occupancy update", lambda: trainer.maybe_update_occupancy(
+                          step0 - 1 + 16))):
+        torch.cuda.synchronize()
+        before = launch_counts.read(SE3_WARP_KERNELS)
+        run()
+        torch.cuda.synchronize()
+        counted[what] = {k: n - before[k]
+                         for k, n in launch_counts.read(SE3_WARP_KERNELS).items()}
+    log("se3 warp", f"launches in one flagship step at a budget of {TIME_CODE_BUDGET}: "
+                    f"{counted['step']}; in an occupancy update: "
+                    f"{counted['occupancy update']}")
+    if counted["step"] != dict.fromkeys(SE3_WARP_KERNELS, 2):
+        raise AssertionError(f"a flagship step launched the warp kernels "
+                             f"{counted['step']} times, not 2 each (2 field chunks)")
+    if counted["occupancy update"]["se3_warp_bwd"] != 0 \
+            or counted["occupancy update"]["se3_warp_fwd"] <= 0:
+        raise AssertionError(f"an occupancy update launched {counted['occupancy update']}")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    first = SE3_WARP_CASES[0][0]
+    out = {kernel: {**results[first][kernel], "case": first,
+                    "cases": {what: case[kernel] for what, case in results.items()}}
+           for kernel in SE3_WARP_KERNELS}
+    out["se3_warp_fwd"]["chains"] = {
+        what: {k: case[k] for k in ("plain chain", "kernels' chain")}
+        for what, case in results.items()}
+    out["se3_warp_fwd"]["flagship_launches"] = counted
+    return out
 
 
 def bench_phase(train_step_ms: float) -> None:
@@ -3156,6 +3325,9 @@ def main() -> None:
     # ---- 3d. the time codes' backward at the cells' shapes ---------------------
     kernel_results.update(time_code_phase(cfg, device))
 
+    # ---- 3e. the SE(3) warp's kernels at the cells' field chunks ----------------
+    kernel_results.update(se3_warp_phase(cfg, device))
+
     # ---- 4. render ------------------------------------------------------------
     model = NeRSembleModel(cfg, device)
     params = add_contrast(model.init_params(
@@ -3281,6 +3453,11 @@ def main() -> None:
                                         "nersemble_tpu/engine/optimizers.py:47)"),
         "time_code_bwd": ("time_code_bwd.cu", "none (XLA scatter-add, the transpose of "
                                               "nersemble_tpu/models/nersemble.py:146)"),
+        "warp_input": ("se3_warp.cu", "none (XLA fusion: nersemble_tpu/ops/posenc.py "
+                                      "windowed_posenc and the stem's concatenation)"),
+        "se3_warp_fwd": ("se3_warp.cu", "none (XLA fusion: nersemble_tpu/utils/se3.py "
+                                        "se3_apply and the NaN guard)"),
+        "se3_warp_bwd": ("se3_warp.cu", "none (XLA's transpose of se3_apply)"),
     }
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda",

@@ -5,7 +5,8 @@ warp code feed a skip-connection MLP stem (kernel B1-fwd on CUDA); one
 128-column linear head (columns 0:3 = v, 3:6 = r, the rest padding, kept
 for checkpoint layout) gives the screw axis whose exponential warps the
 point. Offsets are in normalized units, NaN-guarded to zero in the forward
-and the backward.
+and the backward. On the card the input encoding and the guarded exponential
+map are hand kernels (``ops/se3_warp.py``); on the CPU the plain chain.
 """
 
 import torch
@@ -13,8 +14,8 @@ import torch
 from nersemble_tpu_torch.config import SE3DeformationFieldConfig
 from nersemble_tpu_torch.ops.fused_mlp import mlp_apply
 from nersemble_tpu_torch.ops.mlp import apply_linear, init_linear, init_mlp
-from nersemble_tpu_torch.ops.posenc import posenc_out_dim, windowed_posenc
-from nersemble_tpu_torch.utils.se3 import se3_apply
+from nersemble_tpu_torch.ops.posenc import posenc_out_dim
+from nersemble_tpu_torch.ops.se3_warp import se3_offsets, warp_input
 
 HEAD_PAD = 128  # head_rv columns (checkpoint layout of the JAX package)
 
@@ -39,24 +40,10 @@ def deformation_offsets(params, positions_normalized: torch.Tensor,
                         use_fused_mlp: bool = True) -> torch.Tensor:
     """[N, 3] AABB-normalized positions + [N, D] warp codes -> [N, 3]
     offsets in normalized units; the stem through the fused MLP or, with
-    ``use_fused_mlp=False``, the unfused ``apply_mlp``."""
-    enc = windowed_posenc(positions_normalized, config.n_freq_pos,
-                          min_freq_exp=0.0, max_freq_exp=config.n_freq_pos - 1,
-                          include_input=True, window_param=window_param)
-    stem_in = torch.cat([enc, warp_code.to(enc.dtype)], dim=-1)
+    ``use_fused_mlp=False``, the unfused ``apply_mlp``. On the card the
+    positions may not require a gradient (``ops/se3_warp.py``)."""
+    stem_in = warp_input(positions_normalized, warp_code, config.n_freq_pos, window_param)
     skips = tuple(config.skip_connections)
     feat = mlp_apply(use_fused_mlp)(params.stem, stem_in, "relu", compute_dtype, skips)
-    screw = apply_linear(params.head_rv, feat, compute_dtype)[:, :6]
-    pos32 = positions_normalized.to(torch.float32)
-    screw = screw.to(torch.float32)
-    # the NaN guard (JAX: where(isnan(warped), pos32, warped)) with its
-    # backward kept finite: rows whose warp is NaN somewhere take the JAX
-    # values without a gradient, and se3_apply differentiates a zero screw
-    # there instead of the one that gave NaN (the double-where pattern)
-    with torch.no_grad():
-        raw = se3_apply(screw, pos32)
-    bad = torch.isnan(raw)
-    row_bad = bad.any(dim=-1, keepdim=True)
-    safe = se3_apply(torch.where(row_bad, torch.zeros_like(screw), screw), pos32)
-    warped = torch.where(row_bad, torch.where(bad, pos32, raw), safe)
-    return warped - pos32
+    return se3_offsets(apply_linear(params.head_rv, feat, compute_dtype),
+                       positions_normalized)

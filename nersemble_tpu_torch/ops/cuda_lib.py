@@ -22,7 +22,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("fused_mlp_fwd.cu", "fused_mlp_bwd.cu", "quad_build.cu",
            "quad_fold.cu", "gather_rows.cu", "copy_ladder.cu",
-           "blended_encode.cu", "fused_adam.cu", "time_code_bwd.cu")
+           "blended_encode.cu", "fused_adam.cu", "time_code_bwd.cu", "se3_warp.cu")
 HEADERS = ("quad_layout.cuh",)  # included by sources; part of the build's hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -73,6 +73,13 @@ _SIGNATURES = {
     # blocks, tiles, per_block, per_group, smem, vec, stream
     "time_code_bwd": (_VOID_P, _LL, _VOID_P, _LL, _VOID_P, _VOID_P, *(_LL,) * 11,
                       _VOID_P),
+    # pos, pos_ld, code, code_ld, out, n, n_freq, d_code, window_param,
+    # windowed, stream
+    "warp_input": (_VOID_P, _LL, _VOID_P, _LL, _VOID_P, _LL, _LL, _LL, _F, _LL, _VOID_P),
+    # head, head_ld, pos, pos_ld, off, screw, n, stream
+    "se3_warp_fwd": (_VOID_P, _LL, _VOID_P, _LL, _VOID_P, _VOID_P, _LL, _VOID_P),
+    # g, g_ld, screw, pos, pos_ld, dhead, n, width, stream
+    "se3_warp_bwd": (_VOID_P, _LL, _VOID_P, _VOID_P, _LL, _VOID_P, _LL, _LL, _VOID_P),
 }
 _RESTYPES = {"blended_encode_bwd_column_scratch": ctypes.c_longlong}  # else c_int
 

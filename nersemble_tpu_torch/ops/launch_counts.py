@@ -9,7 +9,8 @@ import collections
 from typing import Dict
 
 KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "quad_build", "quad_fold",
-           "blended_encode_fwd", "blended_encode_bwd", "fused_adam", "time_code_bwd")
+           "blended_encode_fwd", "blended_encode_bwd", "fused_adam", "time_code_bwd",
+           "warp_input", "se3_warp_fwd", "se3_warp_bwd")
 # of those, the launches on narrow rows: B3/B4 on rows or quarters of 2 to 8
 # bytes (the single grid and its columns), A3 on quad rows of 4 elements (the
 # single grid's column of one feature)

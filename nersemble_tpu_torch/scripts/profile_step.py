@@ -118,9 +118,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                    config.deformation_field,
                                    window_param=sched["window_deform"])
     run("deformation fwd", lambda: deform(pos))
+    # with respect to the field's parameters: the warp kernels give the
+    # positions no gradient (training's positions carry none)
     run("deformation fwd+bwd", lambda: grads(
-        (deform(pos_g) ** 2).sum(),
-        (*params.deformation.parameters(), pos_g)), True)
+        (deform(pos) ** 2).sum(), tuple(params.deformation.parameters())), True)
 
     def density(p):
         fp = prepare_field(params.field, config, levels)

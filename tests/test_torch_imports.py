@@ -178,7 +178,7 @@ TRAIN_PATH = ["models/nersemble.py", "models/field.py", "models/deformation.py",
               "ops/hash_ensemble.py", "ops/mlp.py", "ops/posenc.py",
               "ops/sampling.py", "ops/occupancy.py", "ops/rendering.py",
               "ops/losses.py", "ops/distortion.py", "ops/trunc_exp.py",
-              "ops/sh.py", "engine/optimizers.py", "utils/se3.py",
+              "ops/sh.py", "ops/se3_warp.py", "engine/optimizers.py", "utils/se3.py",
               "utils/windows.py", "utils/metrics.py", "utils/device.py",
               "data/ray_batcher.py", "parallel/mesh.py", "utils/spans.py"]
 HOST_SYNC = re.compile(r"\.(item|cpu|numpy)\(")
